@@ -1,0 +1,7 @@
+"""`python -m onebit_asr_tpu_torch.transcribe` — packed-ternary serving:
+weights + audio -> text (see cli/transcribe.py)."""
+
+from onebit_asr_tpu_torch.cli.transcribe import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())
