@@ -11,13 +11,16 @@ the flattened parameter tree with "/"-joined keys (`--params`); README.md
 shows how to write one from a JAX run. With `--data_dir` holding the run's
 `tokenizer.json` (and the `tokenizers` package installed) lines carry text;
 otherwise they carry the model-side ids, space-separated. `cmvn_stats.npz`
-in `--data_dir` supplies CMVN.
+in `--data_dir` supplies CMVN. A config with `fused_subsampler` runs the
+fused subsampler kernel; one with `fused_attention` is refused (that kernel
+is not ported yet) unless `--no_fused_kernels` clears both flags.
 
 `Transcriber` is the same path for waveforms already in memory.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 from typing import Mapping, Optional, Tuple
@@ -54,6 +57,9 @@ def build_argparser():
     p.add_argument("--max_batches", type=int, default=0, help="0 = all")
     p.add_argument("--out", default="", help="output file (default stdout)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--no_fused_kernels", action="store_true",
+                   help="serve with the unfused subsampler and plain attention "
+                        "(clears fused_attention and fused_subsampler)")
     return p
 
 
@@ -107,8 +113,10 @@ class Transcriber:
     t = Transcriber(cfg, params); ids, lens = t.transcribe(wavs, wav_lens)
 
     `params` is the JAX run's training-form parameter tree (nested dicts of
-    numpy arrays); `cmvn` is (mean, std) per mel bin or None. Runs on CUDA
-    unless `device="cpu"`."""
+    numpy arrays); `cmvn` is (mean, std) per mel bin or None. The model
+    follows `cfg.model` (with `fused_subsampler` the fused subsampler
+    kernel; `fused_attention` is refused). Runs on CUDA unless
+    `device="cpu"`."""
 
     def __init__(self, cfg: TrainConfig, params: Mapping, precision: int = 2,
                  int8_act: bool = False, cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
@@ -170,6 +178,9 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     with open(args.config) as f:
         cfg = train_config_from_json(f.read())
+    if args.no_fused_kernels:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, fused_attention=False, fused_subsampler=False))
     cmvn = None
     cmvn_path = os.path.join(args.data_dir, "cmvn_stats.npz")
     if args.data_dir and os.path.exists(cmvn_path):

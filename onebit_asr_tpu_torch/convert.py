@@ -10,9 +10,10 @@ with "/"-joined keys, the form an .npz holds) and becomes the state of
 - Dense kernels are [in, out]; PyTorch's weights are [out, in];
 - the subsampler convs are HWIO [3, 3, I, O]; PyTorch's are OIHW;
 - the depthwise kernel is [k, 1, D]; PyTorch's conv1d weight is [D, 1, k];
-- the subsampler output flattens as f*C+c in JAX ([B, T', F', C]) and as
-  c*F'+f here ([B, C, T', F'] -> [B, T', C*F']), so the rows of the
-  projection's kernel are permuted;
+- the unfused subsampler output flattens as f*C+c in JAX ([B, T', F', C])
+  and as c*F'+f here ([B, C, T', F'] -> [B, T', C*F']), so the rows of the
+  projection's kernel are permuted; the fused subsampler flattens f*C+c, as
+  JAX does, and keeps them (ModelConfig.fused_subsampler);
 - LayerNorm/BatchNorm "scale" is PyTorch's "weight";
 - packed quantized dense leaves (packed_kernel, alpha, bias) keep their
   layout: the CUDA kernels read the planar-packed [K/4, N] bytes directly.
@@ -166,8 +167,9 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
         sd[f"encoder.subsample.{conv}.weight"] = sub[conv]["kernel"].permute(3, 2, 0, 1)
         sd[f"encoder.subsample.{conv}.bias"] = sub[conv]["bias"]
     C, f2 = cfg.enc_d_model, subsampled_frames(cfg.input_dim)
-    proj = sub["proj"]["kernel"]  # rows f*C+c -> c*F'+f
-    proj = proj.reshape(f2, C, -1).transpose(0, 1).reshape(C * f2, -1)
+    proj = sub["proj"]["kernel"]  # rows f*C+c
+    if not cfg.fused_subsampler:  # -> c*F'+f, the unfused flatten order
+        proj = proj.reshape(f2, C, -1).transpose(0, 1).reshape(C * f2, -1)
     sd["encoder.subsample.proj.weight"] = proj.transpose(0, 1)
     sd["encoder.subsample.proj.bias"] = sub["proj"]["bias"]
     for key, stacked in flatten(enc["blocks"]).items():

@@ -41,6 +41,14 @@ def _check_supported(cfg: ModelConfig) -> None:
                 f"ModelConfig.{name}={value!r}: this package serves only "
                 f"{name}={supported!r} so far"
             )
+    if cfg.fused_attention:
+        # the JAX model takes its fused attention kernel on an accelerator
+        # (model/conformer.py:310-314); this package has no port of it yet
+        raise NotImplementedError(
+            "ModelConfig.fused_attention=True: the fused attention kernel is "
+            "not ported yet; serve this run with --no_fused_kernels (or "
+            "fused_attention=False)"
+        )
 
 
 class ConformerASR(nn.Module):
@@ -61,6 +69,7 @@ class ConformerASR(nn.Module):
             compute_dtype=compute_dtype,
             time_pad_multiple=cfg.time_pad_multiple,
             int8_act=int8_act,
+            fused_subsampler=cfg.fused_subsampler,
         )
         self.ctc_head = Dense(cfg.enc_d_model, cfg.vocab_size, compute_dtype)
 

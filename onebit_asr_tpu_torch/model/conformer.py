@@ -3,13 +3,17 @@
 Counterpart of onebit_asr_tpu/model/conformer.py for offline serving: the
 blocks run as a Python loop over `nn.ModuleList` (the JAX package scans over
 stacked [L, ...] parameters; convert.py slices them), attention is plain
-tensor code (the fused kernel is not on this path), and the subsampler is
-the unfused conv stack. Streaming variants (chunked attention, causal conv)
-and the other conv norms are not implemented here and are refused.
+tensor code (the fused attention kernel is not ported yet), and the
+subsampler is either the unfused conv stack or, with `fused=True`, the fused
+CUDA kernel of ops/subsampler.py. Streaming variants (chunked attention,
+causal conv) and the other conv norms are not implemented here and are
+refused.
 
 Layouts inside this package are PyTorch's: the subsampler convs are NCHW
-with OIHW weights, and its output flattens channel-major (index c*F'+f);
-convert.py permutes the JAX weights to match, so outputs agree.
+with OIHW weights, and the unfused output flattens channel-major (index
+c*F'+f); convert.py permutes the JAX weights to match, so outputs agree. The
+fused branch flattens as JAX does (f*C+c), and convert.py then keeps the
+JAX row order of the projection.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from onebit_asr_tpu_torch.model.layers import (
     lengths_to_mask,
     rel_positional_encoding,
 )
+from onebit_asr_tpu_torch.ops.subsampler import fused_subsample
 
 NEG_INF = -1e9  # finite mask fill: softmax stays NaN-free even for all-pad rows
 
@@ -164,22 +169,59 @@ class ConformerBlock(nn.Module):
 
 
 class Conv2dSubsampling(nn.Module):
-    """Two 3x3 stride-2 VALID convs + ReLU in the compute dtype, flatten,
-    Dense -> d_model (the unfused path, conformer.py:565-584)."""
+    """Two 3x3 stride-2 VALID convs + ReLU, flatten, Dense -> d_model
+    (conformer.py:536-584).
 
-    def __init__(self, input_dim: int, d_model: int, compute_dtype: torch.dtype):
+    Unfused: both convs in the compute dtype (features cast before conv1),
+    output flattened c*F'+f. With `fused=True` (conformer.py:553-560) the
+    same parameters go through `fused_subsample` (conv1 in f32, the conv1
+    activation never in device memory) and the output flattens f*C+c, the
+    row order of the JAX projection. On CUDA the kernel's operands (w1 as
+    [3, 3, C], w2 as bf16 [9C, C]) are laid out once from the conv weights
+    and rebuilt only when those change.
+
+    `subsample_fn` is a plain attribute: a function with the signature of
+    `fused_subsample` (its plain version, say) can take its place."""
+
+    def __init__(self, input_dim: int, d_model: int, compute_dtype: torch.dtype,
+                 fused: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.fused = fused
+        self.subsample_fn = fused_subsample
         self.conv1 = nn.Conv2d(1, d_model, 3, stride=2)
         self.conv2 = nn.Conv2d(d_model, d_model, 3, stride=2)
         f2 = subsampled_frames(input_dim)
         self.proj = Dense(d_model * f2, d_model, compute_dtype)
+        self._fused_operands = (None, None)
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
         return F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=2)
 
+    def fused_operands(self):
+        """(w1 [3, 3, C] f32, b1, w2 [9C, C] compute dtype, b2): the JAX
+        kernel layout of the conv weights, cached until they change."""
+        w1, w2 = self.conv1.weight, self.conv2.weight
+        key = (w2.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
+        if self._fused_operands[0] != key:
+            C = w2.shape[0]
+            with torch.no_grad():
+                ops = (
+                    w1[:, 0].permute(1, 2, 0).contiguous(),  # OIHW -> [3, 3, C]
+                    self.conv1.bias.detach(),
+                    w2.permute(2, 3, 1, 0).reshape(9 * C, C)  # OIHW -> [9C, C]
+                    .to(self.compute_dtype).contiguous(),
+                    self.conv2.bias.detach(),
+                )
+            self._fused_operands = (key, ops)
+        return self._fused_operands[1]
+
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            x = self.subsample_fn(feats.float(), *self.fused_operands(), self.compute_dtype)
+            B, T, Fq, C = x.shape
+            return self.proj(x.reshape(B, T, Fq * C))  # index f*C+c
         x = feats[:, None].to(self.compute_dtype)  # [B, 1, T, F]
         x = F.relu(self._conv(self.conv1, x))
         x = F.relu(self._conv(self.conv2, x))  # [B, C, T', F']
@@ -194,12 +236,14 @@ class ConformerEncoder(nn.Module):
     def __init__(self, input_dim: int = 80, d_model: int = 256, num_layers: int = 12,
                  num_heads: int = 4, d_ff: int = 1024, conv_kernel: int = 31,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 time_pad_multiple: int = 128, int8_act: bool = False):
+                 time_pad_multiple: int = 128, int8_act: bool = False,
+                 fused_subsampler: bool = False):
         super().__init__()
         self.d_model = d_model
         self.num_layers = num_layers
         self.time_pad_multiple = time_pad_multiple
-        self.subsample = Conv2dSubsampling(input_dim, d_model, compute_dtype)
+        self.subsample = Conv2dSubsampling(input_dim, d_model, compute_dtype,
+                                           fused=fused_subsampler)
         self.blocks = nn.ModuleList(
             ConformerBlock(d_model, num_heads, d_ff, conv_kernel, compute_dtype, int8_act)
             for _ in range(num_layers)

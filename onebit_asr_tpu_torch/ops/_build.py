@@ -38,6 +38,8 @@ SIGNATURES = {
     "ternary_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # xq, scale, packed, alpha, out, M, K, N, vec, device, stream
     "ternary_matmul_w2a8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, y, B, T, F, C, device, stream
+    "fused_subsample_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
