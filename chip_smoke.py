@@ -7,7 +7,9 @@ Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s:
 
-1. build: compiles csrc/*.cu with nvcc (sm_90a) and prints the time;
+1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
+   started together, then one link) and prints the time and each kernel's
+   registers;
 2. kernels: for each distinct (M, K, N) of one forward at B=8, 16 s
    (T'=512: M=4096, and 1023 for the position projection) each packed
    CUDA kernel is held against its plain PyTorch version on the card (bf16
@@ -18,18 +20,27 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s:
    shape (B=8, T=1598, F=80, C=256; within one bf16 ulp: rtol 2^-7, atol
    1e-3, conv2's f32 sums in another order) and timed beside the port's
    unfused cuDNN conv pair (`library_ms`, a yardstick only: it rounds conv1
-   otherwise);
+   otherwise); the fused rel-pos attention kernel is held against its plain
+   version at the path's shape (B=8, H=4, T=512, dh=64, key lengths up to
+   T'=398), at the Conformer-S head width dh=36 and with dropout rate 0.1
+   from seeded draws (|d| <= 1e-2 + 2^-7*|ref|: one bf16 ulp of a
+   probability or an output, f32 sums in another order) and timed beside
+   the port's unfused attention chain (`library_ms`, a yardstick only: it
+   rounds the scores to bf16; no single PyTorch call has the skewed
+   position term);
 3. path: the transcribe CLI runs end to end on the bf16 kernel, with
-   --int8_act, and with a config that sets fused_subsampler; each run must
-   launch its packed kernel 108 times per batch (9 packed projections x 12
-   blocks), the other never, and the fused subsampler kernel exactly once
-   per batch in the fused run and never otherwise. A config that sets
-   fused_attention must be refused, and served with --no_fused_kernels.
-   Then the same models' CTC log-probs through the kernels are compared on
-   valid frames with the models run on the plain versions on the card, and
-   the greedy ids, ms per batch and peak memory are printed; the unfused
-   bf16 path is also run with PyTorch's default TF32 for cuDNN and compared
-   with TF32 off.
+   --int8_act, with a config that sets fused_subsampler, and with one that
+   sets fused_attention and fused_subsampler; each run must launch its
+   packed kernel 108 times per batch (9 packed projections x 12 blocks), the
+   other never, the fused subsampler kernel exactly once per batch in the
+   fused runs, the fused attention kernel 12 times per batch (once per
+   block) in the fused-attention run, and neither otherwise. The
+   fused-attention config is also served with --no_fused_kernels (no fused
+   launch). Then the same models' CTC log-probs through the kernels are
+   compared on valid frames with the models run on the plain versions on
+   the card, and the greedy ids, ms per batch, peak memory and kernel
+   launches per batch are printed; the unfused bf16 path is also run with
+   PyTorch's default TF32 for cuDNN and compared with TF32 off.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -240,6 +251,84 @@ def subsample_kernel_phase(cfg, frames, seed, rows):
     }
 
 
+def attention_kernel_phase(cfg, t_pad, t_valid, seed, rows):
+    """The fused attention kernel against its plain version at the path's
+    shape (one launch per block of a B=8 forward), at dh=36 and with
+    dropout."""
+    from onebit_asr_tpu_torch.model.conformer import relpos_attention_chain
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    B, H, T = BATCH, cfg.enc_heads, t_pad
+    dh_path = cfg.enc_d_model // H
+    n = cfg.enc_layers
+    lens = np.concatenate([[t_valid], rng.integers(t_valid // 8, t_valid + 1, B - 1)])
+    key_mask = torch.from_numpy(
+        (np.arange(T)[None] < lens[:, None]).astype(np.float32)).to(dev)
+    max_err = 0.0
+    for label, dh, rate in (("path", dh_path, 0.0), ("conformer_s", 36, 0.0),
+                            ("dropout", dh_path, 0.1)):
+        q, k, v = (rng.standard_normal((B, H, T, dh)) for _ in range(3))
+        p = rng.standard_normal((H, 2 * T - 1, dh))
+        u, vb = (0.1 * rng.standard_normal((H, dh)) for _ in range(2))
+        q, k, v, p, u, vb = (torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+                             for a in (q, k, v, p, u, vb))
+        drop8 = torch.from_numpy(
+            rng.integers(0, 256, size=(B, H, T, T), dtype=np.uint8) if rate
+            else np.zeros((1, 1, 1, 1), np.uint8)).to(dev)
+        scale = 1.0 / float(np.sqrt(dh))
+        ops = (q, k, v, p, u, vb, key_mask, drop8, scale, rate)
+        out = fa.fused_relpos_attention(*ops)
+        ref = fa.fused_relpos_attention_reference(*ops)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        err = d.max().item()
+        same = (out == ref).float().mean().item()
+        if not bool((d <= 1e-2 + 2.0 ** -7 * ref.float().abs()).all()):
+            raise AssertionError(f"fused_relpos_attention {label}: max |d| {err} over tolerance")
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: fa.fused_relpos_attention(*ops))
+        plain_ms = cuda_ms(lambda: fa.fused_relpos_attention_reference(*ops))
+        P = 2 * T - 1
+        nbytes = (B * H * T * dh * 2 * 4 + H * P * dh * 2 + 2 * H * dh * 2 + B * T * 4
+                  + (B * H * T * T if rate else 0))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # qu k^T, the T x T skewed band of qv p^T, attn v (the TPU kernel's
+        # CostEstimate counts its full [T, P] qv p^T instead)
+        t_ops = 2.0 * B * H * T * (3 * T) * dh / PEAK_OPS["bf16"] * 1e3
+        bound = max(t_bytes, t_ops)
+        lib = ""
+        if label == "path":
+            # the port's unfused chain on the same operands, [B, T, H, dh]
+            chain_ops = (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                         v.transpose(1, 2).contiguous(), p.transpose(0, 1).contiguous(),
+                         u, vb, key_mask > 0, scale)
+            lib_ms = cuda_ms(lambda: relpos_attention_chain(*chain_ops))
+            chain = relpos_attention_chain(*chain_ops).transpose(1, 2)
+            chain_err = (chain.float() - ref.float()).abs().max().item()
+            lib = (f" library_ms={lib_ms:.4f} (unfused attention chain; its max|d| to the "
+                   f"plain version {chain_err:.3g})")
+            rows["fused_relpos_attention"] = {
+                "name": "fused_relpos_attention",
+                "route": "cuda",
+                "source": "onebit_asr_tpu_torch/csrc/attention.cu",
+                "replaces": "onebit_asr_tpu/ops/attention.py:141",
+                "launches": 0,
+                "max_abs_err": 0.0,
+                "ms": n * ms,
+                "plain_ms": n * plain_ms,
+                "bound_ms": n * bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": n * lib_ms,
+            }
+        log(f"kernel fused_relpos_attention {label} B={B} H={H} T={T} dh={dh} rate={rate}: "
+            f"max|d|={err:.3g} bit_identical={same:.4f} per launch: ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} (bytes {t_bytes:.4f}, "
+            f"bf16 {t_ops:.4f}){lib}; x{n}/forward at the path's shape")
+    rows["fused_relpos_attention"]["max_abs_err"] = max_err
+
+
 def synthetic_waveforms(seed: int):
     """8 waveforms of 2-16 s (one of exactly 16 s): tone mixtures + noise."""
     rng = np.random.default_rng(seed)
@@ -292,7 +381,9 @@ def pad_batch(wavs):
 
 def _use_plain(model, int8_act):
     """Point every kernel wrapper of `model` at its plain version."""
+    from onebit_asr_tpu_torch.model.conformer import RelPosMHSA
     from onebit_asr_tpu_torch.model.layers import QuantDense
+    from onebit_asr_tpu_torch.ops import attention as fa
     from onebit_asr_tpu_torch.ops import subsampler as ss
     from onebit_asr_tpu_torch.ops import ternary_matmul as tm
 
@@ -300,6 +391,8 @@ def _use_plain(model, int8_act):
     for m in model.modules():
         if isinstance(m, QuantDense):
             m.matmul = plain
+        elif isinstance(m, RelPosMHSA):
+            m.attention_fn = fa.fused_relpos_attention_reference
     model.encoder.subsample.subsample_fn = ss.fused_subsample_reference
 
 
@@ -316,14 +409,19 @@ def _compare(name, lp, lp_ref, enc_lens, vocab, pad_multiple):
     return mask, d.max().item(), d.mean().item(), agree
 
 
-def check_variant(name, t, int8_act, batch, lens):
-    """ms per batch and peak memory of Transcriber `t` on the kernels, then
-    its CTC log-probs against the same model on the plain versions."""
+def check_variant(name, t, int8_act, batch, lens, kernels):
+    """ms per batch, peak memory and kernel launches per batch of Transcriber
+    `t` on the kernels, then its CTC log-probs against the same model on the
+    plain versions."""
     cfg = t.cfg.model
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: t.transcribe(batch, lens), iters=5, warmup=1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for fn in kernels.values():
+        fn.launches = 0
+    t.transcribe(batch, lens)
+    launched = {k: fn.launches for k, fn in kernels.items() if fn.launches}
     lp, enc_lens = t.log_probs(batch, lens)
     ids, n_ids = t.transcribe(batch, lens)
     if name == "ternary_matmul_bf16":
@@ -348,13 +446,14 @@ def check_variant(name, t, int8_act, batch, lens):
         f"valid_frames={int(mask.sum())} "
         f"logprob max|d|={dmax:.4g} mean|d|={dmean:.4g} "
         f"argmax_agree={agree:.4f} same_greedy_ids={same_ids}/{BATCH} "
-        f"ms_per_batch={ms:.2f} peak_mem_gb={peak_gb:.3f}")
+        f"ms_per_batch={ms:.2f} peak_mem_gb={peak_gb:.3f} launches_per_batch={launched}")
     if dmean > 0.05 or agree < 0.9:
         raise AssertionError(f"{name}: kernel path strays from the plain path")
 
 
 def path_phase(cfg, params, wavs, rows, profile=False):
     from onebit_asr_tpu_torch.cli import transcribe as cli
+    from onebit_asr_tpu_torch.ops import attention as fa
     from onebit_asr_tpu_torch.ops import subsampler as ss
     from onebit_asr_tpu_torch.ops import ternary_matmul as tm
     from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend
@@ -370,7 +469,8 @@ def path_phase(cfg, params, wavs, rows, profile=False):
 
     kernels = {"ternary_matmul_bf16": tm.ternary_matmul,
                "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
-               "fused_subsample": ss.fused_subsample}
+               "fused_subsample": ss.fused_subsample,
+               "fused_relpos_attention": fa.fused_relpos_attention}
     configs = {
         "config": cfg,
         "config_fused": dataclasses.replace(cfg, fused_subsampler=True),
@@ -384,6 +484,9 @@ def path_phase(cfg, params, wavs, rows, profile=False):
         ("ternary_matmul_w2a8", "config", ["--int8_act"], {"ternary_matmul_w2a8": L}),
         ("fused_subsampler", "config_fused", [],
          {"ternary_matmul_bf16": L, "fused_subsample": 1}),
+        ("fused_attention", "config_fused_attention", [],
+         {"ternary_matmul_bf16": L, "fused_subsample": 1,
+          "fused_relpos_attention": cfg.enc_layers}),
         ("no_fused_kernels", "config_fused_attention", ["--no_fused_kernels"],
          {"ternary_matmul_bf16": L}),
     ]
@@ -398,12 +501,6 @@ def path_phase(cfg, params, wavs, rows, profile=False):
                     "--wav_dir", paths["wavs"], "--data_dir", paths["data"],
                     "--batch_size", str(BATCH), "--out", out, *extra]
 
-        try:
-            cli.main(argv("config_fused_attention", [], os.path.join(root, "refused.tsv")))
-        except NotImplementedError as e:
-            log(f"path cli fused_attention: refused ({e})")
-        else:
-            raise AssertionError("a config with fused_attention=True was served")
         for label, config, extra, want in runs:
             out = os.path.join(root, f"hyp_{label}.tsv")
             for fn in kernels.values():
@@ -421,6 +518,8 @@ def path_phase(cfg, params, wavs, rows, profile=False):
                 rows[label]["launches"] = counts[label]
             if label == "fused_subsampler":
                 rows["fused_subsample"]["launches"] = counts["fused_subsample"]
+            if label == "fused_attention":
+                rows["fused_relpos_attention"]["launches"] = counts["fused_relpos_attention"]
             with open(out) as f:
                 lines = [l.rstrip("\n").split("\t") for l in f]
             if len(lines) != BATCH or any(len(l) != 2 for l in lines):
@@ -432,10 +531,11 @@ def path_phase(cfg, params, wavs, rows, profile=False):
         ("ternary_matmul_bf16", cfg, False),
         ("ternary_matmul_w2a8", cfg, True),
         ("fused_subsampler", configs["config_fused"], False),
+        ("fused", configs["config_fused_attention"], False),
     )
     for name, model_cfg, int8_act in variants:
         t = cli.Transcriber(TrainConfig(model=model_cfg), params, 2, int8_act, cmvn, "cuda")
-        check_variant(name, t, int8_act, batch, lens)
+        check_variant(name, t, int8_act, batch, lens, kernels)
         del t  # nothing of one variant stays allocated for the next
     # profiled last: a finished profiler run can slow later host code
     for name, model_cfg, int8_act in variants if profile else ():
@@ -478,6 +578,7 @@ def main(argv=None) -> int:
     t_pad = -(-t_sub // cfg.time_pad_multiple) * cfg.time_pad_multiple
     rows = kernel_phase(cfg, t_pad, args.seed)
     subsample_kernel_phase(cfg, frames, args.seed, rows)
+    attention_kernel_phase(cfg, t_pad, t_sub, args.seed, rows)
     log("kernels: every kernel agrees with its plain version at the path's shapes")
 
     params = init_params(cfg, args.seed)

@@ -12,8 +12,8 @@ shows how to write one from a JAX run. With `--data_dir` holding the run's
 `tokenizer.json` (and the `tokenizers` package installed) lines carry text;
 otherwise they carry the model-side ids, space-separated. `cmvn_stats.npz`
 in `--data_dir` supplies CMVN. A config with `fused_subsampler` runs the
-fused subsampler kernel; one with `fused_attention` is refused (that kernel
-is not ported yet) unless `--no_fused_kernels` clears both flags.
+fused subsampler kernel, one with `fused_attention` the fused rel-pos
+attention kernel; `--no_fused_kernels` clears both flags.
 
 `Transcriber` is the same path for waveforms already in memory.
 """
@@ -58,7 +58,8 @@ def build_argparser():
     p.add_argument("--out", default="", help="output file (default stdout)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--no_fused_kernels", action="store_true",
-                   help="serve with the unfused subsampler and plain attention "
+                   help="serve without the fused subsampler and attention kernels, "
+                        "through the unfused convs and attention chain "
                         "(clears fused_attention and fused_subsampler)")
     return p
 
@@ -115,8 +116,8 @@ class Transcriber:
     `params` is the JAX run's training-form parameter tree (nested dicts of
     numpy arrays); `cmvn` is (mean, std) per mel bin or None. The model
     follows `cfg.model` (with `fused_subsampler` the fused subsampler
-    kernel; `fused_attention` is refused). Runs on CUDA unless
-    `device="cpu"`."""
+    kernel, with `fused_attention` the fused attention kernel). Runs on CUDA
+    unless `device="cpu"`."""
 
     def __init__(self, cfg: TrainConfig, params: Mapping, precision: int = 2,
                  int8_act: bool = False, cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,

@@ -2,12 +2,12 @@
 
 Counterpart of onebit_asr_tpu/model/conformer.py for offline serving: the
 blocks run as a Python loop over `nn.ModuleList` (the JAX package scans over
-stacked [L, ...] parameters; convert.py slices them), attention is plain
-tensor code (the fused attention kernel is not ported yet), and the
-subsampler is either the unfused conv stack or, with `fused=True`, the fused
-CUDA kernel of ops/subsampler.py. Streaming variants (chunked attention,
-causal conv) and the other conv norms are not implemented here and are
-refused.
+stacked [L, ...] parameters; convert.py slices them), attention is either
+plain tensor code or, with `fused=True`, the fused CUDA kernel of
+ops/attention.py, and the subsampler is either the unfused conv stack or,
+with `fused=True`, the fused CUDA kernel of ops/subsampler.py. Streaming
+variants (chunked attention, causal conv) and the other conv norms are not
+implemented here and are refused.
 
 Layouts inside this package are PyTorch's: the subsampler convs are NCHW
 with OIHW weights, and the unfused output flattens channel-major (index
@@ -33,6 +33,7 @@ from onebit_asr_tpu_torch.model.layers import (
     lengths_to_mask,
     rel_positional_encoding,
 )
+from onebit_asr_tpu_torch.ops.attention import fused_relpos_attention
 from onebit_asr_tpu_torch.ops.subsampler import fused_subsample
 
 NEG_INF = -1e9  # finite mask fill: softmax stays NaN-free even for all-pad rows
@@ -60,6 +61,27 @@ def rel_shift_padded(x: torch.Tensor) -> torch.Tensor:
     return x[..., :T]
 
 
+def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale):
+    """The unfused attention of `RelPosMHSA` (JAX conformer.py:354-397): q/k/v
+    [B, T, H, dh], p [2T-1, H, dh], u/vb [H, dh], all in the compute dtype;
+    key_mask [B, T] bool -> [B, T, H, dh]. The content and position scores
+    are rounded to the compute dtype and added there; the softmax runs in
+    f32, and its output is rounded to the compute dtype."""
+    H, dh = u.shape
+    cd = v.dtype
+    # a zero row in front of the table puts rel_shift's pad column into
+    # column 0 of the product (rel_shift_padded)
+    p_padded = torch.cat([p.new_zeros(1, H, dh), p], dim=0)  # [2T, H, dh]
+    bd = rel_shift_padded(torch.einsum("bthd,phd->bhtp", q + vb, p_padded))
+    ac = torch.einsum("bthd,bshd->bhts", q + u, k)
+    scores = (ac + bd).to(torch.float32) * scale
+    scores = scores.masked_fill(~key_mask[:, None, None, :], NEG_INF)
+    attn = torch.softmax(scores, dim=-1).to(cd)
+    return torch.einsum(
+        "bhts,bshd->bthd", attn.to(torch.float32), v.to(torch.float32)
+    ).to(cd)
+
+
 class FeedForward(nn.Module):
     """Macaron feed-forward: pre-LN -> QuantDense d->d_ff -> swish ->
     QuantDense d_ff->d."""
@@ -77,14 +99,25 @@ class FeedForward(nn.Module):
 class RelPosMHSA(nn.Module):
     """Relative-position multi-head self-attention (Transformer-XL style),
     with the separate q/k/v/pos/out projections of the serving path
-    (conformer.py:237-251) and plain tensor attention (:354-397)."""
+    (conformer.py:237-251) and plain tensor attention (:354-397) or, with
+    `fused=True` (:315-353), `fused_relpos_attention` on [B, H, T, dh]
+    operands, dropout off (serving is deterministic).
 
-    def __init__(self, d: int, num_heads: int, compute_dtype: torch.dtype, int8_act: bool):
+    `attention_fn` is a plain attribute: a function with the signature of
+    `fused_relpos_attention` (its plain version, say) can take its place."""
+
+    def __init__(self, d: int, num_heads: int, compute_dtype: torch.dtype, int8_act: bool,
+                 fused: bool = False):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"d_model {d} not divisible by heads {num_heads}")
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
+        self.fused = fused
+        self.attention_fn = fused_relpos_attention
+        # the drop8 operand at rate 0: never read
+        self.register_buffer("no_drop", torch.zeros((1, 1, 1, 1), dtype=torch.uint8),
+                             persistent=False)
         self.ln = LayerNorm(d)
         for name in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj"):
             setattr(self, name, QuantDense(d, d, compute_dtype, int8_act))
@@ -105,18 +138,18 @@ class RelPosMHSA(nn.Module):
         p = self.pos_proj(pos.to(cd)).reshape(-1, H, dh)  # [2T-1, H, dh]
         u = self.pos_bias_u.to(cd)
         vb = self.pos_bias_v.to(cd)
+        scale = 1.0 / math.sqrt(dh)
 
-        # a zero row in front of the table puts rel_shift's pad column into
-        # column 0 of the product (rel_shift_padded)
-        p_padded = torch.cat([p.new_zeros(1, H, dh), p], dim=0)  # [2T, H, dh]
-        bd = rel_shift_padded(torch.einsum("bthd,phd->bhtp", q + vb, p_padded))
-        ac = torch.einsum("bthd,bshd->bhts", q + u, k)
-        scores = (ac + bd).to(torch.float32) * (1.0 / math.sqrt(dh))
-        scores = scores.masked_fill(~key_mask[:, None, None, :], NEG_INF)
-        attn = torch.softmax(scores, dim=-1).to(cd)
-        out = torch.einsum(
-            "bhts,bshd->bthd", attn.to(torch.float32), v.to(torch.float32)
-        ).to(cd)
+        if self.fused:
+            out = self.attention_fn(
+                q.transpose(1, 2).contiguous(),  # [B, H, T, dh]
+                k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(),
+                p.transpose(0, 1).contiguous(),  # [H, 2T-1, dh]
+                u, vb, key_mask.to(torch.float32), self.no_drop, scale, 0.0,
+            ).transpose(1, 2)  # back to [B, T, H, dh]
+        else:
+            out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale)
         out = self.out_proj(out.reshape(B, T, D))
         return out * key_mask[..., None].to(out.dtype)  # zero padded queries
 
@@ -152,10 +185,10 @@ class ConformerBlock(nn.Module):
     """ff1(1/2) -> MHSA -> Conv -> ff2(1/2) -> LN."""
 
     def __init__(self, d: int, num_heads: int, d_ff: int, conv_kernel: int,
-                 compute_dtype: torch.dtype, int8_act: bool):
+                 compute_dtype: torch.dtype, int8_act: bool, fused_attention: bool = False):
         super().__init__()
         self.ff1 = FeedForward(d, d_ff, compute_dtype, int8_act)
-        self.mhsa = RelPosMHSA(d, num_heads, compute_dtype, int8_act)
+        self.mhsa = RelPosMHSA(d, num_heads, compute_dtype, int8_act, fused=fused_attention)
         self.conv = ConvModule(d, conv_kernel, compute_dtype)
         self.ff2 = FeedForward(d, d_ff, compute_dtype, int8_act)
         self.ln_out = LayerNorm(d)
@@ -237,7 +270,7 @@ class ConformerEncoder(nn.Module):
                  num_heads: int = 4, d_ff: int = 1024, conv_kernel: int = 31,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  time_pad_multiple: int = 128, int8_act: bool = False,
-                 fused_subsampler: bool = False):
+                 fused_subsampler: bool = False, fused_attention: bool = False):
         super().__init__()
         self.d_model = d_model
         self.num_layers = num_layers
@@ -245,7 +278,8 @@ class ConformerEncoder(nn.Module):
         self.subsample = Conv2dSubsampling(input_dim, d_model, compute_dtype,
                                            fused=fused_subsampler)
         self.blocks = nn.ModuleList(
-            ConformerBlock(d_model, num_heads, d_ff, conv_kernel, compute_dtype, int8_act)
+            ConformerBlock(d_model, num_heads, d_ff, conv_kernel, compute_dtype, int8_act,
+                           fused_attention)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(d_model)

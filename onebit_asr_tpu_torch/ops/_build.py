@@ -2,9 +2,10 @@
 
 `library()` compiles every `csrc/*.cu` into one shared library with a plain C
 interface at first use, into `_build/` beside this package (listed in
-.gitignore), and loads it. The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
-Nothing is built or loaded when the module is imported.
+.gitignore), and loads it: one `nvcc` per source, all started together,
+then one link. The library's name carries a hash of the sources and flags,
+so an edited source is rebuilt and an unchanged one is reused. Nothing is
+built or loaded when the module is imported.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check` turns a
 non-zero code into a RuntimeError with CUDA's own message.
@@ -27,11 +28,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> argument types of every C entry in csrc/
 SIGNATURES = {
     # x, packed, alpha, out, M, K, N, vec, device, stream
@@ -40,6 +42,9 @@ SIGNATURES = {
     "ternary_matmul_w2a8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, y, B, T, F, C, device, stream
     "fused_subsample_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k, v, p, u, vb, key_mask, drop8, out, B, H, T, dh, scale, drop_k,
+    # drop_scale, device, stream
+    "fused_relpos_attention_fwd": (_P,) * 9 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -72,6 +77,18 @@ def _digest(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds) -> str:
+    """Run the commands in parallel; their output, or RuntimeError naming
+    the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into _build/ unless an up-to-date library is there;
     returns its path. With `verbose`, nvcc reports each kernel's registers
@@ -81,20 +98,16 @@ def build(verbose: bool = False) -> Path:
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, target)  # atomic: a concurrent build never sees a torn file
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{src.stem}.o") for src in srcs]
+        out = _run([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                     "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)])
+        tmp = os.path.join(work, target.name)
+        out += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        if verbose:
+            print(out, flush=True)
+        os.replace(tmp, target)  # atomic: a concurrent build never sees a torn file
     return target
 
 

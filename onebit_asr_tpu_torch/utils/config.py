@@ -59,8 +59,8 @@ class ModelConfig:
     attn_chunk_size: Optional[int] = None
     time_pad_multiple: int = 128  # pad the subsampled time axis to a
     # multiple of this when it exceeds half of it; 1 disables
-    fused_attention: bool = False  # read to refuse: the fused rel-pos
-    # attention kernel is not ported yet (serve with --no_fused_kernels)
+    fused_attention: bool = False  # the whole rel-pos attention of a block
+    # as one CUDA kernel (ops/attention.py), in the JAX kernel's roundings
     fused_subsampler: bool = False  # conv1 -> ReLU -> conv2 -> ReLU as one
     # CUDA kernel (ops/subsampler.py), conv1 in f32 as the JAX kernel does
 

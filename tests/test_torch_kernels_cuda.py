@@ -12,7 +12,9 @@ K <= 1024). The W2A8 kernel sums integers exactly and applies the scales in
 the plain version's order: equal bit for bit. The fused subsampler kernel
 rounds conv1 as its plain version does and sums conv2's 9C bf16 products in
 f32 in another order, so its bf16 output may differ by one bf16 ulp (rtol
-2^-7, atol 1e-3).
+2^-7, atol 1e-3). The fused attention kernel sums its products in f32 in
+another order and takes the softmax sum online, so a bf16 probability or
+output may differ by one bf16 ulp (|d| <= 1e-2 + 2^-7 |ref|).
 """
 
 import numpy as np
@@ -210,6 +212,128 @@ def test_fused_subsampler_forward_on_kernels_matches_plain(cuda):
         for m in model.modules():
             if isinstance(m, QuantDense):
                 m.matmul = tm.ternary_matmul_reference
+        _, _, ref = model(feats, lens)
+    lp = torch.log_softmax(logits.float(), -1)[mask]
+    lp_ref = torch.log_softmax(ref.float(), -1)[mask]
+    assert torch.isfinite(lp).all()
+    assert (lp - lp_ref).abs().max().item() < 0.1
+
+
+def _attention_operands(B, H, T, dh, seed, device, lens=None, rate=0.0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, H, T, dh)) for _ in range(3))
+    p = rng.standard_normal((H, 2 * T - 1, dh))
+    u, vb = (0.1 * rng.standard_normal((H, dh)) for _ in range(2))
+    if lens is None:
+        lens = rng.integers(T // 2, T + 1, size=B)
+    key_mask = (np.arange(T)[None] < np.asarray(lens)[:, None]).astype(np.float32)
+    ops = [torch.from_numpy(a.astype(np.float32)).to(device).to(torch.bfloat16)
+           for a in (q, k, v, p, u, vb)]
+    drop8 = (rng.integers(0, 256, size=(B, H, T, T), dtype=np.uint8) if rate
+             else np.zeros((1, 1, 1, 1), np.uint8))
+    return ops + [torch.from_numpy(key_mask).to(device), torch.from_numpy(drop8).to(device)]
+
+
+def _assert_attention_close(out, ref):
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    d = (out.float() - ref.float()).abs()
+    bound = 1e-2 + 2.0 ** -7 * ref.float().abs()
+    assert bool((d <= bound).all()), d.max().item()
+
+
+# (B, H, T, dh): B=1 at T=37 (one ragged key tile) and T=512 (the serving
+# T' of 16 s), the Conformer-M/L head width 64, Conformer-S 36 (rows not
+# 16-byte aligned), 16 and 32; then the serving shape at B=8
+ATTENTION_SHAPES = [
+    (1, 2, T, dh) for T in (37, 512) for dh in (16, 36, 64)
+] + [(1, 2, 100, 32), (8, 4, 512, 64)]
+
+
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
+def test_fused_attention_kernel_matches_plain(cuda, shape):
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    B, H, T, dh = shape
+    ops = _attention_operands(*shape, seed=sum(shape), device=cuda)
+    scale = 1.0 / float(np.sqrt(dh))
+    before = fa.fused_relpos_attention.launches
+    out = fa.fused_relpos_attention(*ops, scale, 0.0)
+    torch.cuda.synchronize()
+    assert fa.fused_relpos_attention.launches == before + 1
+    ref = fa.fused_relpos_attention_reference(*ops, scale, 0.0)
+    _assert_attention_close(out, ref)
+
+
+@pytest.mark.parametrize("T", [37, 130])
+def test_fused_attention_kernel_ragged_keys_and_all_pad_row(cuda, T):
+    """Key lengths that end inside a key tile, a row with no valid key
+    (uniform 1/T over all T keys, not over the tile-rounded length), and a
+    full row."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    ops = _attention_operands(3, 2, T, 36, seed=T, device=cuda, lens=[T - 5, 0, T])
+    out = fa.fused_relpos_attention(*ops, 1 / 6, 0.0)
+    ref = fa.fused_relpos_attention_reference(*ops, 1 / 6, 0.0)
+    _assert_attention_close(out, ref)
+    uniform = ops[2][1].float().mean(-2, keepdim=True).expand(-1, T, -1)
+    torch.testing.assert_close(out[1].float(), uniform, rtol=1e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+def test_fused_attention_kernel_dropout(cuda, dh):
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    ops = _attention_operands(2, 2, 77, dh, seed=dh, device=cuda, rate=0.1)
+    out = fa.fused_relpos_attention(*ops, 0.125, 0.1)
+    ref = fa.fused_relpos_attention_reference(*ops, 0.125, 0.1)
+    _assert_attention_close(out, ref)
+    assert not torch.allclose(out, fa.fused_relpos_attention_reference(*ops, 0.125, 0.0))
+
+
+def test_fused_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    ops = _attention_operands(1, 2, 40, 16, seed=0, device=cuda)
+    before = fa.fused_relpos_attention.launches
+    with pytest.raises(NotImplementedError):  # f32 operands
+        fa.fused_relpos_attention(*(t.float() for t in ops[:6]), *ops[6:], 0.25, 0.0)
+    wide = _attention_operands(1, 1, 40, 128, seed=0, device=cuda)
+    with pytest.raises(ValueError):  # dh > 64
+        fa.fused_relpos_attention(*wide, 0.25, 0.0)
+    with pytest.raises(RuntimeError):  # split devices
+        fa.fused_relpos_attention(*ops[:3], ops[3].cpu(), *ops[4:], 0.25, 0.0)
+    assert fa.fused_relpos_attention.launches == before
+
+
+def test_fused_attention_forward_on_kernels_matches_plain(cuda):
+    """A small packed model with fused_attention (and fused_subsampler):
+    one attention launch per block, and CTC log-probs close to the same
+    model on the plain versions."""
+    import dataclasses
+
+    from onebit_asr_tpu_torch.convert import init_params, packed_model_from_jax
+    from onebit_asr_tpu_torch.model.layers import QuantDense
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.utils.config import ModelConfig
+
+    cfg = dataclasses.replace(
+        ModelConfig(), vocab_size=40, enc_d_model=64, enc_layers=2, enc_heads=2,
+        enc_d_ff=128, enc_conv_kernel=7, fused_attention=True, fused_subsampler=True,
+    )
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((3, 301, 80)).astype(np.float32)).to(cuda)
+    lens = torch.tensor([301, 250, 120], device=cuda)
+    model = packed_model_from_jax(cfg, init_params(cfg, seed=0), 2, False, cuda)
+    before = fa.fused_relpos_attention.launches
+    with torch.inference_mode():
+        _, mask, logits = model(feats, lens)
+        assert fa.fused_relpos_attention.launches == before + cfg.enc_layers
+        model.encoder.subsample.subsample_fn = ss.fused_subsample_reference
+        for m in model.modules():
+            if isinstance(m, QuantDense):
+                m.matmul = tm.ternary_matmul_reference
+        for block in model.encoder.blocks:
+            block.mhsa.attention_fn = fa.fused_relpos_attention_reference
         _, _, ref = model(feats, lens)
     lp = torch.log_softmax(logits.float(), -1)[mask]
     lp_ref = torch.log_softmax(ref.float(), -1)[mask]

@@ -176,17 +176,23 @@ def test_config_json_with_fused_subsampler_builds_fused_branch():
     assert not ConformerASR(plain).encoder.subsample.fused
 
 
-def test_fused_attention_is_refused():
+def test_fused_attention_config_builds_fused_attention():
+    """A config.json with fused_attention builds the fused attention branch
+    in every block (and not the fused subsampler unless that flag is set)."""
     jcfg, _ = _configs(fused_attention=True)
     cfg = train_config_from_json(
         jax_config.config_to_json(jax_config.TrainConfig(model=jcfg))).model
-    assert cfg.fused_attention
-    with pytest.raises(NotImplementedError, match="--no_fused_kernels"):
-        ConformerASR(cfg)
+    assert cfg.fused_attention and not cfg.fused_subsampler
+    model = ConformerASR(cfg)
+    assert all(block.mhsa.fused for block in model.encoder.blocks)
+    assert not model.encoder.subsample.fused
+    _, plain = _configs()
+    assert not any(block.mhsa.fused for block in ConformerASR(plain).encoder.blocks)
 
 
 def test_no_fused_kernels_clears_both_flags(jax_params, tmp_path, monkeypatch):
-    """A config with both flags: the CLI refuses it, and serves it with
+    """A config with both flags: the CLI serves it on the CPU through a model
+    whose blocks take the fused attention branch, and with
     --no_fused_kernels through a model built with neither flag."""
     import wave
 
@@ -206,17 +212,23 @@ def test_no_fused_kernels_clears_both_flags(jax_params, tmp_path, monkeypatch):
     argv = ["--params", str(tmp_path / "params.npz"), "--config", str(tmp_path / "config.json"),
             "--wav_dir", str(tmp_path / "wavs"), "--out", str(tmp_path / "hyp.tsv"),
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError):
-        cli.main(argv)
     built = []
 
     class Recording(cli.Transcriber):
         def __init__(self, cfg, *args, **kwargs):
-            built.append(cfg.model)
             super().__init__(cfg, *args, **kwargs)
+            built.append(self.model)
 
     monkeypatch.setattr(cli, "Transcriber", Recording)
+    assert cli.main(argv) == 0
+    assert (tmp_path / "hyp.tsv").read_text().startswith("a\t")
+    assert built[0].cfg.fused_attention and built[0].cfg.fused_subsampler
+    assert all(block.mhsa.fused for block in built[0].encoder.blocks)
+    assert built[0].encoder.subsample.fused
+    (tmp_path / "hyp.tsv").unlink()
     assert cli.main(argv + ["--no_fused_kernels"]) == 0
-    assert len(built) == 1
-    assert not built[0].fused_attention and not built[0].fused_subsampler
+    assert len(built) == 2
+    assert not built[1].cfg.fused_attention and not built[1].cfg.fused_subsampler
+    assert not any(block.mhsa.fused for block in built[1].encoder.blocks)
+    assert not built[1].encoder.subsample.fused
     assert (tmp_path / "hyp.tsv").read_text().startswith("a\t")

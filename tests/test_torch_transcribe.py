@@ -337,8 +337,8 @@ def test_transcribe_cli_end_to_end(jax_params, tmp_path):
 def test_port_runs_without_jax_or_the_jax_package():
     """The port and chip_smoke.py import neither jax nor onebit_asr_tpu: with
     both blocked, every module imports, a tiny packed forward runs on CPU
-    with the unfused and the fused subsampler, and chip_smoke exits 1
-    without its result line when there is no card."""
+    unfused, with the fused subsampler and with the fused attention, and
+    chip_smoke exits 1 without its result line when there is no card."""
     code = r"""
 import importlib, io, contextlib, pkgutil, sys, dataclasses
 sys.modules["jax"] = None
@@ -351,10 +351,11 @@ from onebit_asr_tpu_torch.convert import init_params, packed_model_from_jax
 from onebit_asr_tpu_torch.utils.config import ModelConfig
 cfg = dataclasses.replace(ModelConfig(), vocab_size=12, enc_d_model=32, enc_layers=1,
                           enc_heads=2, enc_d_ff=64, enc_conv_kernel=3)
-for fused in (False, True):
-    c = dataclasses.replace(cfg, fused_subsampler=fused)
+for fused, fused_attention in ((False, False), (True, False), (False, True)):
+    c = dataclasses.replace(cfg, fused_subsampler=fused, fused_attention=fused_attention)
     model = packed_model_from_jax(c, init_params(c, 0), device="cpu")
     assert model.encoder.subsample.fused == fused
+    assert model.encoder.blocks[0].mhsa.fused == fused_attention
     _, mask, logits = model(torch.randn(2, 40, 80), torch.tensor([40, 30]))
     assert logits.shape == (2, 9, 12) and torch.isfinite(logits.float()).all()
 import chip_smoke
