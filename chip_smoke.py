@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (onebit_asr_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--profile]
 
 Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
-weights drawn from --seed, on 8 synthetic waveforms of 2-16 s:
+weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
+3-branch QAT train step of the same model:
 
 1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
    started together, then one link) and prints the time and each kernel's
@@ -40,7 +41,26 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s:
    compared on valid frames with the models run on the plain versions on
    the card, and the greedy ids, ms per batch, peak memory and kernel
    launches per batch are printed; the unfused bf16 path is also run with
-   PyTorch's default TF32 for cuDNN and compared with TF32 off.
+   PyTorch's default TF32 for cuDNN and compared with TF32 off;
+4. ctc: the CTC alpha and beta lattice kernels are held against their plain
+   versions at the train step's shape (the three branches of B=16 in one
+   launch: B=48, T'=256, S=97), at LibriSpeech's ceiling (T=512, B=16,
+   S=457) and on a ragged case (lengths < T, label length 0, an infeasible
+   row, repeated labels): NEG_INF entries must match as a pattern, finite
+   ones within 1e-5 relative; timed at the step's shape beside
+   F.ctc_loss forward (alpha) and forward + backward (beta), whose NLL
+   also cross-checks the port's;
+5. train: the library train step (train/step.py::make_train_step) at full
+   Conformer-M width and depth, dropout 0.1, on bench.py's batch of record
+   (B=16, 1,024 frames, U=48): a warm-up step, then TRAIN_STEPS steps that
+   must launch each lattice kernel exactly once per step and give finite
+   losses and gradient norms; ms per step and peak memory are printed, and
+   one step on the kernels is held against the same step with the plain
+   lattices (aux rtol 1e-4, gradients within 1e-2 of their norm: the
+   backward's atomic sums run in no fixed order);
+6. train cli: `python -m onebit_asr_tpu_torch.train --dummy_data` for 2
+   epochs of 3 steps at Conformer-M widths, then a --resume run of a third
+   epoch in this process, which must continue from step 6.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -68,6 +88,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 BATCH = 8
 SAMPLE_RATE = 16000
+TRAIN_STEPS = 3
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"  # where the training phases run
 
 
 def log(msg: str) -> None:
@@ -544,6 +567,286 @@ def path_phase(cfg, params, wavs, rows, profile=False):
         profile_breakdown(lambda: t.transcribe(batch, lens))
 
 
+def _lattice_case(rng, B, T, U, V, t_valid, dev):
+    """Emissions, lengths, skip mask and both init rows for random logits
+    and labels; logit lengths up to `t_valid`, label lengths from U/2."""
+    from onebit_asr_tpu_torch.losses import ctc as tctc
+
+    logits = torch.from_numpy(rng.standard_normal((B, T, V)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(4, V, (B, U))).to(dev)
+    label_lens = torch.from_numpy(rng.integers(U // 2, U + 1, B)).to(dev)
+    lens = torch.from_numpy(rng.integers(t_valid // 2, t_valid + 1, B)).to(dev)
+    lens[0] = t_valid
+    z, can_skip = tctc._extended_targets(labels, 3)
+    emit, _ = tctc._emissions(logits, z)
+    case = dict(logits=logits, labels=labels, label_lens=label_lens, lens=lens, emit=emit,
+                skip=can_skip)
+    return {**case, **_lattice_case_inits(case)}
+
+
+def ctc_kernel_phase(seed, rows):
+    """The CTC lattice kernels against their plain versions, and their times
+    at the train step's shape."""
+    import torch.nn.functional as F
+
+    from onebit_asr_tpu_torch.losses import ctc as tctc
+    from onebit_asr_tpu_torch.ops import ctc_lattice as cl
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    cases = {
+        # three branches of bench.py's batch: T' = 255 padded to 256
+        "path": _lattice_case(rng, 48, 256, 48, 5004, 255, dev),
+        # DataConfig.max_tokens = 228 labels; T' = 400 padded to 512
+        "ceiling": _lattice_case(rng, 16, 512, 228, 5004, 400, dev),
+        "ragged": _lattice_case(rng, 8, 37, 12, 7, 33, dev),
+    }
+    r = cases["ragged"]  # label length 0, and a row too short for its labels
+    r["label_lens"][1] = 0
+    r["label_lens"][2], r["lens"][2] = 12, 9
+    r.update(_lattice_case_inits(r))
+    errs = {"ctc_alpha": 0.0, "ctc_beta": 0.0}
+    for label, c in cases.items():
+        B, T, S = c["emit"].shape
+        for name, fn, plain, init in (("ctc_alpha", cl.ctc_alpha, cl.ctc_alpha_reference, "alpha0"),
+                                      ("ctc_beta", cl.ctc_beta, cl.ctc_beta_reference, "beta0")):
+            ops = (c["emit"], c["lens"], c["skip"], c[init])
+            out, ref = fn(*ops), plain(*ops)
+            torch.cuda.synchronize()
+            neg = ref <= cl.NEG_INF / 2
+            if not torch.equal(out <= cl.NEG_INF / 2, neg):
+                raise AssertionError(f"{name} {label}: NEG_INF entries differ from the plain version")
+            d = (out - ref).abs()[~neg]
+            err = d.max().item() if d.numel() else 0.0
+            if not bool((d <= 1e-5 * ref.abs()[~neg] + 1e-5).all()):
+                raise AssertionError(f"{name} {label}: max |d| {err} over 1e-5 relative")
+            errs[name] = max(errs[name], err)
+            same = (out == ref).float().mean().item()
+            timed = f" ms={cuda_ms(lambda: fn(*ops)):.4f}" if label == "ceiling" else ""
+            log(f"kernel {name} {label} B={B} T={T} S={S}: max|d|={err:.3g} "
+                f"bit_identical={same:.6f} neg_inf_share={neg.float().mean().item():.4f}{timed}")
+    c = cases["path"]
+    B, T, S = c["emit"].shape
+    nll = tctc._nll_of(cl.ctc_alpha(c["emit"], c["lens"], c["skip"], c["alpha0"])[:, -1],
+                       c["label_lens"])
+    lp = torch.log_softmax(c["logits"], -1).transpose(0, 1).contiguous()  # [T, B, V]
+
+    def library(backward):
+        x = lp.detach().requires_grad_(backward)
+        loss = F.ctc_loss(x, c["labels"], c["lens"], c["label_lens"], blank=3,
+                          reduction="none")
+        if backward:
+            loss.sum().backward()
+        return loss
+
+    lib_nll = library(False)
+    ok = torch.isfinite(lib_nll) & (nll < -0.5 * cl.NEG_INF)
+    nll_err = ((nll - lib_nll).abs() / lib_nll.abs())[ok].max().item()
+    if nll_err > 1e-4:
+        raise AssertionError(f"ctc NLL differs from F.ctc_loss by {nll_err} relative")
+    # one launch reads the emissions and the init row and writes the lattice
+    nbytes = 2 * B * T * S * 4 + B * S * 5 + B * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10.0 * B * (T - 1) * S / PEAK_OPS["f32"] * 1e3  # 3 exp, 1 log, 6 add/max
+    lib_ms = {"ctc_alpha": cuda_ms(lambda: library(False)),
+              "ctc_beta": cuda_ms(lambda: library(True))}
+    for name, fn, plain, init in (("ctc_alpha", cl.ctc_alpha, cl.ctc_alpha_reference, "alpha0"),
+                                  ("ctc_beta", cl.ctc_beta, cl.ctc_beta_reference, "beta0")):
+        ops = (c["emit"], c["lens"], c["skip"], c[init])
+        ms = cuda_ms(lambda: fn(*ops))
+        plain_ms = cuda_ms(lambda: plain(*ops), iters=3, warmup=1)
+        log(f"kernel {name} path B={B} T={T} S={S}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={max(t_bytes, t_ops):.5f} (bytes {t_bytes:.5f}, f32 {t_ops:.6f}; "
+            f"the recursion is {T - 1} dependent steps: {ms / (T - 1) * 1e3:.3f} us a step) "
+            f"library_ms={lib_ms[name]:.4f} (F.ctc_loss {'forward' if name == 'ctc_alpha' else 'forward + backward'})")
+        rows[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": "onebit_asr_tpu_torch/csrc/ctc_lattice.cu",
+            "replaces": ("onebit_asr_tpu/ops/ctc_pallas.py:97" if name == "ctc_alpha"
+                         else "onebit_asr_tpu/ops/ctc_pallas.py:117"),
+            "launches": 0,
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms[name],
+        }
+    cudnn = torch.backends.cudnn.enabled and torch.backends.cudnn.is_available()
+    log(f"library: F.ctc_loss with blank 3 ran PyTorch's native CUDA kernel (cuDNN "
+        f"{'available' if cudnn else 'absent'}; its CTC needs blank 0); per-utterance NLL "
+        f"of the port's lattice vs F.ctc_loss: max relative |d| {nll_err:.3g} over "
+        f"{int(ok.sum())} feasible rows")
+
+
+def _lattice_case_inits(c):
+    """The alpha and beta init rows of a case (again after its lengths were
+    edited)."""
+    from onebit_asr_tpu_torch.losses import ctc as tctc
+    from onebit_asr_tpu_torch.ops.ctc_lattice import NEG_INF
+
+    s_idx = torch.arange(c["emit"].shape[2], device=c["emit"].device)[None]
+    ll = c["label_lens"][:, None]
+    beta0 = torch.where((s_idx == 2 * ll) | ((s_idx == 2 * ll - 1) & (ll > 0)), 0.0,
+                        NEG_INF).float()
+    return {"alpha0": tctc._alpha0_of(c["emit"], c["label_lens"]), "beta0": beta0}
+
+
+@contextlib.contextmanager
+def plain_ctc():
+    """The CTC loss on the lattices' plain versions for the duration."""
+    from onebit_asr_tpu_torch.losses import ctc as tctc
+    from onebit_asr_tpu_torch.ops import ctc_lattice as cl
+
+    tctc.ctc_alpha, tctc.ctc_beta = cl.ctc_alpha_reference, cl.ctc_beta_reference
+    try:
+        yield
+    finally:
+        tctc.ctc_alpha, tctc.ctc_beta = cl.ctc_alpha, cl.ctc_beta
+
+
+def bench_batch(cfg, seed):
+    """bench.py's batch of record: B=16, 1,024 frames of random features,
+    U=48 random tokens; lengths from half to full."""
+    from onebit_asr_tpu_torch.train.step import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    B, T, U = 16, 1024, 48
+    return batch_to_device({
+        "feats": rng.standard_normal((B, T, cfg.input_dim)).astype(np.float32),
+        "feat_lens": rng.integers(T // 2, T + 1, size=B),
+        "tokens": rng.integers(4, cfg.vocab_size, size=(B, U)),
+        "token_lens": rng.integers(U // 2, U + 1, size=B),
+    }, DEVICE)
+
+
+def train_step_phase(cfg, seed, rows, kernels, profile=False):
+    """The library train step at full width on the kernels, its launches per
+    step, and one step against the same step with the plain lattices."""
+    from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
+    from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
+    from onebit_asr_tpu_torch.train.state import param_count
+    from onebit_asr_tpu_torch.train.step import make_batch_loss, sample_sp_mask, value_and_grad
+    from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
+
+    model = qat_model_from_jax(cfg, init_params(cfg, seed), device=DEVICE)
+    state = create_train_state(model, seed)
+    loss_cfg, specials = LossConfig(), SpecialTokens()
+    optimizer = AdamW(OptimConfig(), 100_000)
+    step = make_train_step(model, optimizer, loss_cfg, specials, cfg.enc_layers)
+    batch = bench_batch(cfg, seed)
+    state, aux = step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    auxes = []
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, aux = step(state, batch)
+        auxes.append(aux)
+    end.record()
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    want = {k: TRAIN_STEPS if k in ("ctc_alpha", "ctc_beta") else 0 for k in kernels}
+    if counts != want:
+        raise AssertionError(f"train step: launches {counts}, want {want}")
+    for k in ("ctc_alpha", "ctc_beta"):
+        rows[k]["launches"] = counts[k]
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [{k: float(v) for k, v in a.items()} for a in auxes]
+    if not all(np.isfinite(list(l.values())).all() for l in losses):
+        raise AssertionError(f"train step: non-finite loss or grad_norm {losses}")
+    log(f"train step: Conformer-M {param_count(state.params) / 1e6:.2f}M params, B=16, T=1024 "
+        f"(T'=256), U<=48, dropout {cfg.dropout}, {cfg.compute_dtype}: ms_per_step={ms:.2f} "
+        f"peak_mem_gb={peak_gb:.3f} launches_per_step="
+        f"{ {k: v // TRAIN_STEPS for k, v in counts.items() if v} } steps={state.step}")
+    for i, l in enumerate(losses):
+        log(f"train step {i}: " + " ".join(f"{k}={v:.5g}" for k, v in l.items()))
+
+    # one step's loss and gradients on the kernels and on the plain lattices,
+    # from the same state, mask and dropout seeds
+    batch_loss = make_batch_loss(model, loss_cfg, specials, cfg.enc_layers)
+    g = torch.Generator()
+    g.manual_seed(seed + 1)
+    sp = sample_sp_mask(g, cfg.enc_layers)
+
+    def run():
+        gens = [torch.Generator(device=DEVICE).manual_seed(seed + i) for i in range(3)]
+        return value_and_grad(batch_loss, state.params, batch, sp, gens)
+
+    (_, aux_k), grads_k = run()
+    with plain_ctc():
+        (_, aux_p), grads_p = run()
+    torch.cuda.synchronize()
+    aux_err = max(abs(float(aux_k[k]) - float(aux_p[k])) / abs(float(aux_p[k])) for k in aux_p)
+    num = sum(float(((grads_k[k].float() - grads_p[k].float()) ** 2).sum()) for k in grads_p)
+    den = sum(float((grads_p[k].float() ** 2).sum()) for k in grads_p)
+    grad_err = (num / den) ** 0.5
+    log(f"train step kernels vs plain CTC: aux max relative |d|={aux_err:.3g} "
+        f"grads |d|/|g|={grad_err:.3g} loss_ctc_2bit={float(aux_k['loss_ctc_2bit']):.6g}/"
+        f"{float(aux_p['loss_ctc_2bit']):.6g}")
+    if aux_err > 1e-4 or grad_err > 1e-2:
+        raise AssertionError("train step on the kernels strays from the plain CTC")
+    if profile:
+        log("profile of one train step:")
+        profile_breakdown(lambda: step(state, batch))
+        log("profile of its loss and gradients (value_and_grad):")
+        profile_breakdown(run, top=5)
+        log("profile of its optimizer update (clip + AdamW over every parameter):")
+        profile_breakdown(lambda: optimizer.update(state.params, grads_k, state.mu, state.nu,
+                                                   state.count), top=5)
+    del model, state, grads_k, grads_p
+
+
+def train_cli_phase(kernels):
+    """The training CLI at Conformer-M widths on the synthetic backend: two
+    epochs as a program, then a third with --resume in this process."""
+    from onebit_asr_tpu_torch.cli import train as tcli
+
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        argv = ["--dummy_data", "--steps_per_epoch", "3", "--eval_batches", "1",
+                "--batch_size", "16", "--save_dir", root, "--run_name", "smoke",
+                "--device", DEVICE]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "onebit_asr_tpu_torch.train", "--epochs", "2", *argv],
+            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"train CLI returned {proc.returncode}: {proc.stderr[-2000:]}")
+        run = os.path.join(root, "smoke")
+        for f in ("config.json", "metrics.jsonl", "ckpt/step_6.pt", "ckpt_best"):
+            if not os.path.exists(os.path.join(run, f)):
+                raise AssertionError(f"train CLI wrote no {f}")
+        for line in proc.stdout.splitlines():
+            log(f"train cli: {line}")
+        log(f"train cli: rc=0 wall_s={wall:.2f} (process start, build load, init, 6 steps, "
+            f"2 evaluations at 32/2/1 bits, checkpoints)")
+        for fn in kernels.values():
+            fn.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tcli.main(["--epochs", "3", "--resume", *argv])
+        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"train cli resume: {line}")
+        # 3 steps (alpha + beta) and 3 precisions x 1 eval batch (alpha)
+        want = {"ctc_alpha": 6, "ctc_beta": 3}
+        if rc != 0 or "resumed at step 6 (epoch 2)" not in text or counts != want:
+            raise AssertionError(f"train CLI --resume: rc={rc} launches {counts}, want {want}")
+        if not os.path.exists(os.path.join(run, "ckpt", "step_9.pt")):
+            raise AssertionError("train CLI --resume saved no step 9")
+        log(f"train cli resume: rc=0 continued from step 6 to 9, launches={counts}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -579,11 +882,28 @@ def main(argv=None) -> int:
     rows = kernel_phase(cfg, t_pad, args.seed)
     subsample_kernel_phase(cfg, frames, args.seed, rows)
     attention_kernel_phase(cfg, t_pad, t_sub, args.seed, rows)
+
+    ctc_kernel_phase(args.seed, rows)
     log("kernels: every kernel agrees with its plain version at the path's shapes")
 
     params = init_params(cfg, args.seed)
     path_phase(cfg, params, synthetic_waveforms(args.seed), rows, args.profile)
     log("path: transcribe ran on the kernels and agrees with the plain path")
+    del params
+
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.ops import ctc_lattice as cl
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+    from onebit_asr_tpu_torch.ops import ternary_matmul as tm
+
+    kernels = {"ternary_matmul_bf16": tm.ternary_matmul,
+               "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
+               "fused_subsample": ss.fused_subsample,
+               "fused_relpos_attention": fa.fused_relpos_attention,
+               "ctc_alpha": cl.ctc_alpha, "ctc_beta": cl.ctc_beta}
+    train_step_phase(cfg, args.seed, rows, kernels, args.profile)
+    train_cli_phase(kernels)
+    log("train: the QAT step and the train CLI ran on the CTC kernels")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

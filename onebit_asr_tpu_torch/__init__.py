@@ -6,8 +6,10 @@ mirrors the JAX package's layout and names. So far it serves packed-ternary
 offline transcription (`python -m onebit_asr_tpu_torch.transcribe`), with the
 two packed-ternary matrix products (csrc/ternary_matmul.cu), under
 `fused_subsampler` the fused conv subsampler (csrc/subsampler.cu) and under
-`fused_attention` the fused rel-pos attention (csrc/attention.cu) as CUDA
-C++ kernels for sm_90a, built with nvcc at first use.
+`fused_attention` the fused rel-pos attention (csrc/attention.cu), and it
+trains the 3-branch QAT model (`python -m onebit_asr_tpu_torch.train`), with
+the CTC alpha and beta lattices (csrc/ctc_lattice.cu); all are CUDA C++
+kernels for sm_90a, built with nvcc at first use.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@
 The JAX package keeps its parameters as a nested dict (a flax tree). Here
 such a tree arrives as nested dicts of numpy arrays (or as a flat mapping
 with "/"-joined keys, the form an .npz holds) and becomes the state of
-`ConformerASR`. Layout facts handled:
+`ConformerASR`, in its serving (packed) or its QAT form. Layout facts
+handled:
 
 - the encoder blocks are stacked: each leaf under encoder/blocks is [L, ...]
   (conformer.py:770-785) and is sliced per layer;
@@ -16,9 +17,15 @@ with "/"-joined keys, the form an .npz holds) and becomes the state of
   JAX does, and keeps them (ModelConfig.fused_subsampler);
 - LayerNorm/BatchNorm "scale" is PyTorch's "weight";
 - packed quantized dense leaves (packed_kernel, alpha, bias) keep their
-  layout: the CUDA kernels read the planar-packed [K/4, N] bytes directly.
+  layout: the CUDA kernels read the planar-packed [K/4, N] bytes directly;
+- QAT quantized dense leaves (kernel, alpha, bias) keep theirs too:
+  `QATDense` holds its kernel [in, out], as JAX does;
+- the decoder's layers "layer{i}" are the ModuleList "layers.{i}", its
+  embedding [V, D] keeps its layout.
 
-The decoder subtree, which serving does not use, is ignored.
+The serving form ignores the decoder subtree. The same mapping carries any
+tree of the parameters' shape (the gradients of a JAX step, say) onto the
+state dict's names.
 """
 
 from __future__ import annotations
@@ -110,6 +117,17 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Tree:
             "bias": uni((*lead, fan_out), 1.0 / np.sqrt(fan_in)),
         }
 
+    def decoder():
+        Dd, Vd = cfg.dec_d_ff, V
+        emb = rng.standard_normal((Vd, D)).astype(f32)
+        emb[cfg.specials.pad_id] = 0.0  # the padding row, zeroed as JAX's init does
+        attn = lambda: {n: dense(D, D) for n in ("q", "k", "v", "o")}  # noqa: E731
+        tree = {f"layer{i}": {"ln1": norm(), "self_attn": attn(), "ln2": norm(),
+                              "cross_attn": attn(), "ln3": norm(),
+                              "ff1": dense(D, Dd), "ff2": dense(Dd, D)}
+                for i in range(cfg.dec_layers)}
+        return {"embedding": emb, **tree, "ln_out": norm(), "out": dense(D, Vd)}
+
     f2 = subsampled_frames(cfg.input_dim)
     blocks = {
         "ff1": {"ln": norm(L), "w1": quant(D, dff), "w2": quant(dff, D)},
@@ -143,14 +161,16 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Tree:
             "ln_out": norm(),
         },
         "ctc_head": dense(D, V),
+        "decoder": decoder(),
     }
 
 
-def _leaf(name: str, v: torch.Tensor):
-    """(torch state key suffix, value) for one JAX leaf of a block."""
+def _leaf(name: str, v: torch.Tensor, quantized: bool = False):
+    """(torch state key suffix, value) for one JAX leaf of a block;
+    `quantized`: the leaf belongs to a quantized dense (QATDense)."""
     if name == "scale":  # LayerNorm / BatchNorm
         return "weight", v
-    if name == "kernel":  # Dense [in, out] -> [out, in]
+    if name == "kernel" and not quantized:  # Dense [in, out] -> [out, in]
         return "weight", v.transpose(0, 1)
     if name == "dw_kernel":  # [k, 1, D] -> [D, 1, k]
         return "dw_kernel", v.permute(2, 1, 0)
@@ -158,8 +178,8 @@ def _leaf(name: str, v: torch.Tensor):
 
 
 def state_dict_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Serving-form (packed) JAX tree of torch tensors -> ConformerASR's
-    state dict."""
+    """JAX tree of torch tensors, serving form (packed) or training form
+    (with its decoder) -> ConformerASR's state dict in the same form."""
     enc = params["encoder"]
     sd: Dict[str, torch.Tensor] = {}
     sub = enc["subsample"]
@@ -172,19 +192,28 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
         proj = proj.reshape(f2, C, -1).transpose(0, 1).reshape(C * f2, -1)
     sd["encoder.subsample.proj.weight"] = proj.transpose(0, 1)
     sd["encoder.subsample.proj.bias"] = sub["proj"]["bias"]
-    for key, stacked in flatten(enc["blocks"]).items():
+    blocks = flatten(enc["blocks"])
+    quantized = {k.rsplit("/", 1)[0] for k in blocks if k.endswith("/alpha")}
+    for key, stacked in blocks.items():
         if stacked.shape[0] != cfg.enc_layers:
             raise ValueError(
                 f"encoder/blocks/{key}: {stacked.shape[0]} layers, config has {cfg.enc_layers}"
             )
         *path, name = key.split("/")
         for i in range(cfg.enc_layers):
-            suffix, value = _leaf(name, stacked[i])
+            suffix, value = _leaf(name, stacked[i], "/".join(path) in quantized)
             sd[".".join(["encoder", "blocks", str(i), *path, suffix])] = value
     sd["encoder.ln_out.weight"] = enc["ln_out"]["scale"]
     sd["encoder.ln_out.bias"] = enc["ln_out"]["bias"]
     sd["ctc_head.weight"] = params["ctc_head"]["kernel"].transpose(0, 1)
     sd["ctc_head.bias"] = params["ctc_head"]["bias"]
+    if "decoder" in params:
+        for key, v in flatten(params["decoder"]).items():
+            *path, name = key.split("/")
+            if path and path[0].startswith("layer"):
+                path = ["layers", path[0][len("layer"):], *path[1:]]
+            suffix, value = _leaf(name, v)
+            sd[".".join(["decoder", *path, suffix])] = value
     return {k: v.contiguous() for k, v in sd.items()}
 
 
@@ -203,3 +232,12 @@ def packed_model_from_jax(
     model = ConformerASR(cfg, int8_act=int8_act)
     model.load_state_dict(state_dict_from_jax(packed, cfg), strict=True)
     return model.requires_grad_(False).to(device).eval()
+
+
+def qat_model_from_jax(cfg: ModelConfig, params: Mapping, device: str = "cuda") -> ConformerASR:
+    """Training-form JAX tree (numpy or torch leaves, decoder included) ->
+    the QAT ConformerASR on `device`, its parameters f32 and trainable."""
+    model = ConformerASR(cfg, qat=True)
+    sd = state_dict_from_jax(to_torch(params), cfg)
+    model.load_state_dict({k: v.to(torch.float32) for k, v in sd.items()}, strict=True)
+    return model.to(device)

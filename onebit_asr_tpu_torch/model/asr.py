@@ -1,8 +1,13 @@
-"""ConformerASR, serving form: packed-ternary encoder + CTC head.
+"""ConformerASR: the Conformer encoder + CTC head, and in the QAT form the
+AED decoder.
 
-Counterpart of the encoder and CTC-head forward of
-onebit_asr_tpu/model/asr.py. The AED decoder is not on the serving path and
-is not built here.
+Counterpart of onebit_asr_tpu/model/asr.py. Two forms share the encoder's
+code (model/conformer.py::Parts):
+
+- serving (`qat=False`): packed-ternary projections, no decoder;
+- QAT (`qat=True`): straight-through quantized projections whose precision
+  each call sets per layer, dropout at every site of the JAX model, the
+  decoder, and `forward_with_decoder`.
 """
 
 from __future__ import annotations
@@ -12,7 +17,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from onebit_asr_tpu_torch.model.conformer import ConformerEncoder
+from onebit_asr_tpu_torch.model.conformer import ConformerEncoder, Parts
+from onebit_asr_tpu_torch.model.decoder import TransformerDecoder
 from onebit_asr_tpu_torch.model.layers import Dense
 from onebit_asr_tpu_torch.utils.config import ModelConfig
 
@@ -28,29 +34,52 @@ def precision_to_binary_mask(precision: int, num_layers: int) -> Optional[torch.
     raise ValueError(f"precision must be 1, 2 or 32, got {precision}")
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = {
-        "conv_norm": (cfg.conv_norm, "batch_norm"),
-        "quant_per_channel": (cfg.quant_per_channel, False),
-        "causal_conv": (cfg.causal_conv, False),
-        "attn_chunk_size": (cfg.attn_chunk_size, None),
-    }
-    for name, (value, supported) in unsupported.items():
+def _refuse(unsupported: dict, what: str) -> None:
+    for name, (value, supported, why) in unsupported.items():
         if value != supported:
             raise NotImplementedError(
-                f"ModelConfig.{name}={value!r}: this package serves only "
-                f"{name}={supported!r} so far"
-            )
+                f"ModelConfig.{name}={value!r}: {what} only {name}={supported!r} so far ({why})")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    _refuse({
+        "conv_norm": (cfg.conv_norm, "batch_norm", "later slice"),
+        "quant_per_channel": (cfg.quant_per_channel, False, "later slice"),
+        "causal_conv": (cfg.causal_conv, False, "later slice"),
+        "attn_chunk_size": (cfg.attn_chunk_size, None, "later slice"),
+    }, "this package serves")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse what the QAT form does not implement yet, naming the piece."""
+    _check_supported(cfg)
+    _refuse({
+        "fused_attention": (cfg.fused_attention, False,
+                            "its backward is kernel row 4, ops/attention.py::_bwd_kernel, "
+                            "not ported yet"),
+        "fused_subsampler": (cfg.fused_subsampler, False,
+                             "its backward is kernel row 6, ops/subsampler.py::_bwd_kernel, "
+                             "not ported yet"),
+        "quant_decoder": (cfg.quant_decoder, False, "later slice"),
+        "reference_decoder": (cfg.reference_decoder, False, "later slice"),
+    }, "this package trains")
 
 
 class ConformerASR(nn.Module):
-    """enc_out, enc_mask, logits_ctc = model(feats, feat_lens, binary_mask)."""
+    """enc_out, enc_mask, logits_ctc = model(feats, feat_lens, binary_mask);
+    in the QAT form also forward_with_decoder."""
 
-    def __init__(self, cfg: ModelConfig, int8_act: bool = False):
+    def __init__(self, cfg: ModelConfig, int8_act: bool = False, qat: bool = False):
         super().__init__()
-        _check_supported(cfg)
+        if qat:
+            check_trainable(cfg)
+        else:
+            _check_supported(cfg)
         self.cfg = cfg
+        self.qat = qat
         compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.parts = Parts(compute_dtype, int8_act=int8_act, qat=qat,
+                           dropout=cfg.dropout if qat else 0.0)
         self.encoder = ConformerEncoder(
             input_dim=cfg.input_dim,
             d_model=cfg.enc_d_model,
@@ -58,20 +87,47 @@ class ConformerASR(nn.Module):
             num_heads=cfg.enc_heads,
             d_ff=cfg.enc_d_ff,
             conv_kernel=cfg.enc_conv_kernel,
-            compute_dtype=compute_dtype,
+            parts=self.parts,
             time_pad_multiple=cfg.time_pad_multiple,
-            int8_act=int8_act,
             fused_subsampler=cfg.fused_subsampler,
             fused_attention=cfg.fused_attention,
         )
         self.ctc_head = Dense(cfg.enc_d_model, cfg.vocab_size, compute_dtype)
+        if qat:
+            self.decoder = TransformerDecoder(
+                cfg.vocab_size, cfg.enc_d_model, cfg.dec_layers, cfg.dec_heads, cfg.dec_d_ff,
+                compute_dtype, cfg.dropout, self.parts.rng)
 
     def forward(
         self,
         feats: torch.Tensor,  # [B, T, F]
         feat_lens: torch.Tensor,  # [B]
         binary_mask: Optional[torch.Tensor] = None,  # [L] bool
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        tgt_inp: Optional[torch.Tensor] = None,
+        tgt_valid_mask: Optional[torch.Tensor] = None,
+        draws=None,
+    ):
+        """(enc_out, enc_mask, logits_ctc); with `tgt_inp` (the QAT form)
+        also the decoder's logits, as `forward_with_decoder`."""
+        if tgt_inp is not None:
+            return self.forward_with_decoder(feats, feat_lens, tgt_inp, tgt_valid_mask,
+                                             binary_mask, draws)
         enc_out, enc_mask = self.encoder(feats, feat_lens, binary_mask)
         # logits stay in the compute dtype, as in the JAX model
         return enc_out, enc_mask, self.ctc_head(enc_out)
+
+    def forward_with_decoder(self, feats, feat_lens, tgt_inp, tgt_valid_mask,
+                             binary_mask: Optional[torch.Tensor] = None, draws=None):
+        """One training branch (asr.py:213): encoder + CTC head + decoder ->
+        (enc_out, enc_mask, logits_ctc, dec_logits). `draws` (see
+        layers.DropoutRng) feeds every dropout site for this call; None
+        runs without dropout."""
+        if not self.qat:
+            raise RuntimeError("forward_with_decoder needs the QAT form (qat=True)")
+        self.parts.rng.draws = draws
+        try:
+            enc_out, enc_mask, logits_ctc = self(feats, feat_lens, binary_mask)
+            dec_logits = self.decoder(tgt_inp, enc_out, enc_mask, tgt_valid_mask)
+        finally:
+            self.parts.rng.draws = None
+        return enc_out, enc_mask, logits_ctc, dec_logits

@@ -1,11 +1,14 @@
-"""Conformer encoder, serving form (packed-ternary projections).
+"""Conformer encoder, in a serving form (packed-ternary projections) and a
+QAT form (straight-through quantized projections, dropout).
 
-Counterpart of onebit_asr_tpu/model/conformer.py for offline serving: the
-blocks run as a Python loop over `nn.ModuleList` (the JAX package scans over
-stacked [L, ...] parameters; convert.py slices them), attention is either
-plain tensor code or, with `fused=True`, the fused CUDA kernel of
-ops/attention.py, and the subsampler is either the unfused conv stack or,
-with `fused=True`, the fused CUDA kernel of ops/subsampler.py. Streaming
+Counterpart of onebit_asr_tpu/model/conformer.py: the blocks run as a Python
+loop over `nn.ModuleList` (the JAX package scans over stacked [L, ...]
+parameters; convert.py slices them), attention is either plain tensor code
+or, with `fused=True`, the fused CUDA kernel of ops/attention.py, and the
+subsampler is either the unfused conv stack or, with `fused=True`, the fused
+CUDA kernel of ops/subsampler.py. The QAT form runs the plain attention and
+the unfused subsampler (the fused kernels' backward is not ported), with
+per-layer `bits` and every FastDropout site of the JAX encoder. Streaming
 variants (chunked attention, causal conv) and the other conv norms are not
 implemented here and are refused.
 
@@ -19,7 +22,7 @@ JAX row order of the projection.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +30,11 @@ from torch import nn
 
 from onebit_asr_tpu_torch.model.layers import (
     Dense,
+    DropoutRng,
+    FastDropout,
     LayerNorm,
     MaskedBatchNorm,
+    QATDense,
     QuantDense,
     lengths_to_mask,
     rel_positional_encoding,
@@ -61,12 +67,36 @@ def rel_shift_padded(x: torch.Tensor) -> torch.Tensor:
     return x[..., :T]
 
 
-def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale):
+class Parts:
+    """What the layers of one model are built from: the compute dtype, the
+    projections (packed serving `QuantDense`, or `QATDense`) and the
+    dropout (rate 0 and no draws in the serving form), all FastDropout
+    layers drawing from one shared `DropoutRng`."""
+
+    def __init__(self, compute_dtype: torch.dtype, int8_act: bool = False, qat: bool = False,
+                 dropout: float = 0.0):
+        self.compute_dtype = compute_dtype
+        self.int8_act = int8_act
+        self.qat = qat
+        self.dropout = dropout
+        self.rng = DropoutRng()
+
+    def proj(self, in_features: int, features: int) -> nn.Module:
+        if self.qat:
+            return QATDense(in_features, features, self.compute_dtype)
+        return QuantDense(in_features, features, self.compute_dtype, self.int8_act)
+
+    def drop(self) -> FastDropout:
+        return FastDropout(self.dropout, self.rng)
+
+
+def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, dropout=None):
     """The unfused attention of `RelPosMHSA` (JAX conformer.py:354-397): q/k/v
     [B, T, H, dh], p [2T-1, H, dh], u/vb [H, dh], all in the compute dtype;
     key_mask [B, T] bool -> [B, T, H, dh]. The content and position scores
     are rounded to the compute dtype and added there; the softmax runs in
-    f32, and its output is rounded to the compute dtype."""
+    f32, and its output is rounded to the compute dtype, then goes through
+    `dropout` (a module, or None)."""
     H, dh = u.shape
     cd = v.dtype
     # a zero row in front of the table puts rel_shift's pad column into
@@ -77,23 +107,27 @@ def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale):
     scores = (ac + bd).to(torch.float32) * scale
     scores = scores.masked_fill(~key_mask[:, None, None, :], NEG_INF)
     attn = torch.softmax(scores, dim=-1).to(cd)
+    if dropout is not None:
+        attn = dropout(attn)
     return torch.einsum(
         "bhts,bshd->bthd", attn.to(torch.float32), v.to(torch.float32)
     ).to(cd)
 
 
 class FeedForward(nn.Module):
-    """Macaron feed-forward: pre-LN -> QuantDense d->d_ff -> swish ->
-    QuantDense d_ff->d."""
+    """Macaron feed-forward: pre-LN -> quantized d->d_ff -> swish -> dropout
+    -> quantized d_ff->d -> dropout."""
 
-    def __init__(self, d: int, d_ff: int, compute_dtype: torch.dtype, int8_act: bool):
+    def __init__(self, d: int, d_ff: int, parts: Parts):
         super().__init__()
         self.ln = LayerNorm(d)
-        self.w1 = QuantDense(d, d_ff, compute_dtype, int8_act)
-        self.w2 = QuantDense(d_ff, d, compute_dtype, int8_act)
+        self.w1 = parts.proj(d, d_ff)
+        self.w2 = parts.proj(d_ff, d)
+        self.drop1, self.drop2 = parts.drop(), parts.drop()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(self.ln(x))))
+    def forward(self, x: torch.Tensor, bits=None) -> torch.Tensor:
+        y = self.drop1(F.silu(self.w1(self.ln(x), bits)))
+        return self.drop2(self.w2(y, bits))
 
 
 class RelPosMHSA(nn.Module):
@@ -101,18 +135,18 @@ class RelPosMHSA(nn.Module):
     with the separate q/k/v/pos/out projections of the serving path
     (conformer.py:237-251) and plain tensor attention (:354-397) or, with
     `fused=True` (:315-353), `fused_relpos_attention` on [B, H, T, dh]
-    operands, dropout off (serving is deterministic).
+    operands, dropout off (serving is deterministic). In the QAT form the
+    attention probabilities and the output projection go through dropout.
 
     `attention_fn` is a plain attribute: a function with the signature of
     `fused_relpos_attention` (its plain version, say) can take its place."""
 
-    def __init__(self, d: int, num_heads: int, compute_dtype: torch.dtype, int8_act: bool,
-                 fused: bool = False):
+    def __init__(self, d: int, num_heads: int, parts: Parts, fused: bool = False):
         super().__init__()
         if d % num_heads:
             raise ValueError(f"d_model {d} not divisible by heads {num_heads}")
         self.num_heads = num_heads
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = parts.compute_dtype
         self.fused = fused
         self.attention_fn = fused_relpos_attention
         # the drop8 operand at rate 0: never read
@@ -120,22 +154,24 @@ class RelPosMHSA(nn.Module):
                              persistent=False)
         self.ln = LayerNorm(d)
         for name in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj"):
-            setattr(self, name, QuantDense(d, d, compute_dtype, int8_act))
+            setattr(self, name, parts.proj(d, d))
+        self.attn_drop, self.out_drop = parts.drop(), parts.drop()
         dh = d // num_heads
         self.pos_bias_u = nn.Parameter(torch.empty(num_heads, dh))
         self.pos_bias_v = nn.Parameter(torch.empty(num_heads, dh))
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor,
+                bits=None) -> torch.Tensor:
         # x [B, T, D]; pos [2T-1, D]; key_mask [B, T] bool (True = valid)
         B, T, D = x.shape
         H = self.num_heads
         dh = D // H
         cd = self.compute_dtype
         y = self.ln(x)
-        q = self.q_proj(y).reshape(B, T, H, dh)
-        k = self.k_proj(y).reshape(B, T, H, dh)
-        v = self.v_proj(y).reshape(B, T, H, dh)
-        p = self.pos_proj(pos.to(cd)).reshape(-1, H, dh)  # [2T-1, H, dh]
+        q = self.q_proj(y, bits).reshape(B, T, H, dh)
+        k = self.k_proj(y, bits).reshape(B, T, H, dh)
+        v = self.v_proj(y, bits).reshape(B, T, H, dh)
+        p = self.pos_proj(pos.to(cd), bits).reshape(-1, H, dh)  # [2T-1, H, dh]
         u = self.pos_bias_u.to(cd)
         vb = self.pos_bias_v.to(cd)
         scale = 1.0 / math.sqrt(dh)
@@ -149,18 +185,20 @@ class RelPosMHSA(nn.Module):
                 u, vb, key_mask.to(torch.float32), self.no_drop, scale, 0.0,
             ).transpose(1, 2)  # back to [B, T, H, dh]
         else:
-            out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale)
-        out = self.out_proj(out.reshape(B, T, D))
+            out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, self.attn_drop)
+        out = self.out_drop(self.out_proj(out.reshape(B, T, D), bits))
         return out * key_mask[..., None].to(out.dtype)  # zero padded queries
 
 
 class ConvModule(nn.Module):
     """Conformer convolution module, full precision: pre-LN -> pointwise
     d->2d -> GLU -> depthwise conv (SAME, in f32) -> masked batch norm ->
-    swish -> pointwise d->d. Inputs are masked before the depthwise conv."""
+    swish -> pointwise d->d -> dropout. Inputs are masked before the
+    depthwise conv."""
 
-    def __init__(self, d: int, kernel_size: int, compute_dtype: torch.dtype):
+    def __init__(self, d: int, kernel_size: int, parts: Parts):
         super().__init__()
+        compute_dtype = parts.compute_dtype
         self.kernel_size = kernel_size
         self.compute_dtype = compute_dtype
         self.ln = LayerNorm(d)
@@ -168,6 +206,7 @@ class ConvModule(nn.Module):
         self.dw_kernel = nn.Parameter(torch.empty(d, 1, kernel_size))  # [D, 1, k]
         self.bn = MaskedBatchNorm(d)
         self.pw2 = Dense(d, d, compute_dtype)
+        self.drop = parts.drop()
 
     def forward(self, x: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
         keep = frame_mask[..., None]
@@ -177,27 +216,28 @@ class ConvModule(nn.Module):
         y = F.pad(y.to(torch.float32).transpose(1, 2), ((k - 1) // 2, k // 2))
         y = F.conv1d(y, self.dw_kernel, groups=self.dw_kernel.shape[0])
         y = y.transpose(1, 2).to(self.compute_dtype)
-        y = self.pw2(F.silu(self.bn(y, frame_mask)))
+        y = self.drop(self.pw2(F.silu(self.bn(y, frame_mask))))
         return y * keep.to(y.dtype)
 
 
 class ConformerBlock(nn.Module):
     """ff1(1/2) -> MHSA -> Conv -> ff2(1/2) -> LN."""
 
-    def __init__(self, d: int, num_heads: int, d_ff: int, conv_kernel: int,
-                 compute_dtype: torch.dtype, int8_act: bool, fused_attention: bool = False):
+    def __init__(self, d: int, num_heads: int, d_ff: int, conv_kernel: int, parts: Parts,
+                 fused_attention: bool = False):
         super().__init__()
-        self.ff1 = FeedForward(d, d_ff, compute_dtype, int8_act)
-        self.mhsa = RelPosMHSA(d, num_heads, compute_dtype, int8_act, fused=fused_attention)
-        self.conv = ConvModule(d, conv_kernel, compute_dtype)
-        self.ff2 = FeedForward(d, d_ff, compute_dtype, int8_act)
+        self.ff1 = FeedForward(d, d_ff, parts)
+        self.mhsa = RelPosMHSA(d, num_heads, parts, fused=fused_attention)
+        self.conv = ConvModule(d, conv_kernel, parts)
+        self.ff2 = FeedForward(d, d_ff, parts)
         self.ln_out = LayerNorm(d)
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        x = x + 0.5 * self.ff1(x)
-        x = x + self.mhsa(x, pos, key_mask)
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor,
+                bits=None) -> torch.Tensor:
+        x = x + 0.5 * self.ff1(x, bits)
+        x = x + self.mhsa(x, pos, key_mask, bits)
         x = x + self.conv(x, key_mask)
-        x = x + 0.5 * self.ff2(x)
+        x = x + 0.5 * self.ff2(x, bits)
         return self.ln_out(x)
 
 
@@ -213,12 +253,14 @@ class Conv2dSubsampling(nn.Module):
     [3, 3, C], w2 as bf16 [9C, C]) are laid out once from the conv weights
     and rebuilt only when those change.
 
+    The output goes through dropout (active in the QAT form).
+
     `subsample_fn` is a plain attribute: a function with the signature of
     `fused_subsample` (its plain version, say) can take its place."""
 
-    def __init__(self, input_dim: int, d_model: int, compute_dtype: torch.dtype,
-                 fused: bool = False):
+    def __init__(self, input_dim: int, d_model: int, parts: Parts, fused: bool = False):
         super().__init__()
+        compute_dtype = parts.compute_dtype
         self.compute_dtype = compute_dtype
         self.fused = fused
         self.subsample_fn = fused_subsample
@@ -226,6 +268,7 @@ class Conv2dSubsampling(nn.Module):
         self.conv2 = nn.Conv2d(d_model, d_model, 3, stride=2)
         f2 = subsampled_frames(input_dim)
         self.proj = Dense(d_model * f2, d_model, compute_dtype)
+        self.drop = parts.drop()
         self._fused_operands = (None, None)
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -254,32 +297,32 @@ class Conv2dSubsampling(nn.Module):
         if self.fused:
             x = self.subsample_fn(feats.float(), *self.fused_operands(), self.compute_dtype)
             B, T, Fq, C = x.shape
-            return self.proj(x.reshape(B, T, Fq * C))  # index f*C+c
+            return self.drop(self.proj(x.reshape(B, T, Fq * C)))  # index f*C+c
         x = feats[:, None].to(self.compute_dtype)  # [B, 1, T, F]
         x = F.relu(self._conv(self.conv1, x))
         x = F.relu(self._conv(self.conv2, x))  # [B, C, T', F']
         B, C, T, Fq = x.shape
         x = x.permute(0, 2, 1, 3).reshape(B, T, C * Fq)  # index c*F'+f
-        return self.proj(x)
+        return self.drop(self.proj(x))
 
 
 class ConformerEncoder(nn.Module):
-    """subsample -> pad time -> L blocks -> LN, returning (x, key_mask)."""
+    """subsample -> pad time -> dropout -> L blocks -> LN, returning
+    (x, key_mask). `parts` chooses the serving or the QAT form."""
 
     def __init__(self, input_dim: int = 80, d_model: int = 256, num_layers: int = 12,
-                 num_heads: int = 4, d_ff: int = 1024, conv_kernel: int = 31,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 time_pad_multiple: int = 128, int8_act: bool = False,
+                 num_heads: int = 4, d_ff: int = 1024, conv_kernel: int = 31, *,
+                 parts: Parts, time_pad_multiple: int = 128,
                  fused_subsampler: bool = False, fused_attention: bool = False):
         super().__init__()
+        self.qat = parts.qat
         self.d_model = d_model
         self.num_layers = num_layers
         self.time_pad_multiple = time_pad_multiple
-        self.subsample = Conv2dSubsampling(input_dim, d_model, compute_dtype,
-                                           fused=fused_subsampler)
+        self.subsample = Conv2dSubsampling(input_dim, d_model, parts, fused=fused_subsampler)
+        self.drop = parts.drop()
         self.blocks = nn.ModuleList(
-            ConformerBlock(d_model, num_heads, d_ff, conv_kernel, compute_dtype, int8_act,
-                           fused_attention)
+            ConformerBlock(d_model, num_heads, d_ff, conv_kernel, parts, fused_attention)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(d_model)
@@ -296,13 +339,15 @@ class ConformerEncoder(nn.Module):
                 binary_mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """feats [B, T, F], feat_lens [B] -> (x [B, T', D], key_mask [B, T']).
 
-        `binary_mask` ([L] bool, True = 1-bit layer) is accepted for the JAX
-        signature; packed weights already hold their precision, fixed when
-        they were exported (model/packed.py), so it selects nothing here."""
-        if binary_mask is not None and binary_mask.shape != (self.num_layers,):
+        `binary_mask` ([L] bool, True = 1-bit layer; None = full precision)
+        sets each QAT block's `bits`. Packed weights already hold their
+        precision, fixed when they were exported (model/packed.py), so in
+        the serving form it selects nothing."""
+        if binary_mask is not None and tuple(binary_mask.shape) != (self.num_layers,):
             raise ValueError(
                 f"binary_mask shape {tuple(binary_mask.shape)} != ({self.num_layers},)"
             )
+        bits = self.layer_bits(binary_mask)
         x = self.subsample(feats)
         enc_lens = subsampled_length(feat_lens)
         B, T, D = x.shape
@@ -315,6 +360,16 @@ class ConformerEncoder(nn.Module):
             T += pad
         key_mask = lengths_to_mask(enc_lens, T)
         pos = self._pos(T, x.device)
-        for block in self.blocks:
-            x = block(x, pos, key_mask)
+        x = self.drop(x)
+        for block, b in zip(self.blocks, bits):
+            x = block(x, pos, key_mask, b)
         return self.ln_out(x), key_mask
+
+    def layer_bits(self, binary_mask: Optional[torch.Tensor]) -> List:
+        """Per-layer `bits` of the QAT projections: 32 for every layer
+        without a mask, else each layer's bool (True = binary)."""
+        if not self.qat:
+            return [None] * self.num_layers
+        if binary_mask is None:
+            return [32] * self.num_layers
+        return [bool(b) for b in binary_mask.tolist()]

@@ -1,9 +1,10 @@
-"""Building blocks: packed quantized dense, dense, f32 norms, position table.
+"""Building blocks: quantized dense (packed serving form and QAT form),
+dense, f32 norms, dropout from uint8 draws, position tables.
 
-Counterparts of onebit_asr_tpu/model/layers.py for the serving path. Each
-module keeps the JAX module's dtype order: operands in the compute dtype
-(bf16 by default), products accumulated in f32, bias added in f32, then a
-cast back to the compute dtype. Norms compute in f32.
+Counterparts of onebit_asr_tpu/model/layers.py. Each dense module keeps the
+JAX module's dtype order: operands in the compute dtype (bf16 by default),
+products accumulated in f32, bias added in f32, then a cast back to the
+compute dtype. Norms compute in f32.
 
 Weights are loaded from a JAX parameter tree by `convert.py`; the modules
 allocate them uninitialised.
@@ -11,11 +12,14 @@ allocate them uninitialised.
 
 from __future__ import annotations
 
+from typing import Callable, Optional, Tuple
+
 import numpy as np
 import torch
 from torch import nn
 
-from onebit_asr_tpu_torch.ops.quant import ALPHA_EPS
+from onebit_asr_tpu_torch.ops.attention import drop_threshold
+from onebit_asr_tpu_torch.ops.quant import ALPHA_EPS, BitSpec, quantize_weight
 from onebit_asr_tpu_torch.ops.ternary_matmul import (
     ternary_matmul,
     ternary_matmul_w2a8,
@@ -48,7 +52,9 @@ class QuantDense(nn.Module):
         self.register_buffer("alpha", torch.empty((), dtype=torch.float32))
         self.register_buffer("bias", torch.empty(features, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bits: Optional[BitSpec] = None) -> torch.Tensor:
+        """`bits` is accepted for the signature of `QATDense`: the packed
+        weights hold the precision they were exported at."""
         lead = x.shape[:-1]
         y = self.matmul(
             x.reshape(-1, self.in_features).to(self.compute_dtype),
@@ -56,6 +62,74 @@ class QuantDense(nn.Module):
             self.alpha.abs() + ALPHA_EPS,
         ).reshape(*lead, self.features)
         return (y + self.bias).to(self.compute_dtype)
+
+
+class QATDense(nn.Module):
+    """Training form of the quantized dense layer (QuantDense with
+    packed=False, layers.py:145-167): an f32 kernel [in, out], a tensor-wise
+    alpha and an f32 bias; each call quantizes the kernel at its own `bits`
+    (1, 2, 32 or a bool, True = binary) with the straight-through quantizer,
+    so one parameter set serves every branch. y = cast(x @ W_hat + bias):
+    operands rounded to the compute dtype, summed in f32."""
+
+    def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.alpha = nn.Parameter(torch.empty(()))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def forward(self, x: torch.Tensor, bits: BitSpec) -> torch.Tensor:
+        cd, f32 = self.compute_dtype, torch.float32
+        w = quantize_weight(self.kernel, self.alpha, bits)
+        y = torch.matmul(x.to(cd).to(f32), w.to(cd).to(f32))
+        return (y + self.bias).to(cd)
+
+
+class DropoutRng:
+    """Where the FastDropout layers of one model take their uint8 draws:
+    `draws(shape, device)` returns uniform bytes, or is None (dropout off,
+    as in evaluation). A training forward sets it for one call
+    (`generator_draws`); a test can set any function, JAX's own draws say."""
+
+    def __init__(self):
+        self.draws: Optional[Callable[[Tuple[int, ...], torch.device], torch.Tensor]] = None
+
+
+def generator_draws(generator: torch.Generator):
+    """`DropoutRng.draws` from a torch.Generator on the tensors' device."""
+    def draws(shape, device):
+        return torch.randint(0, 256, tuple(shape), dtype=torch.uint8, device=device,
+                             generator=generator)
+    return draws
+
+
+def fast_dropout(x: torch.Tensor, rate: float, drop8: torch.Tensor) -> torch.Tensor:
+    """FastDropout's arithmetic (layers.py:225-278): keep an element iff its
+    uint8 draw is >= k = round(rate * 256), scaled by 256 / (256 - k)
+    rounded to x's dtype."""
+    k = drop_threshold(rate)
+    if k <= 0:
+        return x
+    if k >= 256:
+        return torch.zeros_like(x)
+    scale = torch.tensor(256.0 / (256 - k), dtype=x.dtype, device=x.device)
+    return torch.where(drop8 >= k, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class FastDropout(nn.Module):
+    """Dropout from uint8 draws (layers.py:197-278), active while its
+    DropoutRng has draws."""
+
+    def __init__(self, rate: float, rng: DropoutRng):
+        super().__init__()
+        self.rate = rate
+        self.rng = rng
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rng.draws is None or drop_threshold(self.rate) <= 0:
+            return x
+        return fast_dropout(x, self.rate, self.rng.draws(x.shape, x.device))
 
 
 class Dense(nn.Module):
@@ -126,6 +200,18 @@ def rel_positional_encoding(length: int, d_model: int) -> np.ndarray:
         np.arange(0, d_model, 2, dtype=np.float64) * (-np.log(10000.0) / d_model)
     )
     table = np.zeros((2 * length - 1, d_model), dtype=np.float64)
+    table[:, 0::2] = np.sin(pos * div)
+    table[:, 1::2] = np.cos(pos * div)
+    return table.astype(np.float32)
+
+
+def abs_positional_encoding(length: int, d_model: int) -> np.ndarray:
+    """Sinusoidal absolute positions 0..L-1 -> [L, D] f32."""
+    pos = np.arange(length, dtype=np.float64)[:, None]
+    div = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float64) * (-np.log(10000.0) / d_model)
+    )
+    table = np.zeros((length, d_model), dtype=np.float64)
     table[:, 0::2] = np.sin(pos * div)
     table[:, 1::2] = np.cos(pos * div)
     return table.astype(np.float32)

@@ -1,9 +1,10 @@
-"""Configuration of the serving path: own copies of the JAX package's
-dataclasses (onebit_asr_tpu/utils/config.py), holding the fields this package
-reads under the same names.
+"""Configuration: own copies of the JAX package's dataclasses
+(onebit_asr_tpu/utils/config.py), holding the fields this package reads
+under the same names and defaults, so that a `config.json` written by either
+package is read by the other.
 
-`train_config_from_json` reads the `config.json` a JAX training run writes
-and keeps the fields known here; every other field is ignored.
+`train_config_from_json` keeps the fields known here; every other field is
+ignored, and a missing one takes its default (as the JAX reader does).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -23,6 +24,10 @@ class SpecialTokens:
     eos_id: int = 2
     blank_id: int = 3
     offset: int = 4  # subword id -> model id shift
+
+    def as_dict(self) -> Dict[str, int]:
+        return {"pad_id": self.pad_id, "bos_id": self.bos_id, "eos_id": self.eos_id,
+                "blank_id": self.blank_id}
 
 
 @dataclass(frozen=True)
@@ -41,7 +46,8 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Conformer CTC model (defaults: Conformer-M, the reference default)."""
+    """Conformer CTC + attention model (defaults: Conformer-M, the reference
+    default)."""
 
     input_dim: int = 80
     vocab_size: int = 5004
@@ -50,33 +56,78 @@ class ModelConfig:
     enc_heads: int = 4
     enc_d_ff: int = 1024
     enc_conv_kernel: int = 31
+    dropout: float = 0.1
+    dec_layers: int = 2
+    dec_heads: int = 4
+    dec_d_ff: int = 1024
     specials: SpecialTokens = field(default_factory=SpecialTokens)
-    compute_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"  # activations and matmuls; params f32
     # read only to refuse what this package does not implement yet
     conv_norm: str = "batch_norm"
     quant_per_channel: bool = False
-    causal_conv: bool = False
-    attn_chunk_size: Optional[int] = None
-    time_pad_multiple: int = 128  # pad the subsampled time axis to a
-    # multiple of this when it exceeds half of it; 1 disables
+    reference_decoder: bool = False
+    quant_decoder: bool = False
     fused_attention: bool = False  # the whole rel-pos attention of a block
     # as one CUDA kernel (ops/attention.py), in the JAX kernel's roundings
     fused_subsampler: bool = False  # conv1 -> ReLU -> conv2 -> ReLU as one
     # CUDA kernel (ops/subsampler.py), conv1 in f32 as the JAX kernel does
+    causal_conv: bool = False
+    attn_chunk_size: Optional[int] = None
+    time_pad_multiple: int = 128  # pad the subsampled time axis to a
+    # multiple of this when it exceeds half of it; 1 disables
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """The composite 3-branch QAT loss."""
+
+    gamma_ctc: float = 0.2
+    lambda1: float = 0.5  # weight of the 1-bit and stochastic-precision losses
+    lambda2: float = 1.0  # weight of the KL terms
+    label_smoothing: float = 0.1
+    sp_low_p: float = 0.2  # stochastic-precision mask: P(1-bit) of the first
+    sp_high_p: float = 0.9  # and of the last layer, log-spaced between
 
 
 @dataclass(frozen=True)
 class DataConfig:
+    data_dir: str = "data"
+    batch_size: int = 64
     max_frames: int = 1600  # longest utterance in frames (16 s at 10 ms)
 
 
 @dataclass(frozen=True)
-class TrainConfig:
-    """The parts of a JAX run's config that serving needs."""
+class OptimConfig:
+    """AdamW + warmup-cosine."""
 
+    lr: float = 5e-4
+    warmup_steps: int = 4000
+    min_lr_ratio: float = 0.1
+    betas: Tuple[float, float] = (0.9, 0.98)
+    weight_decay: float = 1e-2
+    grad_clip_norm: float = 5.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
-    frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    epochs: int = 40
+    seed: int = 0
+    save_dir: str = "./checkpoints"
+
+
+_NESTED = {
+    ("ModelConfig", "specials"): SpecialTokens,
+    ("TrainConfig", "model"): ModelConfig,
+    ("TrainConfig", "loss"): LossConfig,
+    ("TrainConfig", "data"): DataConfig,
+    ("TrainConfig", "optim"): OptimConfig,
+    ("TrainConfig", "frontend"): FrontendConfig,
+}
 
 
 def _from_dict(cls, d: Dict[str, Any]):
@@ -86,16 +137,13 @@ def _from_dict(cls, d: Dict[str, Any]):
             continue
         v = d[f.name]
         sub = _NESTED.get((cls.__name__, f.name))
-        kwargs[f.name] = _from_dict(sub, v) if sub is not None else v
+        if sub is not None and isinstance(v, dict):
+            kwargs[f.name] = _from_dict(sub, v)
+        elif isinstance(v, list):
+            kwargs[f.name] = tuple(v)
+        else:
+            kwargs[f.name] = v
     return cls(**kwargs)
-
-
-_NESTED = {
-    ("ModelConfig", "specials"): SpecialTokens,
-    ("TrainConfig", "model"): ModelConfig,
-    ("TrainConfig", "frontend"): FrontendConfig,
-    ("TrainConfig", "data"): DataConfig,
-}
 
 
 def train_config_from_json(s: str) -> TrainConfig:

@@ -14,13 +14,17 @@ rounds conv1 as its plain version does and sums conv2's 9C bf16 products in
 f32 in another order, so its bf16 output may differ by one bf16 ulp (rtol
 2^-7, atol 1e-3). The fused attention kernel sums its products in f32 in
 another order and takes the softmax sum online, so a bf16 probability or
-output may differ by one bf16 ulp (|d| <= 1e-2 + 2^-7 |ref|).
+output may differ by one bf16 ulp (|d| <= 1e-2 + 2^-7 |ref|). The CTC
+lattice kernels run the plain versions' f32 recursion in the same order:
+their NEG_INF entries (<= -5e29) must match as a pattern and the finite ones
+within 1e-5 relative (+1e-5), expf/logf of two builds aside.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from onebit_asr_tpu_torch.ops import ctc_lattice as cl
 from onebit_asr_tpu_torch.ops import subsampler as ss
 from onebit_asr_tpu_torch.ops import ternary_matmul as tm
 
@@ -339,3 +343,105 @@ def test_fused_attention_forward_on_kernels_matches_plain(cuda):
     lp_ref = torch.log_softmax(ref.float(), -1)[mask]
     assert torch.isfinite(lp).all()
     assert (lp - lp_ref).abs().max().item() < 0.1
+
+
+def _lattice_operands(B, T, U, seed, device, vocab=None):
+    """Emissions of random logits for random labels (from a small vocabulary
+    by default, so labels repeat), with ragged lengths: row 0 full length,
+    row 1 label length 0, row 2 fewer frames than its labels need."""
+    from onebit_asr_tpu_torch.losses import ctc as tctc
+
+    rng = np.random.default_rng(seed)
+    V = vocab or 9
+    logits = torch.from_numpy(rng.standard_normal((B, T, V)).astype(np.float32) * 2).to(device)
+    labels = torch.from_numpy(rng.integers(4, V, (B, U))).to(device)
+    label_lens = torch.from_numpy(rng.integers(0, U + 1, B)).to(device)
+    lens = torch.from_numpy(rng.integers(1, T + 1, B)).to(device)
+    lens[0] = T
+    if B > 2:
+        label_lens[1] = 0
+        label_lens[2], lens[2] = U, max(1, min(T, U - 1))
+    z, can_skip = tctc._extended_targets(labels, 3)
+    emit, _ = tctc._emissions(logits, z)
+    S = z.shape[1]
+    s_idx = torch.arange(S, device=device)[None]
+    ll = label_lens[:, None]
+    beta0 = torch.where((s_idx == 2 * ll) | ((s_idx == 2 * ll - 1) & (ll > 0)), 0.0,
+                        cl.NEG_INF).float()
+    return emit, lens, can_skip, tctc._alpha0_of(emit, label_lens), beta0
+
+
+def _assert_lattice_close(out, ref):
+    neg = ref <= cl.NEG_INF / 2
+    assert torch.equal(out <= cl.NEG_INF / 2, neg)
+    d = (out - ref).abs()[~neg]
+    assert bool((d <= 1e-5 * ref.abs()[~neg] + 1e-5).all()), d.max().item()
+
+
+@pytest.mark.parametrize("T", [1, 37, 512])
+@pytest.mark.parametrize("S", [3, 97, 457, 1025])
+def test_ctc_lattice_kernels_match_plain(cuda, S, T):
+    emit, lens, skip, alpha0, beta0 = _lattice_operands(5, T, (S - 1) // 2, S + T, cuda)
+    for fn, plain, init in ((cl.ctc_alpha, cl.ctc_alpha_reference, alpha0),
+                            (cl.ctc_beta, cl.ctc_beta_reference, beta0)):
+        before = fn.launches
+        out = fn(emit, lens, skip, init)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _assert_lattice_close(out, plain(emit, lens, skip, init))
+
+
+def test_ctc_lattice_kernels_beyond_4096_states(cuda):
+    """S = 8193: 32 states a thread and 64 KB of shared memory."""
+    emit, lens, skip, alpha0, beta0 = _lattice_operands(2, 20, 4096, 7, cuda)
+    _assert_lattice_close(cl.ctc_alpha(emit, lens, skip, alpha0),
+                          cl.ctc_alpha_reference(emit, lens, skip, alpha0))
+    _assert_lattice_close(cl.ctc_beta(emit, lens, skip, beta0),
+                          cl.ctc_beta_reference(emit, lens, skip, beta0))
+
+
+def test_ctc_lattice_kernels_refuse_what_they_do_not_take(cuda):
+    emit, lens, skip, alpha0, _ = _lattice_operands(3, 12, 4, 1, cuda)
+    for fn in (cl.ctc_alpha, cl.ctc_beta):
+        before = fn.launches
+        for bad in (emit.double(), emit.to(torch.bfloat16)):
+            with pytest.raises(TypeError):
+                fn(bad, lens, skip, alpha0)
+        with pytest.raises(RuntimeError):  # split devices
+            fn(emit, lens.cpu(), skip, alpha0)
+        assert fn.launches == before
+
+
+def test_train_step_on_ctc_kernels_matches_plain_ctc(cuda, monkeypatch):
+    """One small-model 3-branch loss and its gradients with the CTC on the
+    kernels (one alpha and one beta launch for the three branches) against
+    the same step with the plain lattices, f32, dropout 0."""
+    import dataclasses
+
+    from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
+    from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+    from onebit_asr_tpu_torch.losses import ctc as tctc
+    from onebit_asr_tpu_torch.train.state import create_train_state
+    from onebit_asr_tpu_torch.train.step import batch_to_device, make_batch_loss, value_and_grad
+    from onebit_asr_tpu_torch.utils.config import LossConfig, ModelConfig, SpecialTokens
+
+    cfg = dataclasses.replace(
+        ModelConfig(), vocab_size=32, enc_d_model=64, enc_layers=2, enc_heads=2,
+        enc_d_ff=128, enc_conv_kernel=7, dec_layers=1, dec_d_ff=64, dropout=0.0,
+        compute_dtype="float32")
+    model = qat_model_from_jax(cfg, init_params(cfg, 0), device="cuda")
+    state = create_train_state(model, 0)
+    batch_loss = make_batch_loss(model, LossConfig(), SpecialTokens(), 2)
+    batch = batch_to_device(next(iter(DummyDataModule(batch_size=4).train_batches(0))), cuda)
+    sp = torch.tensor([True, False])
+    counts = (cl.ctc_alpha.launches, cl.ctc_beta.launches)
+    (loss, aux), grads = value_and_grad(batch_loss, state.params, batch, sp, [None] * 3)
+    assert (cl.ctc_alpha.launches, cl.ctc_beta.launches) == (counts[0] + 1, counts[1] + 1)
+    monkeypatch.setattr(tctc, "ctc_alpha", cl.ctc_alpha_reference)
+    monkeypatch.setattr(tctc, "ctc_beta", cl.ctc_beta_reference)
+    (ref_loss, ref_aux), ref_grads = value_and_grad(batch_loss, state.params, batch, sp, [None] * 3)
+    for k in aux:
+        assert torch.allclose(aux[k], ref_aux[k], rtol=1e-5, atol=1e-6), k
+    scale = max(g.abs().max() for g in ref_grads.values())
+    for k, g in grads.items():
+        assert torch.allclose(g, ref_grads[k], rtol=1e-4, atol=1e-6 * scale), k

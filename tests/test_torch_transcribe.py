@@ -57,7 +57,8 @@ def _configs(compute_dtype="float32"):
         jax_config.ModelConfig(), dec_layers=1, dec_d_ff=64,
         compute_dtype=compute_dtype, **SMALL,
     )
-    return jcfg, dataclasses.replace(ModelConfig(), compute_dtype=compute_dtype, **SMALL)
+    return jcfg, dataclasses.replace(ModelConfig(), dec_layers=1, dec_d_ff=64,
+                                     compute_dtype=compute_dtype, **SMALL)
 
 
 @pytest.fixture(scope="module")
@@ -337,8 +338,9 @@ def test_transcribe_cli_end_to_end(jax_params, tmp_path):
 def test_port_runs_without_jax_or_the_jax_package():
     """The port and chip_smoke.py import neither jax nor onebit_asr_tpu: with
     both blocked, every module imports, a tiny packed forward runs on CPU
-    unfused, with the fused subsampler and with the fused attention, and
-    chip_smoke exits 1 without its result line when there is no card."""
+    unfused, with the fused subsampler and with the fused attention, a tiny
+    QAT model takes one 3-branch train step, and chip_smoke exits 1 without
+    its result line when there is no card."""
     code = r"""
 import importlib, io, contextlib, pkgutil, sys, dataclasses
 sys.modules["jax"] = None
@@ -358,6 +360,18 @@ for fused, fused_attention in ((False, False), (True, False), (False, True)):
     assert model.encoder.blocks[0].mhsa.fused == fused_attention
     _, mask, logits = model(torch.randn(2, 40, 80), torch.tensor([40, 30]))
     assert logits.shape == (2, 9, 12) and torch.isfinite(logits.float()).all()
+from onebit_asr_tpu_torch.convert import qat_model_from_jax
+from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
+from onebit_asr_tpu_torch.train.step import batch_to_device
+from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
+c = dataclasses.replace(cfg, vocab_size=32, dec_layers=1, dec_d_ff=32)
+qat = qat_model_from_jax(c, init_params(c, 0), device="cpu")
+state = create_train_state(qat, 0)
+step = make_train_step(qat, AdamW(OptimConfig(), 10), LossConfig(), SpecialTokens(), 1)
+dm = DummyDataModule(batch_size=2, max_frames=48, max_tokens=4)
+state, aux = step(state, batch_to_device(next(iter(dm.train_batches(0))), "cpu"))
+assert state.step == 1 and torch.isfinite(aux["loss"]) and torch.isfinite(aux["grad_norm"])
 import chip_smoke
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
