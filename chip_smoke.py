@@ -42,7 +42,17 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    the card, and the greedy ids, ms per batch, peak memory and kernel
    launches per batch are printed; the unfused bf16 path is also run with
    PyTorch's default TF32 for cuDNN and compared with TF32 off;
-4. ctc: the CTC alpha and beta lattice kernels are held against their plain
+4. attention backward: the fused rel-pos attention backward kernel is held
+   against its plain version at the train step's shape (B=16, H=4,
+   T'=256, dh=64, key lengths 128-255) with dropout 0.1 and 0, on a ragged
+   case with an all-pad row (T=255) and at dh=36 (T=200): all six
+   gradients within one bf16 ulp of the element plus one of the tensor's
+   largest (f32 sums in another order; a ds element may round the other
+   way), and two launches must give the same bits (fixed-order sums). It
+   is timed beside its bound and the unfused attention chain's
+   `.backward()` through autograd (`library_ms`, a yardstick only), and
+   row 3's forward is timed at the same shape;
+5. ctc: the CTC alpha and beta lattice kernels are held against their plain
    versions at the train step's shape (the three branches of B=16 in one
    launch: B=48, T'=256, S=97), at LibriSpeech's ceiling (T=512, B=16,
    S=457) and on a ragged case (lengths < T, label length 0, an infeasible
@@ -50,17 +60,26 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    ones within 1e-5 relative; timed at the step's shape beside
    F.ctc_loss forward (alpha) and forward + backward (beta), whose NLL
    also cross-checks the port's;
-5. train: the library train step (train/step.py::make_train_step) at full
+6. train: the library train step (train/step.py::make_train_step) at full
    Conformer-M width and depth, dropout 0.1, on bench.py's batch of record
    (B=16, 1,024 frames, U=48): a warm-up step, then TRAIN_STEPS steps that
    must launch each lattice kernel exactly once per step and give finite
-   losses and gradient norms; ms per step and peak memory are printed, and
+   losses and gradient norms; ms per step and peak memory (above what
+   earlier phases still hold) are printed, and
    one step on the kernels is held against the same step with the plain
    lattices (aux rtol 1e-4, gradients within 1e-2 of their norm: the
-   backward's atomic sums run in no fixed order);
-6. train cli: `python -m onebit_asr_tpu_torch.train --dummy_data` for 2
+   backward's atomic sums run in no fixed order). Then the same with
+   fused_attention=True: 36 forward and 36 backward attention launches and
+   1 + 1 lattice launches per step, and one step on the kernels held
+   against the same step with `attention_fn` set to the plain Function
+   (aux rtol 1e-2, gradients within 0.1 of their norm: bf16 layers carry a
+   probability or gradient element rounded the other way through 12
+   blocks) and, loosely, against the unfused chain's step on the same
+   draws (gradient cosine >= 0.95: the chain rounds the scores to bf16);
+7. train cli: `python -m onebit_asr_tpu_torch.train --dummy_data` for 2
    epochs of 3 steps at Conformer-M widths, then a --resume run of a third
-   epoch in this process, which must continue from step 6.
+   epoch in this process, which must continue from step 6; then one epoch
+   with --fused_attention in this process, with its launches counted.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -352,6 +371,118 @@ def attention_kernel_phase(cfg, t_pad, t_valid, seed, rows):
     rows["fused_relpos_attention"]["max_abs_err"] = max_err
 
 
+GRADS = ("dq", "dk", "dv", "dp", "du", "dvb")
+
+
+def attention_bwd_kernel_phase(cfg, seed, rows):
+    """The fused attention backward kernel against its plain version at the
+    train step's shape (one launch per block and branch of bench.py's batch)
+    with dropout 0.1 and 0, on a ragged case with an all-pad row and at
+    dh=36; timed beside its bound and the unfused chain's backward, with
+    row 3's forward timed at the same shape."""
+    from onebit_asr_tpu_torch.model.conformer import relpos_attention_chain
+    from onebit_asr_tpu_torch.model.layers import fast_dropout
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    H, dh_path = cfg.enc_heads, cfg.enc_d_model // cfg.enc_heads
+    step_lens = np.concatenate([[255], rng.integers(128, 256, 15)])
+    # (label, B, H, T, dh, key lengths, dropout rate, g zero on padded rows)
+    cases = [("step", 16, H, 256, dh_path, step_lens, 0.1, True),
+             ("step_no_dropout", 16, H, 256, dh_path, step_lens, 0.0, True),
+             ("ragged", 3, H, 255, dh_path, [250, 0, 255], 0.1, False),
+             ("conformer_s", 2, 2, 200, 36, [200, 131], 0.0, False)]
+    max_err = 0.0
+    for label, B, Hc, T, dh, lens, rate, zero_pad in cases:
+        key_mask = torch.from_numpy(
+            (np.arange(T)[None] < np.asarray(lens)[:, None]).astype(np.float32)).to(dev)
+        q, k, v, g = (rng.standard_normal((B, Hc, T, dh)) for _ in range(4))
+        p = rng.standard_normal((Hc, 2 * T - 1, dh))
+        u, vb = (0.1 * rng.standard_normal((Hc, dh)) for _ in range(2))
+        q, k, v, g, p, u, vb = (torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+                                for a in (q, k, v, g, p, u, vb))
+        if zero_pad:  # the block masks its output, so padded queries get no gradient
+            g = g * key_mask[:, None, :, None].to(g.dtype)
+        drop8 = torch.from_numpy(
+            rng.integers(0, 256, size=(B, Hc, T, T), dtype=np.uint8) if rate
+            else np.zeros((1, 1, 1, 1), np.uint8)).to(dev)
+        scale = 1.0 / float(np.sqrt(dh))
+        ops = (q, k, v, p, u, vb, key_mask, drop8)
+        out = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
+        again = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
+        ref = fa.fused_relpos_attention_bwd_reference(*ops, g, scale, rate)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"fused_relpos_attention_bwd {label}: two launches differ")
+        errs, same, n = [], 0, 0
+        for name, a, r in zip(GRADS, out, ref):
+            if a.dtype != torch.bfloat16 or a.shape != r.shape:
+                raise AssertionError(f"fused_relpos_attention_bwd {label} {name}: "
+                                     f"{a.dtype} {tuple(a.shape)}")
+            a, r = a.float(), r.float()
+            d = (a - r).abs()
+            if not bool(torch.isfinite(a).all()) or not bool(
+                    (d <= 2.0 ** -7 * (r.abs() + r.abs().max())).all()):
+                raise AssertionError(f"fused_relpos_attention_bwd {label} {name}: max |d| "
+                                     f"{d.max().item()} (max |ref| {r.abs().max().item()})")
+            errs.append(f"{name}={d.max().item():.3g}/{r.abs().max().item():.3g}")
+            max_err = max(max_err, d.max().item())
+            same += int((a == r).sum())
+            n += a.numel()
+        log(f"kernel fused_relpos_attention_bwd {label} B={B} H={Hc} T={T} dh={dh} "
+            f"rate={rate}: max|d|/max|ref| {' '.join(errs)} bit_identical={same / n:.4f} "
+            f"two launches bit-identical")
+        if label != "step":
+            continue
+        ms = cuda_ms(lambda: fa.fused_relpos_attention_bwd(*ops, g, scale, rate))
+        plain_ms = cuda_ms(lambda: fa.fused_relpos_attention_bwd_reference(*ops, g, scale, rate),
+                           iters=5, warmup=1)
+        # the port's unfused chain on the same operands and draws, [B, T, H, dh];
+        # its forward outside the timed region
+        leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+        leaves += [p.transpose(0, 1).contiguous().requires_grad_(True),
+                   u.clone().requires_grad_(True), vb.clone().requires_grad_(True)]
+        chain_out = relpos_attention_chain(*leaves, key_mask > 0, scale,
+                                           lambda a: fast_dropout(a, rate, drop8))
+        g_chain = g.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(chain_out, leaves, g_chain,
+                                                     retain_graph=True))
+        del chain_out, leaves
+        P, bhtd = 2 * T - 1, B * Hc * T * dh
+        nbytes = (7 * bhtd * 2 + 2 * Hc * P * dh * 2 + 4 * Hc * dh * 2 + B * T * 4
+                  + B * Hc * T * T)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # qu k^T, the T x T band of qv p^T, g v^T, attn^T g, ds k, dbraw p,
+        # ds^T qu, dbraw^T qv
+        t_ops = 8 * 2.0 * B * Hc * T * T * dh / PEAK_OPS["bf16"] * 1e3
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fa.fused_relpos_attention(*ops, scale, rate))
+        f_bytes = (4 * bhtd * 2 + Hc * P * dh * 2 + B * T * 4 + B * Hc * T * T) / HBM_BYTES_PER_S
+        f_ops = 2.0 * B * Hc * T * 3 * T * dh / PEAK_OPS["bf16"]
+        log(f"kernel fused_relpos_attention_bwd {label}: per launch ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.5f} (bytes {t_bytes:.5f}, "
+            f"bf16 {t_ops:.5f}) library_ms={lib_ms:.4f} (the unfused chain's backward through "
+            f"autograd); x{3 * cfg.enc_layers}/train step")
+        log(f"kernel fused_relpos_attention (row 3) at the train step's shape B={B} H={Hc} "
+            f"T={T} dh={dh} rate={rate}: per launch ms={fwd_ms:.4f} "
+            f"bound_ms={max(f_bytes, f_ops) * 1e3:.5f}; x{3 * cfg.enc_layers}/train step")
+        rows["fused_relpos_attention_bwd"] = {
+            "name": "fused_relpos_attention_bwd",
+            "route": "cuda",
+            "source": "onebit_asr_tpu_torch/csrc/attention_bwd.cu",
+            "replaces": "onebit_asr_tpu/ops/attention.py:165",
+            "launches": 0,
+            "max_abs_err": 0.0,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+        }
+    rows["fused_relpos_attention_bwd"]["max_abs_err"] = max_err
+
+
 def synthetic_waveforms(seed: int):
     """8 waveforms of 2-16 s (one of exactly 16 s): tone mixtures + noise."""
     rng = np.random.default_rng(seed)
@@ -493,7 +624,8 @@ def path_phase(cfg, params, wavs, rows, profile=False):
     kernels = {"ternary_matmul_bf16": tm.ternary_matmul,
                "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
                "fused_subsample": ss.fused_subsample,
-               "fused_relpos_attention": fa.fused_relpos_attention}
+               "fused_relpos_attention": fa.fused_relpos_attention,
+               "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd}
     configs = {
         "config": cfg,
         "config_fused": dataclasses.replace(cfg, fused_subsampler=True),
@@ -721,15 +853,50 @@ def bench_batch(cfg, seed):
     }, DEVICE)
 
 
-def train_step_phase(cfg, seed, rows, kernels, profile=False):
+@contextlib.contextmanager
+def swapped_attention(model, attention_fn=None, fused=True):
+    """Every RelPosMHSA of `model` with `attention_fn` (if given) and
+    `fused` for the duration."""
+    from onebit_asr_tpu_torch.model.conformer import RelPosMHSA
+
+    mods = [m for m in model.modules() if isinstance(m, RelPosMHSA)]
+    saved = [(m.attention_fn, m.fused) for m in mods]
+    for m in mods:
+        m.attention_fn = attention_fn or m.attention_fn
+        m.fused = fused
+    try:
+        yield
+    finally:
+        for m, (fn, was_fused) in zip(mods, saved):
+            m.attention_fn, m.fused = fn, was_fused
+
+
+def _grads_cmp(grads, ref):
+    """(|grads - ref| / |ref|, cosine) over all gradients together."""
+    num = sum(float(((grads[k].float() - ref[k].float()) ** 2).sum()) for k in ref)
+    dot = sum(float((grads[k].float() * ref[k].float()).sum()) for k in ref)
+    n2 = sum(float((grads[k].float() ** 2).sum()) for k in ref)
+    den = sum(float((ref[k].float() ** 2).sum()) for k in ref)
+    return (num / den) ** 0.5, dot / (n2 * den) ** 0.5
+
+
+def train_step_phase(cfg, seed, rows, kernels):
     """The library train step at full width on the kernels, its launches per
-    step, and one step against the same step with the plain lattices."""
+    step, and one step against the same step with the plain lattices or,
+    under fused_attention, the plain attention (and loosely the unfused
+    chain). Returns what to profile of it, as [(what, fn, top)], for the
+    caller to run after every timed phase: a finished profiler run can slow
+    later host code."""
+    from onebit_asr_tpu_torch.ops import attention as fa
     from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
     from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
     from onebit_asr_tpu_torch.train.state import param_count
     from onebit_asr_tpu_torch.train.step import make_batch_loss, sample_sp_mask, value_and_grad
     from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
 
+    # what earlier phases still hold (a train phase's state, kept for its
+    # profile) is not this phase's memory
+    base = torch.cuda.memory_allocated()
     model = qat_model_from_jax(cfg, init_params(cfg, seed), device=DEVICE)
     state = create_train_state(model, seed)
     loss_cfg, specials = LossConfig(), SpecialTokens()
@@ -750,24 +917,30 @@ def train_step_phase(cfg, seed, rows, kernels, profile=False):
     end.record()
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in kernels.items()}
-    want = {k: TRAIN_STEPS if k in ("ctc_alpha", "ctc_beta") else 0 for k in kernels}
+    fused = cfg.fused_attention
+    label = "train step fused_attention" if fused else "train step"
+    per_step = {"ctc_alpha": 1, "ctc_beta": 1}
+    if fused:  # each block of each of the three branches
+        per_step.update(fused_relpos_attention=3 * cfg.enc_layers,
+                        fused_relpos_attention_bwd=3 * cfg.enc_layers)
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in kernels}
     if counts != want:
-        raise AssertionError(f"train step: launches {counts}, want {want}")
-    for k in ("ctc_alpha", "ctc_beta"):
+        raise AssertionError(f"{label}: launches {counts}, want {want}")
+    for k in ("fused_relpos_attention_bwd",) if fused else ("ctc_alpha", "ctc_beta"):
         rows[k]["launches"] = counts[k]
     ms = start.elapsed_time(end) / TRAIN_STEPS
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     losses = [{k: float(v) for k, v in a.items()} for a in auxes]
     if not all(np.isfinite(list(l.values())).all() for l in losses):
-        raise AssertionError(f"train step: non-finite loss or grad_norm {losses}")
-    log(f"train step: Conformer-M {param_count(state.params) / 1e6:.2f}M params, B=16, T=1024 "
+        raise AssertionError(f"{label}: non-finite loss or grad_norm {losses}")
+    log(f"{label}: Conformer-M {param_count(state.params) / 1e6:.2f}M params, B=16, T=1024 "
         f"(T'=256), U<=48, dropout {cfg.dropout}, {cfg.compute_dtype}: ms_per_step={ms:.2f} "
         f"peak_mem_gb={peak_gb:.3f} launches_per_step="
         f"{ {k: v // TRAIN_STEPS for k, v in counts.items() if v} } steps={state.step}")
     for i, l in enumerate(losses):
-        log(f"train step {i}: " + " ".join(f"{k}={v:.5g}" for k, v in l.items()))
+        log(f"{label} {i}: " + " ".join(f"{k}={v:.5g}" for k, v in l.items()))
 
-    # one step's loss and gradients on the kernels and on the plain lattices,
+    # one step's loss and gradients on the kernels and on the plain versions,
     # from the same state, mask and dropout seeds
     batch_loss = make_batch_loss(model, loss_cfg, specials, cfg.enc_layers)
     g = torch.Generator()
@@ -779,27 +952,39 @@ def train_step_phase(cfg, seed, rows, kernels, profile=False):
         return value_and_grad(batch_loss, state.params, batch, sp, gens)
 
     (_, aux_k), grads_k = run()
-    with plain_ctc():
-        (_, aux_p), grads_p = run()
+    if fused:
+        plain, aux_tol, grad_tol = "plain attention", 1e-2, 0.1
+        with swapped_attention(model, fa.fused_relpos_attention_plain):
+            (_, aux_p), grads_p = run()
+    else:
+        plain, aux_tol, grad_tol = "plain CTC", 1e-4, 1e-2
+        with plain_ctc():
+            (_, aux_p), grads_p = run()
     torch.cuda.synchronize()
     aux_err = max(abs(float(aux_k[k]) - float(aux_p[k])) / abs(float(aux_p[k])) for k in aux_p)
-    num = sum(float(((grads_k[k].float() - grads_p[k].float()) ** 2).sum()) for k in grads_p)
-    den = sum(float((grads_p[k].float() ** 2).sum()) for k in grads_p)
-    grad_err = (num / den) ** 0.5
-    log(f"train step kernels vs plain CTC: aux max relative |d|={aux_err:.3g} "
-        f"grads |d|/|g|={grad_err:.3g} loss_ctc_2bit={float(aux_k['loss_ctc_2bit']):.6g}/"
-        f"{float(aux_p['loss_ctc_2bit']):.6g}")
-    if aux_err > 1e-4 or grad_err > 1e-2:
-        raise AssertionError("train step on the kernels strays from the plain CTC")
-    if profile:
-        log("profile of one train step:")
-        profile_breakdown(lambda: step(state, batch))
-        log("profile of its loss and gradients (value_and_grad):")
-        profile_breakdown(run, top=5)
-        log("profile of its optimizer update (clip + AdamW over every parameter):")
-        profile_breakdown(lambda: optimizer.update(state.params, grads_k, state.mu, state.nu,
-                                                   state.count), top=5)
-    del model, state, grads_k, grads_p
+    grad_err, _ = _grads_cmp(grads_k, grads_p)
+    log(f"{label} kernels vs {plain}: aux max relative |d|={aux_err:.3g} (tolerance "
+        f"{aux_tol}) grads |d|/|g|={grad_err:.3g} (tolerance {grad_tol}) "
+        f"loss_ctc_2bit={float(aux_k['loss_ctc_2bit']):.6g}/{float(aux_p['loss_ctc_2bit']):.6g}")
+    if aux_err > aux_tol or grad_err > grad_tol:
+        raise AssertionError(f"{label} on the kernels strays from the {plain}")
+    if fused:
+        # the unfused chain on the same draws rounds the scores to bf16
+        with swapped_attention(model, fused=False):
+            (_, aux_u), grads_u = run()
+        diff, cos = _grads_cmp(grads_k, grads_u)
+        log(f"{label} kernels vs the unfused chain: loss {float(aux_k['loss']):.6g}/"
+            f"{float(aux_u['loss']):.6g} grads |d|/|g|={diff:.3g} cosine={cos:.5f} "
+            f"(tolerance >= 0.95)")
+        if cos < 0.95:
+            raise AssertionError(f"{label}: gradients far from the unfused chain's")
+        del grads_u
+    del grads_p
+    return [(f"one {label}", lambda: step(state, batch), 15),
+            (f"the loss and gradients of one {label} (value_and_grad)", run, 5),
+            (f"the optimizer update of one {label} (clip + AdamW over every parameter)",
+             lambda: optimizer.update(state.params, grads_k, state.mu, state.nu, state.count),
+             5)]
 
 
 def train_cli_phase(kernels):
@@ -846,6 +1031,33 @@ def train_cli_phase(kernels):
             raise AssertionError("train CLI --resume saved no step 9")
         log(f"train cli resume: rc=0 continued from step 6 to 9, launches={counts}")
 
+        # one epoch under --fused_attention: 3 steps x 3 branches x L blocks
+        # (forward and backward), 3 evaluation forwards x L (forward)
+        from onebit_asr_tpu_torch.utils.config import ModelConfig
+
+        L = ModelConfig().enc_layers
+        for fn in kernels.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tcli.main(["--epochs", "1", "--fused_attention",
+                            *argv[:argv.index("--run_name")], "--run_name", "smoke_fa",
+                            "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        for line in out.getvalue().splitlines():
+            log(f"train cli fused_attention: {line}")
+        want = {"ctc_alpha": 6, "ctc_beta": 3, "fused_relpos_attention": 9 * L + 3 * L,
+                "fused_relpos_attention_bwd": 9 * L}
+        run = os.path.join(root, "smoke_fa")
+        if rc != 0 or counts != want or not os.path.exists(os.path.join(run, "ckpt",
+                                                                         "step_3.pt")):
+            raise AssertionError(f"train CLI --fused_attention: rc={rc} launches {counts}, "
+                                 f"want {want}")
+        log(f"train cli fused_attention: rc=0 wall_s={wall:.2f} (in process: init, 3 steps, "
+            f"1 evaluation at 32/2/1 bits, checkpoint) launches={counts}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
@@ -882,6 +1094,7 @@ def main(argv=None) -> int:
     rows = kernel_phase(cfg, t_pad, args.seed)
     subsample_kernel_phase(cfg, frames, args.seed, rows)
     attention_kernel_phase(cfg, t_pad, t_sub, args.seed, rows)
+    attention_bwd_kernel_phase(cfg, args.seed, rows)
 
     ctc_kernel_phase(args.seed, rows)
     log("kernels: every kernel agrees with its plain version at the path's shapes")
@@ -900,10 +1113,18 @@ def main(argv=None) -> int:
                "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
                "fused_subsample": ss.fused_subsample,
                "fused_relpos_attention": fa.fused_relpos_attention,
+               "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd,
                "ctc_alpha": cl.ctc_alpha, "ctc_beta": cl.ctc_beta}
-    train_step_phase(cfg, args.seed, rows, kernels, args.profile)
+    profiles = train_step_phase(cfg, args.seed, rows, kernels)
+    profiles += train_step_phase(dataclasses.replace(cfg, fused_attention=True), args.seed,
+                                 rows, kernels)
     train_cli_phase(kernels)
-    log("train: the QAT step and the train CLI ran on the CTC kernels")
+    log("train: the QAT step and the train CLI ran on the CTC kernels, and under "
+        "fused_attention on the attention kernels too")
+    for what, fn, top in profiles if args.profile else ():
+        log(f"profile of {what}:")
+        profile_breakdown(fn, top)
+    del profiles
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,7 +8,9 @@ two packed-ternary matrix products (csrc/ternary_matmul.cu), under
 `fused_subsampler` the fused conv subsampler (csrc/subsampler.cu) and under
 `fused_attention` the fused rel-pos attention (csrc/attention.cu), and it
 trains the 3-branch QAT model (`python -m onebit_asr_tpu_torch.train`), with
-the CTC alpha and beta lattices (csrc/ctc_lattice.cu); all are CUDA C++
+the CTC alpha and beta lattices (csrc/ctc_lattice.cu) and, under
+`fused_attention`, the fused attention's backward (csrc/attention_bwd.cu);
+all are CUDA C++
 kernels for sm_90a, built with nvcc at first use.
 """
 

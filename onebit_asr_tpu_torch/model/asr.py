@@ -54,9 +54,6 @@ def check_trainable(cfg: ModelConfig) -> None:
     """Refuse what the QAT form does not implement yet, naming the piece."""
     _check_supported(cfg)
     _refuse({
-        "fused_attention": (cfg.fused_attention, False,
-                            "its backward is kernel row 4, ops/attention.py::_bwd_kernel, "
-                            "not ported yet"),
         "fused_subsampler": (cfg.fused_subsampler, False,
                              "its backward is kernel row 6, ops/subsampler.py::_bwd_kernel, "
                              "not ported yet"),

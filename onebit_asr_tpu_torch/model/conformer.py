@@ -6,9 +6,12 @@ loop over `nn.ModuleList` (the JAX package scans over stacked [L, ...]
 parameters; convert.py slices them), attention is either plain tensor code
 or, with `fused=True`, the fused CUDA kernel of ops/attention.py, and the
 subsampler is either the unfused conv stack or, with `fused=True`, the fused
-CUDA kernel of ops/subsampler.py. The QAT form runs the plain attention and
-the unfused subsampler (the fused kernels' backward is not ported), with
-per-layer `bits` and every FastDropout site of the JAX encoder. Streaming
+CUDA kernel of ops/subsampler.py. The QAT form (per-layer `bits`, every
+FastDropout site of the JAX encoder) runs either attention: the fused one
+differentiates through the forward and backward kernels of ops/attention.py,
+with its attention dropout drawn as uint8 bytes at the unfused chain's draw.
+It runs only the unfused subsampler (the fused subsampler's backward is not
+ported). Streaming
 variants (chunked attention, causal conv) and the other conv norms are not
 implemented here and are refused.
 
@@ -39,7 +42,7 @@ from onebit_asr_tpu_torch.model.layers import (
     lengths_to_mask,
     rel_positional_encoding,
 )
-from onebit_asr_tpu_torch.ops.attention import fused_relpos_attention
+from onebit_asr_tpu_torch.ops.attention import drop_threshold, fused_relpos_attention
 from onebit_asr_tpu_torch.ops.subsampler import fused_subsample
 
 NEG_INF = -1e9  # finite mask fill: softmax stays NaN-free even for all-pad rows
@@ -135,8 +138,11 @@ class RelPosMHSA(nn.Module):
     with the separate q/k/v/pos/out projections of the serving path
     (conformer.py:237-251) and plain tensor attention (:354-397) or, with
     `fused=True` (:315-353), `fused_relpos_attention` on [B, H, T, dh]
-    operands, dropout off (serving is deterministic). In the QAT form the
-    attention probabilities and the output projection go through dropout.
+    operands. In the QAT form the attention probabilities and the output
+    projection go through dropout while the model has draws; the fused
+    branch then draws the [B, H, T, T] bytes the unfused chain's `attn_drop`
+    would draw, at the same point, and hands them to the kernel with the
+    dropout rate (rate 0 and no draw otherwise, as in serving).
 
     `attention_fn` is a plain attribute: a function with the signature of
     `fused_relpos_attention` (its plain version, say) can take its place."""
@@ -177,12 +183,15 @@ class RelPosMHSA(nn.Module):
         scale = 1.0 / math.sqrt(dh)
 
         if self.fused:
+            drop, rate, drop8 = self.attn_drop, 0.0, self.no_drop
+            if drop.rng.draws is not None and drop_threshold(drop.rate) > 0:
+                rate, drop8 = drop.rate, drop.rng.draws((B, H, T, T), x.device)
             out = self.attention_fn(
                 q.transpose(1, 2).contiguous(),  # [B, H, T, dh]
                 k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(),
                 p.transpose(0, 1).contiguous(),  # [H, 2T-1, dh]
-                u, vb, key_mask.to(torch.float32), self.no_drop, scale, 0.0,
+                u, vb, key_mask.to(torch.float32), drop8, scale, rate,
             ).transpose(1, 2)  # back to [B, T, H, dh]
         else:
             out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, self.attn_drop)

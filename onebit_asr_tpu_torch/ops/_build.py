@@ -45,6 +45,11 @@ SIGNATURES = {
     # q, k, v, p, u, vb, key_mask, drop8, out, B, H, T, dh, scale, drop_k,
     # drop_scale, device, stream
     "fused_relpos_attention_fwd": (_P,) * 9 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),
+    # q, k, v, p, u, vb, key_mask, drop8, g, dq, dk, dv, dp, du, dvb,
+    # workspace, workspace_floats, B, H, T, dh, scale, drop_k, drop_scale,
+    # device, stream
+    "fused_relpos_attention_bwd": (_P,) * 16 + (ctypes.c_longlong, _I, _I, _I, _I, _F, _I,
+                                                _F, _I, _P),
     # emit, lens, skip, init, out, B, T, S, device, stream
     "ctc_alpha_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ctc_beta_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

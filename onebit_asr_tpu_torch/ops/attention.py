@@ -1,17 +1,20 @@
-"""Fused relative-position attention forward: a CUDA kernel for Hopper + its plain version.
+"""Fused relative-position attention: CUDA kernels for Hopper (forward and
+backward), their plain versions, and the autograd Function over them.
 
-Counterpart of onebit_asr_tpu/ops/attention.py (the forward; the backward
-belongs to training). For each (b, h) the whole Transformer-XL attention
+Counterpart of onebit_asr_tpu/ops/attention.py. For each (b, h) the whole
+Transformer-XL attention
 
     softmax(((q+u) k^T + skew((q+vb) p^T)) * scale, key mask) -> dropout -> @ v
 
 runs in one launch (csrc/attention.cu, replacing the TPU kernel
-`_fwd_kernel`, ops/attention.py:141-162): no [T, T]-or-wider tensor reaches
-device memory.
+`_fwd_kernel`, ops/attention.py:141-162), and its gradient in one launch plus
+a fixed-order reduction (csrc/attention_bwd.cu, replacing `_bwd_kernel`,
+:165-232): no [T, T]-or-wider tensor reaches device memory.
 
-The arithmetic follows `_fwd_kernel`, which rounds differently from the
-port's unfused attention chain (model/conformer.py::RelPosMHSA, which rounds
-the content and position scores to the compute dtype and adds them there):
+The forward's arithmetic follows `_fwd_kernel`, which rounds differently
+from the port's unfused attention chain (model/conformer.py::RelPosMHSA,
+which rounds the content and position scores to the compute dtype and adds
+them there):
 - qu = q + u and qv = q + vb in the input dtype, rounded once;
 - ac = qu k^T and braw = qv p^T in f32 (exact products of input-dtype values
   summed in f32), bd[t, s] = braw[t, T-1-t+s];
@@ -23,10 +26,23 @@ the content and position scores to the compute dtype and adds them there):
 - the probabilities cast to v's dtype, times v summed in f32, cast to v's
   dtype.
 
-The wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel (bf16 operands, dh <= 64) or raises; it never
-falls back to the plain version or the unfused chain. It counts its launches
-in `fused_relpos_attention.launches`.
+The backward follows `_bwd_kernel`: it recomputes the scores and softmax
+from the inputs (the only residuals, drop8 included), then
+- attn_d = keep ? attn * inv : 0; dv = bf16(attn_d)^T g (f32 sums);
+- dattn = g v^T, then keep ? dattn * inv : 0; rowdot = sum_s dattn * attn
+  over the f32 probabilities before dropout;
+- ds = attn * (dattn - rowdot) * scale; ds_c = ds and dbraw = unskew(ds),
+  both rounded to q's dtype;
+- dqu = ds_c k, dqv = dbraw p (f32); dq = (dqu + dqv) rounded once;
+  dk = ds_c^T qu; dp = sum_b dbraw^T qv; du = sum_b,t dqu and
+  dvb = sum_b,t dqv, from the unrounded f32 dqu/dqv, summed over the batch
+  in f32 and cast to p's and u's dtype at the end.
+
+Each wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches its kernel (bf16 operands, dh <= 64) or raises; it never
+falls back to the plain version or the unfused chain. The forward counts its
+launches in `fused_relpos_attention.launches`, the backward in
+`fused_relpos_attention_bwd.launches`.
 """
 
 from __future__ import annotations
@@ -40,7 +56,10 @@ from onebit_asr_tpu_torch.ops.subsampler import _aligned, _full_f32_matmul
 from onebit_asr_tpu_torch.ops.ternary_matmul import _cuda_launch_args
 
 NEG = -1e9
-MAX_HEAD_DIM = 64  # the kernel keeps a warp's q rows and output in registers
+MAX_HEAD_DIM = 64  # the kernels keep a warp's q rows and output in registers
+BWD_ROWS = 64  # query rows of one backward CTA (csrc/attention_bwd.cu BQ)
+BWD_WARPS = 4
+BWD_BAND = 128  # p rows one (query tile, key tile) pair touches (127), padded
 
 
 def drop_threshold(dropout_rate: float) -> int:
@@ -68,11 +87,15 @@ def _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate):
     return kd
 
 
-def fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
-                                     dropout_rate):
-    """Plain version, in `_fwd_kernel`'s order of operations and roundings.
-    Returns [B, H, T, dh] in v.dtype."""
-    kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
+def _skew_index(T, device):
+    """[T, T] column of braw that bd[t, s] reads: T-1-t+s."""
+    t = torch.arange(T, device=device)
+    return (T - 1 - t)[:, None] + t[None, :]
+
+
+def _probs(q, k, p, u, vb, key_mask, scale):
+    """The f32 softmax probabilities [B, H, T, T] of `_scores_h` and
+    `_softmax_rows`."""
     f32 = torch.float32
     B, H, T, dh = q.shape
     qu = q + u[None, :, None, :]
@@ -80,14 +103,21 @@ def fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
     with _full_f32_matmul():
         ac = qu.to(f32) @ k.to(f32).transpose(-1, -2)  # [B, H, T, T]
         braw = qv.to(f32) @ p.to(f32).transpose(-1, -2)  # [B, H, T, 2T-1]
-    t = torch.arange(T, device=q.device)
-    skew = (T - 1 - t)[:, None] + t[None, :]  # bd[t, s] = braw[t, T-1-t+s]
-    bd = braw.gather(-1, skew.expand(B, H, T, T))
+    bd = braw.gather(-1, _skew_index(T, q.device).expand(B, H, T, T))
     s = (ac + bd) * scale
     s = torch.where(key_mask[:, None, None, :] > 0, s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
-    attn = e / e.sum(dim=-1, keepdim=True)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
+                                     dropout_rate):
+    """Plain version, in `_fwd_kernel`'s order of operations and roundings.
+    Returns [B, H, T, dh] in v.dtype."""
+    kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
+    f32 = torch.float32
+    attn = _probs(q, k, p, u, vb, key_mask, scale)
     if kd > 0:
         attn = torch.where(drop8.to(torch.int32) >= kd, attn * (256.0 / (256 - kd)), 0.0)
     with _full_f32_matmul():
@@ -95,35 +125,21 @@ def fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
     return out.to(v.dtype)
 
 
-def fused_relpos_attention(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
-    """dropout(softmax(((q+u) k^T + skew((q+vb) p^T)) * scale, masked)) @ v.
-
-    q/k/v [B, H, T, dh]; p [H, 2T-1, dh] (per-head projected positions);
-    u/vb [H, dh]; key_mask [B, T] float (> 0 = valid key); drop8 [B, H, T, T]
-    uint8 draws (keep iff byte >= round(rate * 256)), ignored (any uint8
-    tensor will do) when dropout_rate rounds to 0. Returns [B, H, T, dh] in
-    v.dtype. On CUDA every tensor operand but key_mask and drop8 must be
-    bfloat16, and dh at most 64."""
+def _fwd(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
+    """The forward on the tensors' device: the plain version on the CPU, the
+    kernel (counted in `fused_relpos_attention.launches`) on CUDA."""
     kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
     if q.device.type == "cpu":
         return fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
                                                 dropout_rate)
-    device, stream = _cuda_launch_args(q, k, v, p, u, vb, key_mask, drop8)
     B, H, T, dh = q.shape
-    dtypes = {t.dtype for t in (q, k, v, p, u, vb)}
-    if dtypes != {torch.bfloat16}:
-        raise NotImplementedError(
-            f"fused_relpos_attention kernel takes bfloat16 q/k/v/p/u/vb, got {dtypes}")
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"fused_relpos_attention kernel needs dh <= {MAX_HEAD_DIM}, got {dh}")
-    ops = [_aligned(t) for t in (q, k, v, p, u, vb)]
-    mask = _aligned(key_mask.to(torch.float32))
-    d8 = _aligned(drop8) if kd > 0 else mask  # not read without dropout
+    device, stream, ops = _kernel_operands("fused_relpos_attention", kd, q, k, v, p, u, vb,
+                                           key_mask, drop8)
     out = torch.empty((B, H, T, dh), dtype=torch.bfloat16, device=q.device)
     if B == 0 or T == 0:
         return out
     err = _build.library().fused_relpos_attention_fwd(
-        *(t.data_ptr() for t in ops), mask.data_ptr(), d8.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in ops), out.data_ptr(),
         B, H, T, dh, ctypes.c_float(scale), kd, ctypes.c_float(256.0 / (256 - kd)),
         device, stream,
     )
@@ -132,4 +148,153 @@ def fused_relpos_attention(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_ra
     return out
 
 
+def _kernel_operands(what, kd, q, k, v, p, u, vb, key_mask, drop8, *cotangent):
+    """(device, stream, operands) of a launch: q, k, v, p, u, vb, the f32 key
+    mask, the draws (the mask again, unread, without dropout) and the
+    cotangent if given, contiguous and 16-byte aligned. Raises unless every
+    tensor lies on one CUDA device, the float operands are bfloat16 and dh
+    is at most MAX_HEAD_DIM."""
+    device, stream = _cuda_launch_args(q, k, v, p, u, vb, key_mask, drop8, *cotangent)
+    dtypes = {t.dtype for t in (q, k, v, p, u, vb, *cotangent)}
+    if dtypes != {torch.bfloat16}:
+        raise NotImplementedError(f"{what} kernel takes bfloat16 operands, got {dtypes}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{what} kernel needs dh <= {MAX_HEAD_DIM}, got {q.shape[-1]}")
+    mask = _aligned(key_mask.to(torch.float32))
+    d8 = _aligned(drop8) if kd > 0 else mask
+    ops = [_aligned(t) for t in (q, k, v, p, u, vb)] + [mask, d8]
+    return device, stream, ops + [_aligned(t) for t in cotangent]
+
+
+def fused_relpos_attention_bwd_reference(q, k, v, p, u, vb, key_mask, drop8, g, scale,
+                                         dropout_rate):
+    """Plain backward, in `_bwd_kernel`'s order of operations and roundings:
+    (dq, dk, dv) [B, H, T, dh] in q/k/v's dtype, dp [H, 2T-1, dh] in p's,
+    du and dvb [H, dh] in u's and vb's."""
+    kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
+    if tuple(g.shape) != tuple(q.shape):
+        raise ValueError(f"g {tuple(g.shape)} != {tuple(q.shape)}")
+    f32 = torch.float32
+    B, H, T, dh = q.shape
+    attn = _probs(q, k, p, u, vb, key_mask, scale)
+    with _full_f32_matmul():
+        gf = g.to(f32)
+        dattn = gf @ v.to(g.dtype).to(f32).transpose(-1, -2)
+        if kd > 0:
+            keep = drop8.to(torch.int32) >= kd
+            inv = 256.0 / (256 - kd)
+            attn_d = torch.where(keep, attn * inv, 0.0)
+            dattn = torch.where(keep, dattn * inv, 0.0)
+        else:
+            attn_d = attn
+        dv = attn_d.to(g.dtype).to(f32).transpose(-1, -2) @ gf
+        rowdot = (dattn * attn).sum(dim=-1, keepdim=True)
+        ds = attn * (dattn - rowdot) * scale  # f32 [B, H, T, T]
+        qu = (q + u[None, :, None, :]).to(f32)
+        qv = (q + vb[None, :, None, :]).to(f32)
+        ds_c = ds.to(q.dtype).to(f32)
+        # the skew's adjoint: dbraw[t, T-1-t+s] = ds[t, s], zero elsewhere
+        dbraw = ds_c.new_zeros((B, H, T, 2 * T - 1))
+        dbraw.scatter_(-1, _skew_index(T, q.device).expand(B, H, T, T), ds_c)
+        dqu = ds_c @ k.to(f32)
+        dqv = dbraw @ p.to(f32)
+        dq = dqu + dqv
+        dk = ds_c.transpose(-1, -2) @ qu
+        dp_b = dbraw.transpose(-1, -2) @ qv  # [B, H, P, dh]
+    du_b, dvb_b = dqu.sum(dim=2), dqv.sum(dim=2)  # [B, H, dh]
+    dp, du, dvb = dp_b[0], du_b[0], dvb_b[0]
+    for b in range(1, B):  # the batch in order, as the TPU grid accumulates it
+        dp, du, dvb = dp + dp_b[b], du + du_b[b], dvb + dvb_b[b]
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dp.to(p.dtype), du.to(u.dtype),
+            dvb.to(vb.dtype))
+
+
+def bwd_workspace_floats(B, H, T, dh):
+    """f32 elements of the backward's workspace: per query tile the partial
+    dk and dv of every key, per (query tile, key tile) the partial dp of its
+    128-row band of p, per warp the partial du and dvb."""
+    nq = -(-T // BWD_ROWS)
+    return B * H * nq * (2 * T * dh + nq * BWD_BAND * dh + 2 * BWD_WARPS * dh)
+
+
+def fused_relpos_attention_bwd(q, k, v, p, u, vb, key_mask, drop8, g, scale, dropout_rate):
+    """Gradients of `fused_relpos_attention` for the cotangent g [B, H, T, dh]:
+    (dq, dk, dv, dp, du, dvb), as `fused_relpos_attention_bwd_reference`.
+    On CUDA every tensor operand but key_mask and drop8 must be bfloat16,
+    and dh at most 64."""
+    kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
+    if tuple(g.shape) != tuple(q.shape):
+        raise ValueError(f"g {tuple(g.shape)} != {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return fused_relpos_attention_bwd_reference(q, k, v, p, u, vb, key_mask, drop8, g,
+                                                    scale, dropout_rate)
+    B, H, T, dh = q.shape
+    device, stream, ops = _kernel_operands("fused_relpos_attention_bwd", kd, q, k, v, p, u, vb,
+                                           key_mask, drop8, g)
+    bf = dict(dtype=torch.bfloat16, device=q.device)
+    dq, dk, dv = (torch.empty((B, H, T, dh), **bf) for _ in range(3))
+    dp = torch.empty((H, 2 * T - 1, dh), **bf)
+    du, dvb = torch.empty((H, dh), **bf), torch.empty((H, dh), **bf)
+    if B == 0 or T == 0:
+        return dq, dk, dv, dp.zero_(), du.zero_(), dvb.zero_()
+    n_ws = bwd_workspace_floats(B, H, T, dh)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+    err = _build.library().fused_relpos_attention_bwd(
+        *(t.data_ptr() for t in (*ops, dq, dk, dv, dp, du, dvb, ws)), ctypes.c_longlong(n_ws),
+        B, H, T, dh, ctypes.c_float(scale), kd, ctypes.c_float(256.0 / (256 - kd)),
+        device, stream,
+    )
+    _build.check(err, "fused_relpos_attention_bwd")
+    fused_relpos_attention_bwd.launches += 1
+    return dq, dk, dv, dp, du, dvb
+
+
+fused_relpos_attention_bwd.launches = 0
+
+
+class _RelPosAttention(torch.autograd.Function):
+    """Rel-pos attention whose forward is fns[0] and whose backward is fns[1]
+    on the saved inputs, as `_fa_fwd` saves them (drop8 included): nothing
+    of the forward's intermediates is kept. key_mask, drop8, scale and
+    dropout_rate get no gradient."""
+
+    @staticmethod
+    def forward(ctx, fns, q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
+        ctx.bwd, ctx.scale, ctx.dropout_rate = fns[1], scale, dropout_rate
+        ctx.save_for_backward(q, k, v, p, u, vb, key_mask, drop8)
+        return fns[0](q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = ctx.bwd(*ctx.saved_tensors, g, ctx.scale, ctx.dropout_rate)
+        return (None, *grads, None, None, None, None)
+
+
+_KERNELS = (_fwd, fused_relpos_attention_bwd)
+_PLAIN = (fused_relpos_attention_reference, fused_relpos_attention_bwd_reference)
+
+
+def fused_relpos_attention(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
+    """dropout(softmax(((q+u) k^T + skew((q+vb) p^T)) * scale, masked)) @ v,
+    differentiable in q, k, v, p, u and vb (forward kernel row 3, backward
+    kernel row 4).
+
+    q/k/v [B, H, T, dh]; p [H, 2T-1, dh] (per-head projected positions);
+    u/vb [H, dh]; key_mask [B, T] float (> 0 = valid key); drop8 [B, H, T, T]
+    uint8 draws (keep iff byte >= round(rate * 256)), ignored (any uint8
+    tensor will do) when dropout_rate rounds to 0. Returns [B, H, T, dh] in
+    v.dtype. On CUDA every tensor operand but key_mask and drop8 must be
+    bfloat16, and dh at most 64."""
+    return _RelPosAttention.apply(_KERNELS, q, k, v, p, u, vb, key_mask, drop8, scale,
+                                  dropout_rate)
+
+
 fused_relpos_attention.launches = 0
+
+
+def fused_relpos_attention_plain(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
+    """`fused_relpos_attention` on the two plain versions, on any device: a
+    stand-in for `RelPosMHSA.attention_fn` that compares a step on the
+    kernels with the same step without them."""
+    return _RelPosAttention.apply(_PLAIN, q, k, v, p, u, vb, key_mask, drop8, scale,
+                                  dropout_rate)

@@ -14,8 +14,10 @@ The JAX step vmaps the branches; here they run one after another, which
 gives each its own BatchNorm statistics as the vmap does. Their CTC losses
 are taken together: the three branches' logits go through one call of the
 lattice kernels (ops/ctc_lattice.py), so a step launches `ctc_alpha` once in
-the forward and `ctc_beta` once in the backward. Everything else in the
-backward is autograd over plain tensor code.
+the forward and `ctc_beta` once in the backward. Under `fused_attention`
+each encoder block's attention runs its forward and backward kernels
+(ops/attention.py). Everything else in the backward is autograd over plain
+tensor code.
 """
 
 from __future__ import annotations

@@ -14,7 +14,12 @@ rounds conv1 as its plain version does and sums conv2's 9C bf16 products in
 f32 in another order, so its bf16 output may differ by one bf16 ulp (rtol
 2^-7, atol 1e-3). The fused attention kernel sums its products in f32 in
 another order and takes the softmax sum online, so a bf16 probability or
-output may differ by one bf16 ulp (|d| <= 1e-2 + 2^-7 |ref|). The CTC
+output may differ by one bf16 ulp (|d| <= 1e-2 + 2^-7 |ref|). Its backward
+kernel sums in f32 in other orders too, so a gradient element may round the
+other way and a ds element with it: each gradient within one bf16 ulp of
+the element plus one of the tensor's largest (|d| <= 2^-7 (|ref| +
+max|ref|)); its cross-block sums run in a fixed order, so two launches give
+the same bits. The CTC
 lattice kernels run the plain versions' f32 recursion in the same order:
 their NEG_INF entries (<= -5e29) must match as a pattern and the finite ones
 within 1e-5 relative (+1e-5), expf/logf of two builds aside.
@@ -343,6 +348,112 @@ def test_fused_attention_forward_on_kernels_matches_plain(cuda):
     lp_ref = torch.log_softmax(ref.float(), -1)[mask]
     assert torch.isfinite(lp).all()
     assert (lp - lp_ref).abs().max().item() < 0.1
+
+
+def _assert_attention_grads_close(grads, ref):
+    for name, a, r in zip(("dq", "dk", "dv", "dp", "du", "dvb"), grads, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape, name
+        a, r = a.float(), r.float()
+        assert bool(torch.isfinite(a).all()), name
+        d = (a - r).abs()
+        assert bool((d <= 2.0 ** -7 * (r.abs() + r.abs().max())).all()), (name, d.max().item())
+
+
+# (B, H, T, dh): one tile, the train step's shape of Conformer-M (B=16,
+# T'=256), a ragged last tile (T=255), Conformer-S's dh=36 at T=200, the
+# serving T'=512
+ATTENTION_BWD_SHAPES = [(2, 4, 16, 64), (16, 4, 256, 64), (3, 4, 255, 64), (2, 2, 200, 36),
+                        (8, 4, 512, 64)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", ATTENTION_BWD_SHAPES)
+def test_fused_attention_bwd_kernel_matches_plain(cuda, shape, rate):
+    """Ragged key lengths and an all-pad last row; two launches give the
+    same bits."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    B, H, T, dh = shape
+    rng = np.random.default_rng(sum(shape))
+    lens = rng.integers(T // 2, T + 1, size=B)
+    lens[-1] = 0
+    ops = _attention_operands(*shape, seed=sum(shape), device=cuda, lens=lens, rate=rate)
+    g = torch.from_numpy(rng.standard_normal((B, H, T, dh)).astype(np.float32)).to(cuda)
+    g = g.to(torch.bfloat16)
+    scale = 1.0 / float(np.sqrt(dh))
+    before = fa.fused_relpos_attention_bwd.launches
+    out = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
+    again = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
+    torch.cuda.synchronize()
+    assert fa.fused_relpos_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    _assert_attention_grads_close(out, fa.fused_relpos_attention_bwd_reference(*ops, g, scale,
+                                                                               rate))
+
+
+def test_fused_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    ops = _attention_operands(1, 2, 40, 16, seed=0, device=cuda)
+    g = torch.zeros_like(ops[0])
+    before = fa.fused_relpos_attention_bwd.launches
+    with pytest.raises(NotImplementedError):  # f32 operands
+        fa.fused_relpos_attention_bwd(*(t.float() for t in ops[:6]), *ops[6:], g.float(),
+                                      0.25, 0.0)
+    with pytest.raises(NotImplementedError):  # an f32 cotangent
+        fa.fused_relpos_attention_bwd(*ops, g.float(), 0.25, 0.0)
+    wide = _attention_operands(1, 1, 40, 128, seed=0, device=cuda)
+    with pytest.raises(ValueError):  # dh > 64
+        fa.fused_relpos_attention_bwd(*wide, torch.zeros_like(wide[0]), 0.25, 0.0)
+    with pytest.raises(RuntimeError):  # split devices
+        fa.fused_relpos_attention_bwd(*ops, g.cpu(), 0.25, 0.0)
+    assert fa.fused_relpos_attention_bwd.launches == before
+
+
+def test_fused_attention_train_step_on_kernels_matches_plain(cuda, monkeypatch):
+    """One small-model 3-branch loss and its gradients under fused_attention
+    (bf16, dropout 0.1 from seeded generators) with the attention on the
+    kernels (one forward and one backward launch per block and branch)
+    against the same step with the plain Function: aux rtol 1e-2, gradients
+    within 0.1 of their norm (bf16 layers carry an element rounded the other
+    way)."""
+    import dataclasses
+
+    from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
+    from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+    from onebit_asr_tpu_torch.model.conformer import RelPosMHSA
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.train.state import create_train_state
+    from onebit_asr_tpu_torch.train.step import batch_to_device, make_batch_loss, value_and_grad
+    from onebit_asr_tpu_torch.utils.config import LossConfig, ModelConfig, SpecialTokens
+
+    cfg = dataclasses.replace(
+        ModelConfig(), vocab_size=32, enc_d_model=64, enc_layers=2, enc_heads=2,
+        enc_d_ff=128, enc_conv_kernel=7, dec_layers=1, dec_d_ff=64, dropout=0.1,
+        fused_attention=True)
+    model = qat_model_from_jax(cfg, init_params(cfg, 0), device="cuda")
+    state = create_train_state(model, 0)
+    batch_loss = make_batch_loss(model, LossConfig(), SpecialTokens(), 2)
+    batch = batch_to_device(next(iter(DummyDataModule(batch_size=4).train_batches(0))), cuda)
+    sp = torch.tensor([True, False])
+
+    def run():
+        gens = [torch.Generator(device="cuda").manual_seed(i) for i in range(3)]
+        return value_and_grad(batch_loss, state.params, batch, sp, gens)
+
+    counts = (fa.fused_relpos_attention.launches, fa.fused_relpos_attention_bwd.launches)
+    (_, aux), grads = run()
+    assert (fa.fused_relpos_attention.launches - counts[0],
+            fa.fused_relpos_attention_bwd.launches - counts[1]) == (6, 6)
+    for m in model.modules():
+        if isinstance(m, RelPosMHSA):
+            monkeypatch.setattr(m, "attention_fn", fa.fused_relpos_attention_plain)
+    (_, ref_aux), ref_grads = run()
+    for k in aux:
+        assert torch.allclose(aux[k], ref_aux[k], rtol=1e-2), k
+    num = sum(float(((grads[k] - ref_grads[k]).float() ** 2).sum()) for k in grads)
+    den = sum(float((ref_grads[k].float() ** 2).sum()) for k in grads)
+    assert (num / den) ** 0.5 <= 0.1
 
 
 def _lattice_operands(B, T, U, seed, device, vocab=None):
