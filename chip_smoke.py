@@ -52,7 +52,18 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    is timed beside its bound and the unfused attention chain's
    `.backward()` through autograd (`library_ms`, a yardstick only), and
    row 3's forward is timed at the same shape;
-5. ctc: the CTC alpha and beta lattice kernels are held against their plain
+5. subsampler backward: the fused subsampler backward kernel (row 6) is
+   held against its plain version at the train step's shape (B=16,
+   T=1024, F=80, C=256), on a ragged T (T2=25) and at C=144: its masked
+   cotangent must equal the plain version's except where y_pre is within
+   f32 rounding of 0, and its five gradients must match the plain backward
+   applied to that cotangent (dx, dw1, db1 within one bf16 ulp of the
+   element plus one of the tensor's largest: a dpat element may round the
+   other way; dw2, db2 within 1e-4 of it); two launches must give the same
+   bits. It is timed beside its bound and the unfused cuDNN conv pair's
+   backward through autograd (`library_ms`, a yardstick only), and row 5's
+   forward is timed at the same shape;
+6. ctc: the CTC alpha and beta lattice kernels are held against their plain
    versions at the train step's shape (the three branches of B=16 in one
    launch: B=48, T'=256, S=97), at LibriSpeech's ceiling (T=512, B=16,
    S=457) and on a ragged case (lengths < T, label length 0, an infeasible
@@ -60,7 +71,7 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    ones within 1e-5 relative; timed at the step's shape beside
    F.ctc_loss forward (alpha) and forward + backward (beta), whose NLL
    also cross-checks the port's;
-6. train: the library train step (train/step.py::make_train_step) at full
+7. train: the library train step (train/step.py::make_train_step) at full
    Conformer-M width and depth, dropout 0.1, on bench.py's batch of record
    (B=16, 1,024 frames, U=48): a warm-up step, then TRAIN_STEPS steps that
    must launch each lattice kernel exactly once per step and give finite
@@ -75,11 +86,18 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    (aux rtol 1e-2, gradients within 0.1 of their norm: bf16 layers carry a
    probability or gradient element rounded the other way through 12
    blocks) and, loosely, against the unfused chain's step on the same
-   draws (gradient cosine >= 0.95: the chain rounds the scores to bf16);
-7. train cli: `python -m onebit_asr_tpu_torch.train --dummy_data` for 2
+   draws (gradient cosine >= 0.95: the chain rounds the scores to bf16).
+   Then the same with fused_subsampler=True: 3 forward and 3 backward
+   subsampler launches and 1 + 1 lattice launches per step, and one step
+   on the kernels held against the same step with `subsample_fn` set to
+   the plain Function (aux rtol 1e-2, gradients within 0.1 of their norm)
+   and, loosely, against the unfused conv pair on the same draws (gradient
+   cosine >= 0.95: the pair rounds the features and conv1 to bf16);
+8. train cli: `python -m onebit_asr_tpu_torch.train --dummy_data` for 2
    epochs of 3 steps at Conformer-M widths, then a --resume run of a third
    epoch in this process, which must continue from step 6; then one epoch
-   with --fused_attention in this process, with its launches counted.
+   with --fused_attention and one with --fused_subsampler
+   --fused_attention in this process, with their launches counted.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -291,6 +309,142 @@ def subsample_kernel_phase(cfg, frames, seed, rows):
         "bound_by": "bytes" if t_bytes >= max(t_conv2, t_conv1) else "operations",
         "library_ms": lib_ms,
     }
+
+
+def unfused_subsample(x, w1, b1, w2, b2, compute_dtype=torch.bfloat16):
+    """The port's unfused conv pair (features cast to the compute dtype
+    before conv1, two cuDNN convs + ReLU) with `fused_subsample`'s signature
+    and output layout [B, T2, F2, C]: a yardstick, differentiable in all
+    five operands."""
+    import torch.nn.functional as F
+
+    C, cd = w1.shape[-1], compute_dtype
+    y = F.relu(F.conv2d(x[:, None].to(cd), w1.permute(2, 0, 1)[:, None].to(cd), b1.to(cd),
+                        stride=2))
+    y = F.relu(F.conv2d(y, w2.reshape(3, 3, C, C).permute(3, 2, 0, 1).to(cd), b2.to(cd),
+                        stride=2))
+    return y.permute(0, 2, 3, 1)
+
+
+SUBSAMPLE_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+MASK_SLACK = 2.0 ** -14  # of |pat| |w2| + |b2|: y_pre this close to 0 may fall either way
+
+
+def subsample_bwd_kernel_phase(cfg, seed, rows):
+    """The fused subsampler backward kernel (row 6) against its plain version
+    at the train step's shape (one launch per branch of bench.py's batch:
+    B=16, T=1024), on a ragged T (T2=25, not a multiple of the 4-row block)
+    and at Conformer-S's C=144, in two halves: the masked cotangent gm must
+    equal the plain version's except where y_pre is within f32 rounding of
+    0, and the five gradients must match the plain backward applied to the
+    kernel's own gm (dx, dw1, db1 within one bf16 ulp of the element plus one
+    of the tensor's largest: a dpat element may round the other way; dw2,
+    db2 within 1e-4 of it: f32 sums in another order). Two launches must
+    give the same bits. Timed beside its bound, its plain version, the
+    unfused conv pair's backward through autograd, and row 5's forward."""
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    Fd, C_path = cfg.input_dim, cfg.enc_d_model
+    max_err = 0.0
+    for label, B, T, C in (("step", 16, 1024, C_path), ("ragged", 3, 103, C_path),
+                           ("conformer_s", 2, 600, 144)):
+        T2, F2 = ss.out_len(ss.out_len(T)), ss.out_len(ss.out_len(Fd))
+        gn = rng.standard_normal((B, T2, F2, C))
+        gn[rng.random(gn.shape) < 0.2] = 0.0  # as the masked time steps give
+        x, w1, b1, w2, b2, g = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            rng.standard_normal((B, T, Fd)),
+            rng.standard_normal((3, 3, C)) / 3.0,
+            rng.uniform(-1 / 3, 1 / 3, C),
+            rng.standard_normal((9 * C, C)) / np.sqrt(9 * C),
+            rng.uniform(-1, 1, C) / np.sqrt(9 * C),
+            gn,
+        ))
+        g = g.to(torch.bfloat16)
+        ops = (x, w1, b1, w2, b2)
+        out = ss.fused_subsample_bwd(*ops, g)
+        again = ss.fused_subsample_bwd(*ops, g)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"fused_subsample_bwd {label}: two launches differ")
+        gm = ss.masked_cotangent(*ops, g)
+        gm_ref, y_pre = ss.masked_cotangent_reference(*ops, g)
+        _, pat, _ = ss._pre_activations(*ops, torch.bfloat16)
+        scale = pat.float() @ w2.to(torch.bfloat16).float().abs() + b2.abs()
+        del pat
+        differ = gm.float() != gm_ref
+        if not bool((y_pre.abs()[differ] <= MASK_SLACK * scale[differ]).all()):
+            raise AssertionError(f"fused_subsample_bwd {label}: the mask differs where y_pre "
+                                 f"is not within f32 rounding of 0")
+        n_differ = int(differ.sum())
+        del gm_ref, y_pre, scale, differ
+        want = ss.bwd_of_masked_reference(*ops, gm)
+        whole = ss.fused_subsample_bwd_reference(*ops, g)
+        errs = []
+        for name, a, r, w, tol in zip(SUBSAMPLE_GRADS, out, want, whole,
+                                      (2.0 ** -7,) * 3 + (1e-4,) * 2):
+            if a.dtype != torch.float32 or a.shape != r.shape:
+                raise AssertionError(f"fused_subsample_bwd {label} {name}: {a.dtype} "
+                                     f"{tuple(a.shape)}")
+            d = (a - r).abs()
+            if not bool(torch.isfinite(a).all()) or not bool(
+                    (d <= tol * (r.abs() + r.abs().max())).all()):
+                raise AssertionError(f"fused_subsample_bwd {label} {name}: max |d| "
+                                     f"{d.max().item()} (max |ref| {r.abs().max().item()})")
+            dw = (a - w).abs().max().item()
+            max_err = max(max_err, dw)
+            errs.append(f"{name}={d.max().item():.3g}|{dw:.3g}/{r.abs().max().item():.3g}")
+        log(f"kernel fused_subsample_bwd {label} B={B} T={T} F={Fd} C={C} -> T2={T2} F2={F2}: "
+            f"max|d| vs the plain rest on the kernel's gm | vs the whole plain version / "
+            f"max|ref|: {' '.join(errs)}; gm elements off the plain mask {n_differ} of "
+            f"{gm.numel()}; two launches bit-identical; workspace "
+            f"{ss.bwd_workspace_floats(B, T, Fd, C) * 4 / 1e6:.1f} MB")
+        del want, whole, gm
+        if label != "step":
+            continue
+        w2b = w2.to(torch.bfloat16)
+        ms = cuda_ms(lambda: ss.fused_subsample_bwd(*ops, g))
+        plain_ms = cuda_ms(lambda: ss.fused_subsample_bwd_reference(*ops, g), iters=5, warmup=1)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: ss.fused_subsample(x, w1, b1, w2b, b2))
+        # the port's unfused conv pair on the same operands, its forward outside
+        # the timed region
+        leaves = [t.clone().requires_grad_(True) for t in ops]
+        y = unfused_subsample(*leaves)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+        del y, leaves
+        T1, F1 = ss.out_len(T), ss.out_len(Fd)
+        # x, g, w1, b1, w2 (bf16), b2 in; dx, dw1, db1, dw2, db2 (f32) out
+        nbytes = 2 * x.numel() * 4 + g.numel() * 2 + w2.numel() * (2 + 4) + 2 * 11 * C * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        # y_pre = pat w2, dpat = gm w2^T, dw2 = pat^T gm
+        t_conv2 = 3 * 2.0 * B * T2 * F2 * 9 * C * C / PEAK_OPS["bf16"] * 1e3
+        # conv1 recomputed, dw1, dx
+        t_conv1 = 3 * 2.0 * B * T1 * F1 * 9 * C / PEAK_OPS["f32"] * 1e3
+        bound = max(t_bytes, t_conv2, t_conv1)  # tensor and CUDA cores may overlap
+        log(f"kernel fused_subsample_bwd {label}: per launch ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} (bytes {t_bytes:.4f}, conv2 bf16 "
+            f"{t_conv2:.4f}, conv1 f32 {t_conv1:.4f}) library_ms={lib_ms:.4f} (the unfused "
+            f"cuDNN conv pair's backward through autograd); x3/train step")
+        f_bytes = x.numel() * 4 + g.numel() * 2 + w2.numel() * 2 + 11 * C * 4  # y as g
+        f_bound = max(f_bytes / HBM_BYTES_PER_S * 1e3, t_conv2 / 3, t_conv1 / 3)
+        log(f"kernel fused_subsample (row 5) at the train step's shape B={B} T={T}: per launch "
+            f"ms={fwd_ms:.4f} bound_ms={f_bound:.4f}; x3/train step")
+        rows["fused_subsample_bwd"] = {
+            "name": "fused_subsample_bwd",
+            "route": "cuda",
+            "source": "onebit_asr_tpu_torch/csrc/subsampler.cu",
+            "replaces": "onebit_asr_tpu/ops/subsampler.py:244",
+            "launches": 0,
+            "max_abs_err": 0.0,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= max(t_conv2, t_conv1) else "operations",
+            "library_ms": lib_ms,
+        }
+    rows["fused_subsample_bwd"]["max_abs_err"] = max_err
 
 
 def attention_kernel_phase(cfg, t_pad, t_valid, seed, rows):
@@ -625,7 +779,8 @@ def path_phase(cfg, params, wavs, rows, profile=False):
                "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
                "fused_subsample": ss.fused_subsample,
                "fused_relpos_attention": fa.fused_relpos_attention,
-               "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd}
+               "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd,
+               "fused_subsample_bwd": ss.fused_subsample_bwd}
     configs = {
         "config": cfg,
         "config_fused": dataclasses.replace(cfg, fused_subsampler=True),
@@ -871,6 +1026,18 @@ def swapped_attention(model, attention_fn=None, fused=True):
             m.attention_fn, m.fused = fn, was_fused
 
 
+@contextlib.contextmanager
+def swapped_subsample(model, subsample_fn):
+    """The encoder's subsampler with `subsample_fn` for the duration."""
+    sub = model.encoder.subsample
+    saved = sub.subsample_fn
+    sub.subsample_fn = subsample_fn
+    try:
+        yield
+    finally:
+        sub.subsample_fn = saved
+
+
 def _grads_cmp(grads, ref):
     """(|grads - ref| / |ref|, cosine) over all gradients together."""
     num = sum(float(((grads[k].float() - ref[k].float()) ** 2).sum()) for k in ref)
@@ -884,10 +1051,12 @@ def train_step_phase(cfg, seed, rows, kernels):
     """The library train step at full width on the kernels, its launches per
     step, and one step against the same step with the plain lattices or,
     under fused_attention, the plain attention (and loosely the unfused
-    chain). Returns what to profile of it, as [(what, fn, top)], for the
-    caller to run after every timed phase: a finished profiler run can slow
-    later host code."""
+    chain) or, under fused_subsampler, the plain subsampler Function (and
+    loosely the unfused conv pair). Returns what to profile of it, as
+    [(what, fn, top)], for the caller to run after every timed phase: a
+    finished profiler run can slow later host code."""
     from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.ops import subsampler as ss
     from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
     from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
     from onebit_asr_tpu_torch.train.state import param_count
@@ -918,15 +1087,19 @@ def train_step_phase(cfg, seed, rows, kernels):
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in kernels.items()}
     fused = cfg.fused_attention
-    label = "train step fused_attention" if fused else "train step"
+    label = ("train step fused_attention" if fused else
+             "train step fused_subsampler" if cfg.fused_subsampler else "train step")
     per_step = {"ctc_alpha": 1, "ctc_beta": 1}
     if fused:  # each block of each of the three branches
         per_step.update(fused_relpos_attention=3 * cfg.enc_layers,
                         fused_relpos_attention_bwd=3 * cfg.enc_layers)
+    if cfg.fused_subsampler:  # each of the three branches
+        per_step.update(fused_subsample=3, fused_subsample_bwd=3)
     want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in kernels}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, want {want}")
-    for k in ("fused_relpos_attention_bwd",) if fused else ("ctc_alpha", "ctc_beta"):
+    for k in (("fused_relpos_attention_bwd",) if fused else
+              ("fused_subsample_bwd",) if cfg.fused_subsampler else ("ctc_alpha", "ctc_beta")):
         rows[k]["launches"] = counts[k]
     ms = start.elapsed_time(end) / TRAIN_STEPS
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
@@ -956,6 +1129,10 @@ def train_step_phase(cfg, seed, rows, kernels):
         plain, aux_tol, grad_tol = "plain attention", 1e-2, 0.1
         with swapped_attention(model, fa.fused_relpos_attention_plain):
             (_, aux_p), grads_p = run()
+    elif cfg.fused_subsampler:
+        plain, aux_tol, grad_tol = "plain subsampler", 1e-2, 0.1
+        with swapped_subsample(model, ss.fused_subsample_plain):
+            (_, aux_p), grads_p = run()
     else:
         plain, aux_tol, grad_tol = "plain CTC", 1e-4, 1e-2
         with plain_ctc():
@@ -968,16 +1145,19 @@ def train_step_phase(cfg, seed, rows, kernels):
         f"loss_ctc_2bit={float(aux_k['loss_ctc_2bit']):.6g}/{float(aux_p['loss_ctc_2bit']):.6g}")
     if aux_err > aux_tol or grad_err > grad_tol:
         raise AssertionError(f"{label} on the kernels strays from the {plain}")
-    if fused:
-        # the unfused chain on the same draws rounds the scores to bf16
-        with swapped_attention(model, fused=False):
+    if fused or cfg.fused_subsampler:
+        # the unfused chain on the same draws rounds the scores to bf16; the
+        # unfused conv pair rounds the features and conv1 to bf16
+        what = "the unfused chain" if fused else "the unfused conv pair"
+        with (swapped_attention(model, fused=False) if fused else
+              swapped_subsample(model, unfused_subsample)):
             (_, aux_u), grads_u = run()
         diff, cos = _grads_cmp(grads_k, grads_u)
-        log(f"{label} kernels vs the unfused chain: loss {float(aux_k['loss']):.6g}/"
+        log(f"{label} kernels vs {what}: loss {float(aux_k['loss']):.6g}/"
             f"{float(aux_u['loss']):.6g} grads |d|/|g|={diff:.3g} cosine={cos:.5f} "
             f"(tolerance >= 0.95)")
         if cos < 0.95:
-            raise AssertionError(f"{label}: gradients far from the unfused chain's")
+            raise AssertionError(f"{label}: gradients far from {what}'s")
         del grads_u
     del grads_p
     return [(f"one {label}", lambda: step(state, batch), 15),
@@ -1031,32 +1211,37 @@ def train_cli_phase(kernels):
             raise AssertionError("train CLI --resume saved no step 9")
         log(f"train cli resume: rc=0 continued from step 6 to 9, launches={counts}")
 
-        # one epoch under --fused_attention: 3 steps x 3 branches x L blocks
-        # (forward and backward), 3 evaluation forwards x L (forward)
+        # one epoch under --fused_attention, then one under both fused flags:
+        # 3 steps x 3 branches (the subsampler) x L blocks (the attention),
+        # forward and backward, and 3 evaluation forwards (32/2/1 bits)
         from onebit_asr_tpu_torch.utils.config import ModelConfig
 
         L = ModelConfig().enc_layers
-        for fn in kernels.values():
-            fn.launches = 0
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = tcli.main(["--epochs", "1", "--fused_attention",
-                            *argv[:argv.index("--run_name")], "--run_name", "smoke_fa",
-                            "--device", DEVICE])
-        wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-        for line in out.getvalue().splitlines():
-            log(f"train cli fused_attention: {line}")
-        want = {"ctc_alpha": 6, "ctc_beta": 3, "fused_relpos_attention": 9 * L + 3 * L,
-                "fused_relpos_attention_bwd": 9 * L}
-        run = os.path.join(root, "smoke_fa")
-        if rc != 0 or counts != want or not os.path.exists(os.path.join(run, "ckpt",
-                                                                         "step_3.pt")):
-            raise AssertionError(f"train CLI --fused_attention: rc={rc} launches {counts}, "
-                                 f"want {want}")
-        log(f"train cli fused_attention: rc=0 wall_s={wall:.2f} (in process: init, 3 steps, "
-            f"1 evaluation at 32/2/1 bits, checkpoint) launches={counts}")
+        attention = {"fused_relpos_attention": 9 * L + 3 * L, "fused_relpos_attention_bwd": 9 * L}
+        for flags, name, want in (
+                (["--fused_attention"], "smoke_fa", attention),
+                (["--fused_subsampler", "--fused_attention"], "smoke_fs_fa",
+                 {**attention, "fused_subsample": 9 + 3, "fused_subsample_bwd": 9})):
+            what = " ".join(f.lstrip("-") for f in flags)
+            want = {"ctc_alpha": 6, "ctc_beta": 3, **want}
+            for fn in kernels.values():
+                fn.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = tcli.main(["--epochs", "1", *flags, *argv[:argv.index("--run_name")],
+                                "--run_name", name, "--device", DEVICE])
+            wall = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+            for line in out.getvalue().splitlines():
+                log(f"train cli {what}: {line}")
+            run = os.path.join(root, name)
+            if rc != 0 or counts != want or not os.path.exists(os.path.join(run, "ckpt",
+                                                                             "step_3.pt")):
+                raise AssertionError(f"train CLI {' '.join(flags)}: rc={rc} launches {counts}, "
+                                     f"want {want}")
+            log(f"train cli {what}: rc=0 wall_s={wall:.2f} (in process: init, 3 steps, "
+                f"1 evaluation at 32/2/1 bits, checkpoint) launches={counts}")
 
 
 def main(argv=None) -> int:
@@ -1095,6 +1280,7 @@ def main(argv=None) -> int:
     subsample_kernel_phase(cfg, frames, args.seed, rows)
     attention_kernel_phase(cfg, t_pad, t_sub, args.seed, rows)
     attention_bwd_kernel_phase(cfg, args.seed, rows)
+    subsample_bwd_kernel_phase(cfg, args.seed, rows)
 
     ctc_kernel_phase(args.seed, rows)
     log("kernels: every kernel agrees with its plain version at the path's shapes")
@@ -1112,15 +1298,18 @@ def main(argv=None) -> int:
     kernels = {"ternary_matmul_bf16": tm.ternary_matmul,
                "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
                "fused_subsample": ss.fused_subsample,
+               "fused_subsample_bwd": ss.fused_subsample_bwd,
                "fused_relpos_attention": fa.fused_relpos_attention,
                "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd,
                "ctc_alpha": cl.ctc_alpha, "ctc_beta": cl.ctc_beta}
     profiles = train_step_phase(cfg, args.seed, rows, kernels)
-    profiles += train_step_phase(dataclasses.replace(cfg, fused_attention=True), args.seed,
-                                 rows, kernels)
+    for flag in ("fused_attention", "fused_subsampler"):
+        profiles += train_step_phase(dataclasses.replace(cfg, **{flag: True}), args.seed,
+                                     rows, kernels)
     train_cli_phase(kernels)
-    log("train: the QAT step and the train CLI ran on the CTC kernels, and under "
-        "fused_attention on the attention kernels too")
+    log("train: the QAT step and the train CLI ran on the CTC kernels, under "
+        "fused_attention on the attention kernels and under fused_subsampler on the "
+        "subsampler kernels too")
     for what, fn, top in profiles if args.profile else ():
         log(f"profile of {what}:")
         profile_breakdown(fn, top)

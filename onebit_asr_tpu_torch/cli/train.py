@@ -10,20 +10,21 @@ best train state under `<save_dir>/<run_name>/` with its `config.json`;
 with "FATAL: non-finite train loss" and exit code 1.
 
 The step runs on the card (`--device cuda`, the default); the CTC loss
-there goes through the lattice kernels of csrc/ctc_lattice.cu, and with
+there goes through the lattice kernels of csrc/ctc_lattice.cu, with
 `--fused_attention` every encoder block's attention through the fused
 forward and backward kernels of csrc/attention.cu and
-csrc/attention_bwd.cu. `--device cpu` runs the same step on the kernels'
-plain versions.
+csrc/attention_bwd.cu, and with `--fused_subsampler` the subsampler of each
+branch through the fused forward and backward kernels of
+csrc/subsampler.cu. `--device cpu` runs the same step on the kernels' plain
+versions.
 
 Not ported yet, and refused with exit code 2 and a message naming what is
 missing: real data (`--data_dir` without `--dummy_data`), `--grad_accum` >
 1, `--multistep` > 1, `--fp32_control`, `--fsdp`, `--tensor_parallel`,
 `--pipeline_stages`, `--eval_beam`, `--wandb`, `--profile_dir`,
-`--quant_per_channel`, `--quant_decoder`, `--reference_decoder`, the
+`--quant_per_channel`, `--quant_decoder`, `--reference_decoder` and the
 streaming options (`--conv_norm` other than batch_norm, `--causal_conv`,
-`--attn_chunk_size`), and `--fused_subsampler`, whose backward kernel
-(row 6, ops/subsampler.py::_bwd_kernel) is not ported. Flags of the JAX CLI that
+`--attn_chunk_size`). Flags of the JAX CLI that
 have no counterpart here (its memory and compile knobs `--no_remat`,
 `--remat_policy`, `--scan_unroll`; the real-data and beam settings) are
 accepted and change nothing.

@@ -51,12 +51,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse what the QAT form does not implement yet, naming the piece."""
+    """Refuse what the QAT form does not implement yet, naming the piece.
+    Both fused kernels' flags train (`fused_attention`, `fused_subsampler`):
+    their backward kernels are ported."""
     _check_supported(cfg)
     _refuse({
-        "fused_subsampler": (cfg.fused_subsampler, False,
-                             "its backward is kernel row 6, ops/subsampler.py::_bwd_kernel, "
-                             "not ported yet"),
         "quant_decoder": (cfg.quant_decoder, False, "later slice"),
         "reference_decoder": (cfg.reference_decoder, False, "later slice"),
     }, "this package trains")

@@ -7,13 +7,12 @@ parameters; convert.py slices them), attention is either plain tensor code
 or, with `fused=True`, the fused CUDA kernel of ops/attention.py, and the
 subsampler is either the unfused conv stack or, with `fused=True`, the fused
 CUDA kernel of ops/subsampler.py. The QAT form (per-layer `bits`, every
-FastDropout site of the JAX encoder) runs either attention: the fused one
-differentiates through the forward and backward kernels of ops/attention.py,
-with its attention dropout drawn as uint8 bytes at the unfused chain's draw.
-It runs only the unfused subsampler (the fused subsampler's backward is not
-ported). Streaming
-variants (chunked attention, causal conv) and the other conv norms are not
-implemented here and are refused.
+FastDropout site of the JAX encoder) runs either attention and either
+subsampler: the fused attention differentiates through the forward and
+backward kernels of ops/attention.py, with its attention dropout drawn as
+uint8 bytes at the unfused chain's draw, and the fused subsampler through
+those of ops/subsampler.py. Streaming variants (chunked attention, causal
+conv) and the other conv norms are not implemented here and are refused.
 
 Layouts inside this package are PyTorch's: the subsampler convs are NCHW
 with OIHW weights, and the unfused output flattens channel-major (index
@@ -258,9 +257,12 @@ class Conv2dSubsampling(nn.Module):
     output flattened c*F'+f. With `fused=True` (conformer.py:553-560) the
     same parameters go through `fused_subsample` (conv1 in f32, the conv1
     activation never in device memory) and the output flattens f*C+c, the
-    row order of the JAX projection. On CUDA the kernel's operands (w1 as
-    [3, 3, C], w2 as bf16 [9C, C]) are laid out once from the conv weights
-    and rebuilt only when those change.
+    row order of the JAX projection. The kernel's operands are the conv
+    weights laid out as w1 [3, 3, C] and w2 [9C, C]. Serving lays them out
+    once, w2 in the compute dtype, and again only when the weights change.
+    The QAT form lays them out on every call with autograd on, w2 in f32 as
+    JAX passes it, so the conv weights get their gradients (dw2 in f32)
+    through the fused backward, also under `torch.func.functional_call`.
 
     The output goes through dropout (active in the QAT form).
 
@@ -272,6 +274,7 @@ class Conv2dSubsampling(nn.Module):
         compute_dtype = parts.compute_dtype
         self.compute_dtype = compute_dtype
         self.fused = fused
+        self.qat = parts.qat
         self.subsample_fn = fused_subsample
         self.conv1 = nn.Conv2d(1, d_model, 3, stride=2)
         self.conv2 = nn.Conv2d(d_model, d_model, 3, stride=2)
@@ -285,12 +288,17 @@ class Conv2dSubsampling(nn.Module):
         return F.conv2d(x, conv.weight.to(cd), conv.bias.to(cd), stride=2)
 
     def fused_operands(self):
-        """(w1 [3, 3, C] f32, b1, w2 [9C, C] compute dtype, b2): the JAX
-        kernel layout of the conv weights, cached until they change."""
+        """(w1 [3, 3, C] f32, b1, w2 [9C, C], b2): the JAX kernel layout of
+        the conv weights. QAT: w2 in f32, built from the parameters with
+        autograd on. Serving: w2 in the compute dtype, cached until the
+        weights change."""
         w1, w2 = self.conv1.weight, self.conv2.weight
+        C = w2.shape[0]
+        if self.qat:
+            return (w1[:, 0].permute(1, 2, 0), self.conv1.bias,  # OIHW -> [3, 3, C]
+                    w2.permute(2, 3, 1, 0).reshape(9 * C, C), self.conv2.bias)  # -> [9C, C]
         key = (w2.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
         if self._fused_operands[0] != key:
-            C = w2.shape[0]
             with torch.no_grad():
                 ops = (
                     w1[:, 0].permute(1, 2, 0).contiguous(),  # OIHW -> [3, 3, C]

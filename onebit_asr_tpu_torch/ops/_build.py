@@ -7,8 +7,9 @@ then one link. The library's name carries a hash of the sources and flags,
 so an edited source is rebuilt and an unchanged one is reused. Nothing is
 built or loaded when the module is imported.
 
-Every C entry returns `cudaGetLastError()` after its launch; `check` turns a
-non-zero code into a RuntimeError with CUDA's own message.
+Every C entry but the workspace query returns `cudaGetLastError()` after its
+launch; `check` turns a non-zero code into a RuntimeError with CUDA's own
+message.
 """
 
 from __future__ import annotations
@@ -50,10 +51,19 @@ SIGNATURES = {
     # device, stream
     "fused_relpos_attention_bwd": (_P,) * 16 + (ctypes.c_longlong, _I, _I, _I, _I, _F, _I,
                                                 _F, _I, _P),
+    # x, w1, b1, w2, b2, g, dx, dw1, db1, dw2, db2, workspace,
+    # workspace_floats, B, T, F, C, device, stream
+    "fused_subsample_bwd": (_P,) * 12 + (ctypes.c_longlong, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, g, gm, B, T, F, C, device, stream
+    "fused_subsample_bwd_mask": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
+    # B, T, F, C -> workspace floats (-1: shapes it does not take)
+    "fused_subsample_bwd_workspace": (_I, _I, _I, _I),
     # emit, lens, skip, init, out, B, T, S, device, stream
     "ctc_alpha_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ctc_beta_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+# entries that return something other than a CUDA error code
+RESTYPES = {"fused_subsample_bwd_workspace": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -128,7 +138,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             lib.onebit_cuda_error_string.argtypes = [ctypes.c_int]
             lib.onebit_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -16,8 +16,10 @@ are taken together: the three branches' logits go through one call of the
 lattice kernels (ops/ctc_lattice.py), so a step launches `ctc_alpha` once in
 the forward and `ctc_beta` once in the backward. Under `fused_attention`
 each encoder block's attention runs its forward and backward kernels
-(ops/attention.py). Everything else in the backward is autograd over plain
-tensor code.
+(ops/attention.py): 3 x L launches of each per step. Under
+`fused_subsampler` each branch's subsampler runs its forward and backward
+kernels (ops/subsampler.py): 3 launches of each per step. Everything else in
+the backward is autograd over plain tensor code.
 """
 
 from __future__ import annotations

@@ -19,7 +19,14 @@ kernel sums in f32 in other orders too, so a gradient element may round the
 other way and a ds element with it: each gradient within one bf16 ulp of
 the element plus one of the tensor's largest (|d| <= 2^-7 (|ref| +
 max|ref|)); its cross-block sums run in a fixed order, so two launches give
-the same bits. The CTC
+the same bits. The fused subsampler's backward kernel is held in two halves:
+its masked cotangent gm (g where y_pre > 0) must equal the plain version's
+except where |y_pre| <= 2^-14 (|pat| |w2| + |b2|), an f32 rounding of 0
+that another summation order may put on either side; its five gradients must
+match the plain backward applied to the kernel's own gm, dx/dw1/db1 within
+one bf16 ulp of the element plus one of the largest (a dpat element may
+round the other way), dw2/db2 within 1e-4 (|ref| + max|ref|) (f32 sums of
+the same products in another order); two launches give the same bits. The CTC
 lattice kernels run the plain versions' f32 recursion in the same order:
 their NEG_INF entries (<= -5e29) must match as a pattern and the finite ones
 within 1e-5 relative (+1e-5), expf/logf of two builds aside.
@@ -226,6 +233,128 @@ def test_fused_subsampler_forward_on_kernels_matches_plain(cuda):
     lp_ref = torch.log_softmax(ref.float(), -1)[mask]
     assert torch.isfinite(lp).all()
     assert (lp - lp_ref).abs().max().item() < 0.1
+
+
+SUBSAMPLE_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+MASK_SLACK = 2.0 ** -14  # of |pat| |w2| + |b2|: y_pre this close to 0 may fall either way
+
+
+def _subsample_cotangent(B, T, F, C, seed, device):
+    """A bf16 cotangent [B, T2, F2, C] with a fifth of its elements 0."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((B, ss.out_len(ss.out_len(T)), ss.out_len(ss.out_len(F)), C))
+    g[rng.random(g.shape) < 0.2] = 0.0
+    return torch.from_numpy(g.astype(np.float32)).to(device).to(torch.bfloat16)
+
+
+def _assert_subsample_bwd_close(ops, g, grads):
+    """Row 6's gradients against its plain version, in two halves (the
+    module docstring): returns the number of mask elements that differ."""
+    gm = ss.masked_cotangent(*ops, g)
+    gm_ref, y_pre = ss.masked_cotangent_reference(*ops, g)
+    _, pat, _ = ss._pre_activations(*ops, torch.bfloat16)
+    scale = pat.float() @ ops[3].to(torch.bfloat16).float().abs() + ops[4].abs()
+    differ = gm.float() != gm_ref
+    assert bool((y_pre.abs()[differ] <= MASK_SLACK * scale[differ]).all())
+    want = ss.bwd_of_masked_reference(*ops, gm)
+    for name, a, r, tol in zip(SUBSAMPLE_GRADS, grads, want, (2.0 ** -7,) * 3 + (1e-4,) * 2):
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        d = (a - r).abs()
+        assert bool((d <= tol * (r.abs() + r.abs().max())).all()), (name, d.max().item())
+    return int(differ.sum())
+
+
+# (B, T, F, C): the train step's shape of Conformer-M (B=16 per branch,
+# T=1024), a ragged T2=25 (not a multiple of the 4-row block), Conformer-S's
+# C=144 (a 16-wide last slice), Conformer-L's C=512, a narrow F, one pixel
+SUBSAMPLE_BWD_SHAPES = [
+    (16, 1024, 80, 256), (3, 103, 80, 256), (2, 600, 80, 144), (2, 301, 80, 512),
+    (2, 101, 17, 64), (1, 7, 7, 16),
+]
+
+
+@pytest.mark.parametrize("shape", SUBSAMPLE_BWD_SHAPES)
+def test_fused_subsample_bwd_kernel_matches_plain(cuda, shape):
+    ops = _subsample_operands(*shape, seed=sum(shape), device=cuda)
+    g = _subsample_cotangent(*shape, seed=sum(shape) + 1, device=cuda)
+    before = ss.fused_subsample_bwd.launches
+    out = ss.fused_subsample_bwd(*ops, g)
+    again = ss.fused_subsample_bwd(*ops, g)
+    torch.cuda.synchronize()
+    assert ss.fused_subsample_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    _assert_subsample_bwd_close(ops, g, out)
+
+
+def test_fused_subsample_bwd_kernel_takes_unaligned_views(cuda):
+    ops = _subsample_operands(2, 101, 80, 32, seed=6, device=cuda)
+    g = _subsample_cotangent(2, 101, 80, 32, seed=7, device=cuda)
+    views = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].reshape(t.shape) for t in ops + [g]]
+    assert all(v.data_ptr() % 16 for v in views)
+    got = ss.fused_subsample_bwd(*views)
+    for a, b in zip(got, ss.fused_subsample_bwd(*ops, g)):
+        assert torch.equal(a, b)
+
+
+def test_fused_subsample_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    ops = _subsample_operands(1, 43, 80, 24, seed=0, device=cuda)
+    before = ss.fused_subsample_bwd.launches
+    with pytest.raises(ValueError):  # C % 16 != 0
+        ss.fused_subsample_bwd(*ops, _subsample_cotangent(1, 43, 80, 24, seed=0, device=cuda))
+    ops = _subsample_operands(1, 43, 80, 32, seed=0, device=cuda)
+    g = _subsample_cotangent(1, 43, 80, 32, seed=0, device=cuda)
+    with pytest.raises(NotImplementedError):  # f32 compute
+        ss.fused_subsample_bwd(*ops, g, compute_dtype=torch.float32)
+    with pytest.raises(NotImplementedError):  # an f32 cotangent
+        ss.fused_subsample_bwd(*ops, g.float())
+    with pytest.raises(RuntimeError):  # split devices
+        ss.fused_subsample_bwd(*ops, g.cpu())
+    assert ss.fused_subsample_bwd.launches == before
+
+
+def test_fused_subsampler_train_step_on_kernels_matches_plain(cuda, monkeypatch):
+    """One small-model 3-branch loss and its gradients under fused_subsampler
+    (bf16, dropout 0.1 from seeded generators) on the kernels (one forward
+    and one backward launch per branch) against the same step with the
+    plain Function: aux rtol 1e-2, gradients within 0.1 of their norm (bf16
+    layers carry an element rounded the other way)."""
+    import dataclasses
+
+    from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
+    from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+    from onebit_asr_tpu_torch.train.state import create_train_state
+    from onebit_asr_tpu_torch.train.step import batch_to_device, make_batch_loss, value_and_grad
+    from onebit_asr_tpu_torch.utils.config import LossConfig, ModelConfig, SpecialTokens
+
+    cfg = dataclasses.replace(
+        ModelConfig(), vocab_size=32, enc_d_model=64, enc_layers=2, enc_heads=2,
+        enc_d_ff=128, enc_conv_kernel=7, dec_layers=1, dec_d_ff=64, dropout=0.1,
+        fused_subsampler=True)
+    model = qat_model_from_jax(cfg, init_params(cfg, 0), device="cuda")
+    state = create_train_state(model, 0)
+    batch_loss = make_batch_loss(model, LossConfig(), SpecialTokens(), 2)
+    batch = batch_to_device(next(iter(DummyDataModule(batch_size=4).train_batches(0))), cuda)
+    sp = torch.tensor([True, False])
+
+    def run():
+        gens = [torch.Generator(device="cuda").manual_seed(i) for i in range(3)]
+        return value_and_grad(batch_loss, state.params, batch, sp, gens)
+
+    counts = (ss.fused_subsample.launches, ss.fused_subsample_bwd.launches)
+    (_, aux), grads = run()
+    assert (ss.fused_subsample.launches - counts[0],
+            ss.fused_subsample_bwd.launches - counts[1]) == (3, 3)
+    monkeypatch.setattr(model.encoder.subsample, "subsample_fn", ss.fused_subsample_plain)
+    (_, ref_aux), ref_grads = run()
+    for k in aux:
+        assert torch.allclose(aux[k], ref_aux[k], rtol=1e-2), k
+    num = sum(float(((grads[k] - ref_grads[k]).float() ** 2).sum()) for k in grads)
+    den = sum(float((ref_grads[k].float() ** 2).sum()) for k in grads)
+    assert (num / den) ** 0.5 <= 0.1
+    for k in ("conv1.weight", "conv1.bias", "conv2.weight", "conv2.bias"):
+        g = grads[f"encoder.subsample.{k}"]
+        assert g.dtype == torch.float32 and float(g.abs().max()) > 0, k
 
 
 def _attention_operands(B, H, T, dh, seed, device, lens=None, rate=0.0):

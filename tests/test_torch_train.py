@@ -456,7 +456,6 @@ REFUSED_FLAGS = [
     (["--fsdp"], "--fsdp"), (["--tensor_parallel", "2"], "--tensor_parallel"),
     (["--pipeline_stages", "2"], "--pipeline_stages"), (["--eval_beam"], "--eval_beam"),
     (["--wandb"], "--wandb"), (["--profile_dir", "x"], "--profile_dir"),
-    (["--fused_subsampler"], "kernel row 6"),
     (["--quant_per_channel"], "quant_per_channel"), (["--quant_decoder"], "quant_decoder"),
     (["--reference_decoder"], "reference_decoder"),
     (["--conv_norm", "layer_norm"], "conv_norm"), (["--causal_conv"], "causal_conv"),
@@ -475,11 +474,12 @@ def test_cli_refuses_what_is_not_ported(flags, names, tmp_path, capsys):
 
 def test_library_refusals():
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="kernel row 6"):
-        ConformerASR(dataclasses.replace(cfg, fused_subsampler=True), qat=True)
-    for change in (dict(fused_attention=True), dict(fused_subsampler=True)):
+    for change in (dict(fused_attention=True), dict(fused_subsampler=True),
+                   dict(fused_attention=True, fused_subsampler=True)):
         ConformerASR(dataclasses.replace(cfg, **change))  # the serving form keeps both
-    ConformerASR(dataclasses.replace(cfg, fused_attention=True), qat=True)  # trains with it
+        model = ConformerASR(dataclasses.replace(cfg, **change), qat=True)  # trains with both
+        assert model.encoder.subsample.fused == change.get("fused_subsampler", False)
+        assert model.encoder.subsample.qat
     model = convert.qat_model_from_jax(cfg, convert.init_params(cfg, 0), device="cpu")
     with pytest.raises(NotImplementedError, match="grad_accum"):
         make_train_step(model, AdamW(OptimConfig(), 10), LossConfig(), SpecialTokens(), 2,
