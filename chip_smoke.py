@@ -14,9 +14,11 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
 2. kernels: for each distinct (M, K, N) of one forward at B=8, 16 s
    (T'=512: M=4096, and 1023 for the position projection) each packed
    CUDA kernel is held against its plain PyTorch version on the card (bf16
-   kernel: |d| <= 1e-4 + 1e-5*|ref|, f32 sums in another order; W2A8:
-   bit-exact) and timed with CUDA events beside its bound and torch.matmul
-   on the dense unpacked bf16 weight (`library_ms`, a yardstick only); the
+   kernel: |d| <= 1e-4 + 1e-5*|ref|, f32 sums in another order; W2A8, which
+   quantizes x per row inside its one launch: bit-exact) and timed with CUDA
+   events beside its bound and torch.matmul on the dense unpacked bf16
+   weight (`library_ms`, a yardstick only), with the CTAs its launch takes;
+   their device time comes at the end (step 9); the
    fused subsampler kernel is held against its plain version at the path's
    shape (B=8, T=1598, F=80, C=256; within one bf16 ulp: rtol 2^-7, atol
    1e-3, conv2's f32 sums in another order) and timed beside the port's
@@ -97,7 +99,14 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    epochs of 3 steps at Conformer-M widths, then a --resume run of a third
    epoch in this process, which must continue from step 6; then one epoch
    with --fused_attention and one with --fused_subsampler
-   --fused_attention in this process, with their launches counted.
+   --fused_attention in this process, with their launches counted;
+9. device time of the packed kernels: at each step-2 shape, 20 calls of
+   each wrapper and of torch.matmul under torch.profiler give the device
+   time per call (`device_ms`, `library_device_ms`; the events' host-side
+   `ms` reads launch overhead once a kernel takes a few us); each wrapper
+   call must be exactly one device kernel (W2A8's quantization included).
+   Run after every timed phase: a finished profiler run slows later host
+   code.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -202,7 +211,7 @@ def kernel_phase(cfg, t_pad, seed):
         ("ternary_matmul_w2a8", "int8", tm.ternary_matmul_w2a8, tm.ternary_matmul_w2a8_reference),
     ):
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-        max_err, bytes_bound = 0.0, True
+        max_err, bytes_bound, ctas = 0.0, True, {}
         for (M, K, N), n in path_shapes(cfg, t_pad).items():
             x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev)
             x = x.to(torch.bfloat16)
@@ -220,6 +229,7 @@ def kernel_phase(cfg, t_pad, seed):
             elif not bool(((out - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all()):
                 raise AssertionError(f"{name} {M}x{K}x{N}: max |d| {err} over tolerance")
             w = tm.unpack_planar(packed).to(torch.bfloat16)
+            plan = tm.launch_plan(kind == "int8", M, K, N)
             ms = cuda_ms(lambda: kernel(x, packed, alpha))
             plain_ms = cuda_ms(lambda: plain(x, packed, alpha))
             lib_ms = cuda_ms(lambda: torch.matmul(x, w))
@@ -230,9 +240,11 @@ def kernel_phase(cfg, t_pad, seed):
             for key, v in (("ms", ms), ("plain_ms", plain_ms),
                            ("bound_ms", max(t_bytes, t_ops)), ("library_ms", lib_ms)):
                 tot[key] += n * v
+            ctas[f"{M}x{K}x{N}"] = plan["ctas"]
             log(f"kernel {name} M={M} K={K} N={N} x{n}/forward: max|d|={err:.3g} "
                 f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(t_bytes, t_ops):.4f} "
-                f"library_ms={lib_ms:.4f}")
+                f"library_ms={lib_ms:.4f} ctas={plan['ctas']} (rows/CTA {plan['bm']}, "
+                f"{plan['nsplit']} along N)")
         rows[name] = {
             "name": name,
             "route": "cuda",
@@ -243,8 +255,80 @@ def kernel_phase(cfg, t_pad, seed):
             "max_abs_err": max_err,
             **tot,
             "bound_by": "bytes" if bytes_bound else "operations",
+            "ctas": ctas,
         }
     return rows
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3):
+    """(device ms per call, kernel names) of `fn` under torch.profiler: each
+    kernel's mean duration times its launches per call, without launch gaps.
+    A profiler that ran earlier in the process (--profile) can drop events,
+    so an incomplete profile is repeated and the time comes from means."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+        if not by_name:
+            continue
+        calls = max(len(v) for v in by_name.values())  # the kernel each call launches once
+        best = (sum(sum(v) / calls for v in by_name.values()), sorted(by_name))
+        if calls == iters:
+            break
+    if best is None:
+        raise AssertionError("the profiler recorded no device time")
+    return best
+
+
+def kernel_device_phase(cfg, t_pad, seed, rows):
+    """Device time per call of the packed kernels and of torch.matmul on the
+    dense bf16 weight at the path's shapes, per forward in the rows."""
+    from onebit_asr_tpu_torch.ops import ternary_matmul as tm
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 1)
+    for name, kernel, kname in (
+        ("ternary_matmul_bf16", tm.ternary_matmul, "ternary_bf16_kernel"),
+        ("ternary_matmul_w2a8", tm.ternary_matmul_w2a8, "ternary_w2a8_kernel"),
+    ):
+        dev_tot, lib_tot = 0.0, 0.0
+        for (M, K, N), n in path_shapes(cfg, t_pad).items():
+            x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev)
+            x = x.to(torch.bfloat16)
+            q = torch.from_numpy(rng.integers(-1, 2, size=(K, N)).astype(np.float32))
+            packed = tm.pack_planar(q).to(dev)
+            alpha = torch.tensor(rng.uniform(0.01, 0.1), dtype=torch.float32, device=dev)
+            w = tm.unpack_planar(packed).to(torch.bfloat16)
+            ms, names = device_ms(lambda: kernel(x, packed, alpha))
+            if len(names) != 1 or kname not in names[0]:
+                raise AssertionError(f"{name} {M}x{K}x{N}: device kernels {names}, want one "
+                                     f"{kname}")
+            lib_ms, lib_names = device_ms(lambda: torch.matmul(x, w))
+            t_bytes = (M * K * 2 + K * N // 4 + M * N * 4 + 4) / HBM_BYTES_PER_S * 1e3
+            t_ops = 2.0 * M * N * K / PEAK_OPS["int8" if "w2a8" in name else "bf16"] * 1e3
+            dev_tot += n * ms
+            lib_tot += n * lib_ms
+            log(f"kernel device {name} M={M} K={K} N={N} x{n}/forward: device_ms={ms:.5f} "
+                f"kernels/call=1 library_device_ms={lib_ms:.5f} (torch.matmul: "
+                f"{', '.join(n[:40] for n in lib_names)}) bound_ms={max(t_bytes, t_ops):.5f} "
+                f"bound_share={max(t_bytes, t_ops) / ms:.3f}")
+        row = rows[name]
+        row.update(device_ms=dev_tot, library_device_ms=lib_tot,
+                   bound_share=row["bound_ms"] / dev_tot)
+        log(f"kernel device {name} per forward: device_ms={dev_tot:.4f} "
+            f"library_device_ms={lib_tot:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"bound_share={row['bound_share']:.3f}")
 
 
 def subsample_kernel_phase(cfg, frames, seed, rows):
@@ -1310,6 +1394,7 @@ def main(argv=None) -> int:
     log("train: the QAT step and the train CLI ran on the CTC kernels, under "
         "fused_attention on the attention kernels and under fused_subsampler on the "
         "subsampler kernels too")
+    kernel_device_phase(cfg, t_pad, args.seed, rows)
     for what, fn, top in profiles if args.profile else ():
         log(f"profile of {what}:")
         profile_breakdown(fn, top)

@@ -37,10 +37,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argument types of every C entry in csrc/
 SIGNATURES = {
-    # x, packed, alpha, out, M, K, N, vec, device, stream
-    "ternary_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # xq, scale, packed, alpha, out, M, K, N, vec, device, stream
-    "ternary_matmul_w2a8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, packed, alpha, out, M, K, N, mt, nsplit, flags, device, stream
+    "ternary_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, x_f32, packed, alpha, out, M, K, N, mt, nsplit, flags, device, stream
+    "ternary_matmul_w2a8": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # int8, M, K, N, device, out[4] (MT, CTAs along N, CTAs, shared bytes)
+    "ternary_matmul_plan": (_I, _I, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, y, B, T, F, C, device, stream
     "fused_subsample_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, p, u, vb, key_mask, drop8, out, B, H, T, dh, scale, drop_k,

@@ -12,13 +12,15 @@ PyTorch version here:
   (replaces the TPU kernel `_kernel`, ops/ternary_matmul.py:60-71);
 - `ternary_matmul_w2a8`: per-row int8 x @ int8 W, exact int32 sums, times the
   row scale and alpha -> f32, equal to its plain version bit for bit
-  (replaces `_kernel_w2a8`, ops/ternary_matmul.py:190-203). The per-row
-  quantization runs in PyTorch before the launch, as on the TPU.
+  (replaces `_kernel_w2a8`, ops/ternary_matmul.py:190-203). The kernel
+  quantizes x per row itself (`quantize_activations_int8` is its plain
+  version): one launch per call, reading bf16 or f32 x as it is.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; it never falls back. Any M works:
-the kernels mask ragged edges themselves. Each wrapper counts its launches
-in `<wrapper>.launches`.
+tensors it launches the kernel or raises; it never falls back. Any M, N and
+K % 4 == 0 work: the kernels mask ragged edges themselves. Each wrapper
+counts its launches in `<wrapper>.launches`; `launch_plan` reports the tiles
+a launch of a shape takes.
 """
 
 from __future__ import annotations
@@ -68,6 +70,33 @@ def _cuda_launch_args(x: torch.Tensor, *others: torch.Tensor):
     return x.device.index, torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _flags(x: torch.Tensor, packed: torch.Tensor) -> int:
+    """Bit 0: x takes 16-byte copies (K/4 % 8 == 0, aligned); bit 1: the
+    packed weight does (N % 16 == 0, aligned). Else element-wise copies."""
+    K4, N = packed.shape
+    return (int(K4 % 8 == 0 and x.data_ptr() % 16 == 0)
+            | int(N % 16 == 0 and packed.data_ptr() % 16 == 0) << 1)
+
+
+def _operands(packed: torch.Tensor, alpha: torch.Tensor):
+    """The packed weight and alpha as the kernels read them: contiguous int8
+    and one f32 (no copy when they already are)."""
+    pk = packed if packed.is_contiguous() else packed.contiguous()
+    a = alpha if alpha.dtype == torch.float32 else alpha.to(torch.float32)
+    return pk, a
+
+
+def launch_plan(int8: bool, M: int, K: int, N: int, device: int = 0) -> dict:
+    """The tiles a CUDA launch of this shape takes: rows per CTA (`bm`), CTAs
+    along N (`nsplit`), CTAs in all and dynamic shared memory in bytes."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().ternary_matmul_plan(int(int8), M, K, N, device, out),
+                 "ternary_matmul_plan")
+    return {"bm": 16 * out[0], "nsplit": out[1], "ctas": out[2], "smem": out[3]}
+
+
 # ---------------------------------------------------------------------------
 # bf16 activations
 
@@ -94,15 +123,13 @@ def ternary_matmul(
     M, K = x.shape
     N = packed.shape[1]
     xb = x.to(torch.bfloat16).contiguous()
-    pk = packed.contiguous()
-    a = alpha.to(torch.float32).reshape(1).contiguous()
+    pk, a = _operands(packed, alpha)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    vec = int(K % 8 == 0 and xb.data_ptr() % 16 == 0)
     err = _build.library().ternary_matmul_bf16(
         xb.data_ptr(), pk.data_ptr(), a.data_ptr(), out.data_ptr(),
-        M, K, N, vec, device, stream,
+        M, K, N, 0, 0, _flags(xb, pk), device, stream,
     )
     _build.check(err, "ternary_matmul_bf16")
     ternary_matmul.launches += 1
@@ -121,7 +148,9 @@ def quantize_activations_int8(x: torch.Tensor):
     x ~ q * scale. Zero rows get scale 1e-30/127 (q all zero, exact)."""
     x32 = x.to(torch.float32)
     absmax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(absmax, min=1e-30) / 127.0
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, an ulp off the IEEE quotient that JAX and the CPU take
+    scale = torch.clamp(absmax, min=1e-30) / torch.full_like(absmax, 127.0)
     q = torch.clamp(torch.round(x32 / scale), -127, 127)
     return q.to(torch.int8), scale
 
@@ -142,25 +171,24 @@ def ternary_matmul_w2a8(
     x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
 ) -> torch.Tensor:
     """(per-row int8-rounded x) @ (alpha * unpack_planar(packed)) -> f32.
-    Equal to ternary_matmul_w2a8_reference bit for bit."""
+    Equal to ternary_matmul_w2a8_reference bit for bit. On CUDA one launch
+    quantizes and multiplies; bf16 and f32 x are read as they are."""
     _check_operands(x, packed, alpha)
     if x.device.type == "cpu":
         return ternary_matmul_w2a8_reference(x, packed, alpha)
     device, stream = _cuda_launch_args(x, packed, alpha)
     M, K = x.shape
     N = packed.shape[1]
-    xq, scale = quantize_activations_int8(x)
-    xq = xq.contiguous()
-    scale = scale.reshape(M).contiguous()
-    pk = packed.contiguous()
-    a = alpha.to(torch.float32).reshape(1).contiguous()
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.to(torch.float32)  # as quantize_activations_int8 reads it
+    x = x.contiguous()
+    pk, a = _operands(packed, alpha)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    vec = int(K % 16 == 0 and xq.data_ptr() % 16 == 0)
     err = _build.library().ternary_matmul_w2a8(
-        xq.data_ptr(), scale.data_ptr(), pk.data_ptr(), a.data_ptr(),
-        out.data_ptr(), M, K, N, vec, device, stream,
+        x.data_ptr(), int(x.dtype == torch.float32), pk.data_ptr(), a.data_ptr(),
+        out.data_ptr(), M, K, N, 0, 0, _flags(x, pk), device, stream,
     )
     _build.check(err, "ternary_matmul_w2a8")
     ternary_matmul_w2a8.launches += 1

@@ -8,8 +8,9 @@ one. The file imports no JAX, so on a machine without JAX it runs alone:
 Tolerances: the bf16 kernel and its plain version multiply the same bf16
 values exactly and sum in f32 in different orders, so they differ by f32
 rounding of sums of at most K terms (atol 1e-4, rtol 1e-5 at |x| ~ N(0,1),
-K <= 1024). The W2A8 kernel sums integers exactly and applies the scales in
-the plain version's order: equal bit for bit. The fused subsampler kernel
+K <= 4100). The W2A8 kernel quantizes x per row as the plain version does
+(IEEE division, round half to even), sums integers exactly and applies the
+scales in the plain version's order: equal bit for bit. The fused subsampler kernel
 rounds conv1 as its plain version does and sums conv2's 9C bf16 products in
 f32 in another order, so its bf16 output may differ by one bf16 ulp (rtol
 2^-7, atol 1e-3). The fused attention kernel sums its products in f32 in
@@ -43,10 +44,13 @@ from onebit_asr_tpu_torch.ops import ternary_matmul as tm
 pytestmark = pytest.mark.gpu
 
 # (M, K, N): the Conformer-M serving shapes at B=8, 16 s (T'=512), then
-# ragged edges in M, N and K (K % 8 != 0 takes the element-wise tile copy)
+# ragged edges in M, N and K (K/4 % 8 != 0 takes the element-wise copy of x,
+# N % 16 != 0 that of the weights), K/4 off the 16- and 32-row stages
+# (1028, 1020), and K/4 > 256, walked in passes (4100, 2048)
 SHAPES = [
     (4096, 256, 1024), (4096, 1024, 256), (4096, 256, 256), (1023, 256, 256),
     (37, 64, 96), (100, 256, 100), (5, 12, 8), (1, 1024, 256),
+    (300, 1028, 200), (4096, 1020, 256), (64, 4100, 130), (1023, 2048, 512),
 ]
 
 
@@ -89,6 +93,101 @@ def test_w2a8_kernel_bit_exact(cuda, shape):
     assert torch.equal(out, ref)
 
 
+def _edge_rows(K: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """Rows whose int8 quantization is decided at its edges: all zeros;
+    x / scale exactly on k + 0.5 (scale 1 and 2: round half to even); one
+    row reaching +127 and -127; a row of tiny values; random rows."""
+    rng = np.random.default_rng(K)
+    rows = np.zeros((8, K), np.float32)
+    ties = np.arange(K, dtype=np.float32) % 127 - 63.5  # -63.5 .. 62.5
+    rows[1] = ties
+    rows[1, 0] = 127.0  # absmax 127 -> scale 1: x / scale = x
+    rows[2] = 2.0 * ties
+    rows[2, 0] = -254.0  # scale 2: x / scale = k + 0.5 again
+    rows[3] = rng.uniform(-1, 1, K)
+    rows[3, :2] = (3.0, -3.0)  # both ends saturate at +-127
+    rows[4] = rng.standard_normal(K) * 1e-20
+    rows[5:] = rng.standard_normal((3, K)) * np.array([[0.01], [1.0], [300.0]], np.float32)
+    return torch.from_numpy(rows).to(device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K", [256, 1028])
+def test_w2a8_kernel_edge_rows_bit_exact(cuda, dtype, K):
+    x = _edge_rows(K, dtype, cuda)
+    q, scale = tm.quantize_activations_int8(x)
+    assert torch.equal(q[1, 1:4].cpu(), torch.tensor([-62, -62, -60], dtype=torch.int8))  # ties
+    assert int(q[3].max()) == 127 and int(q[3].min()) == -127 and not q[0].any()
+    rng = np.random.default_rng(K + 1)
+    packed = tm.pack_planar(torch.from_numpy(
+        rng.integers(-1, 2, size=(K, 96)).astype(np.float32))).to(cuda)
+    alpha = torch.tensor(0.731, device=cuda)
+    out = tm.ternary_matmul_w2a8(x, packed, alpha)
+    assert torch.equal(out, tm.ternary_matmul_w2a8_reference(x, packed, alpha))
+
+
+def test_plain_quantization_is_one_function_on_cpu_and_card(cuda):
+    """The W2A8 kernel's plain version gives the card the CPU's (and JAX's)
+    bits: its scale is an IEEE quotient on both devices."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((4096, 256)).astype(np.float32))
+    q, scale = tm.quantize_activations_int8(x)
+    qc, scalec = tm.quantize_activations_int8(x.to(cuda))
+    assert torch.equal(scale, scalec.cpu()) and torch.equal(q, qc.cpu())
+
+
+def _launch(int8, x, packed, alpha, mt, nsplit):
+    """One launch with the given tiles (the wrappers let the plan choose)."""
+    from onebit_asr_tpu_torch.ops import _build
+
+    M, K = x.shape
+    N = packed.shape[1]
+    out = torch.full((M, N), float("nan"), device=x.device)
+    args = (packed.data_ptr(), alpha.data_ptr(), out.data_ptr(), M, K, N, mt, nsplit,
+            tm._flags(x, packed), x.device.index, torch.cuda.current_stream().cuda_stream)
+    lib = _build.library()
+    if int8:
+        err = lib.ternary_matmul_w2a8(x.data_ptr(), int(x.dtype == torch.float32), *args)
+    else:
+        err = lib.ternary_matmul_bf16(x.data_ptr(), *args)
+    _build.check(err, "ternary launch")
+    return out
+
+
+@pytest.mark.parametrize("shape", [(100, 256, 300), (70, 1100, 260), (33, 36, 640)])
+def test_every_tiling_gives_the_same_result(cuda, shape):
+    """Every rows-per-CTA (16, 32, 64) and every split of N (one chunk per
+    CTA, or several walked with the slab of the next prefetched) against the
+    plain version; two launches of one tiling give the same bits."""
+    x, packed, alpha = _case(*shape, seed=sum(shape) + 2, device=cuda)
+    ref = tm.ternary_matmul_reference(x, packed, alpha)
+    ref8 = tm.ternary_matmul_w2a8_reference(x, packed, alpha)
+    tiles_n = -(-shape[2] // 128)
+    for mt in (1, 2, 4):
+        for nsplit in sorted({1, 2, tiles_n}):
+            out = _launch(False, x, packed, alpha, mt, nsplit)
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+            assert torch.equal(out, _launch(False, x, packed, alpha, mt, nsplit))
+            out8 = _launch(True, x, packed, alpha, mt, nsplit)
+            assert torch.equal(out8, ref8), (mt, nsplit)
+            assert torch.equal(out8, _launch(True, x, packed, alpha, mt, nsplit))
+
+
+def test_w2a8_call_is_one_kernel(cuda):
+    """The per-row quantization runs inside the launch: one CUDA call of
+    ternary_matmul_w2a8 on bf16 x is one device kernel and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, packed, alpha = _case(4096, 256, 256, seed=5, device=cuda)
+    tm.ternary_matmul_w2a8(x, packed, alpha)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tm.ternary_matmul_w2a8(x, packed, alpha)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "ternary_w2a8_kernel" in names[0], names
+
+
 def test_kernels_take_unaligned_views(cuda):
     """A view that starts off a 16-byte boundary takes the element-wise copy."""
     x, packed, alpha = _case(65, 64, 64, seed=3, device=cuda)
@@ -99,6 +198,18 @@ def test_kernels_take_unaligned_views(cuda):
     )
     assert torch.equal(
         tm.ternary_matmul_w2a8(xv, packed, alpha),
+        tm.ternary_matmul_w2a8_reference(x, packed, alpha),
+    )
+    # contiguous views at an odd offset: x and the weight both misaligned
+    xs = x.new_zeros(65 * 64 + 1)[1:].view(65, 64).copy_(x)
+    ps = packed.new_zeros(16 * 64 + 3)[3:].view(16, 64).copy_(packed)
+    assert xs.data_ptr() % 16 and ps.data_ptr() % 16 and tm._flags(xs, ps) == 0
+    torch.testing.assert_close(
+        tm.ternary_matmul(xs, ps, alpha),
+        tm.ternary_matmul_reference(x, packed, alpha), rtol=1e-5, atol=1e-4,
+    )
+    assert torch.equal(
+        tm.ternary_matmul_w2a8(xs, ps, alpha),
         tm.ternary_matmul_w2a8_reference(x, packed, alpha),
     )
 

@@ -85,6 +85,44 @@ def test_quantize_activations_int8_matches_jax(seed):
     np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
 
 
+def _edge_rows(K: int) -> np.ndarray:
+    """Rows decided at the edges of the int8 rounding: all zeros; x / scale
+    exactly on k + 0.5 at scale 1 and 2; both ends at +-127; tiny values."""
+    ties = np.arange(K, dtype=np.float32) % 127 - 63.5  # -63.5 .. 62.5
+    rows = np.zeros((5, K), np.float32)
+    rows[1], rows[1, 0] = ties, 127.0  # absmax 127 -> scale 1
+    rows[2], rows[2, 0] = 2.0 * ties, -254.0  # scale 2
+    rows[3] = np.random.default_rng(K).uniform(-1, 1, K)
+    rows[3, :2] = (3.0, -3.0)
+    rows[4] = rows[3] * 1e-20
+    return rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_activations_int8_edge_rows_match_jax(dtype):
+    """What the W2A8 kernel must reproduce: ties round half to even, a zero
+    row stays zero at the 1e-30 scale floor, the absmax element maps to
+    +-127; f32 and bf16 input, bit for bit with JAX."""
+    rows = _edge_rows(64)
+    xt = torch.from_numpy(rows).to(getattr(torch, dtype))
+    q, scale = tm.quantize_activations_int8(xt)
+    jq, jscale = jtm.quantize_activations_int8(jnp.asarray(rows, dtype=getattr(jnp, dtype)))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    assert q[1, 1:4].tolist() == [-62, -62, -60] and q[2, 1:4].tolist() == [-62, -62, -60]
+    assert not q[0].any() and scale[0].item() == np.float32(np.float32(1e-30) / np.float32(127))
+    assert q[3].max().item() == 127 and q[3].min().item() == -127
+    assert q[4].max().item() == 127 and q[4].min().item() == -127
+    packed = tm.pack_planar(torch.from_numpy(
+        np.random.default_rng(1).integers(-1, 2, size=(64, 8)).astype(np.float32)))
+    np.testing.assert_array_equal(
+        tm.ternary_matmul_w2a8(xt, packed, torch.tensor(0.731)).numpy(),
+        np.asarray(jtm.ternary_matmul_w2a8_reference(
+            jnp.asarray(rows, dtype=getattr(jnp, dtype)), jnp.asarray(packed.numpy()),
+            jnp.asarray(np.float32(0.731)))),
+    )
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_w2a8_plain_bit_exact_vs_jax(seed, shape):
