@@ -23,7 +23,8 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    shape (B=8, T=1598, F=80, C=256; within one bf16 ulp: rtol 2^-7, atol
    1e-3, conv2's f32 sums in another order) and timed beside the port's
    unfused cuDNN conv pair (`library_ms`, a yardstick only: it rounds conv1
-   otherwise); the fused rel-pos attention kernel is held against its plain
+   otherwise); its device time comes at the end (step 10); the fused rel-pos
+   attention kernel is held against its plain
    version at the path's shape (B=8, H=4, T=512, dh=64, key lengths up to
    T'=398), at the Conformer-S head width dh=36 and with dropout rate 0.1
    from seeded draws (|d| <= 1e-2 + 2^-7*|ref|: one bf16 ulp of a
@@ -64,7 +65,8 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    other way; dw2, db2 within 1e-4 of it); two launches must give the same
    bits. It is timed beside its bound and the unfused cuDNN conv pair's
    backward through autograd (`library_ms`, a yardstick only), and row 5's
-   forward is timed at the same shape;
+   forward is timed at the same shape; their device time comes at the end
+   (step 10);
 6. ctc: the CTC alpha and beta lattice kernels are held against their plain
    versions at the train step's shape (the three branches of B=16 in one
    launch: B=48, T'=256, S=97), at LibriSpeech's ceiling (T=512, B=16,
@@ -106,7 +108,13 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    `ms` reads launch overhead once a kernel takes a few us); each wrapper
    call must be exactly one device kernel (W2A8's quantization included).
    Run after every timed phase: a finished profiler run slows later host
-   code.
+   code;
+10. device time of the subsampler kernels: row 5 at the serving shape and
+   at the train step's (B=16, T=1,024), row 6 at the train step's, per pass
+   (mask, conv1, dw2, reduce), each beside the unfused cuDNN conv pair's
+   device time (forward; backward through autograd) and its bound
+   (`device_ms`, `library_device_ms`, `bound_share`), with the CTAs and
+   grid of each launch and row 6's workspace in MB.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -260,11 +268,12 @@ def kernel_phase(cfg, t_pad, seed):
     return rows
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3):
+def device_ms(fn, iters: int = 20, tries: int = 3, per_kernel: bool = False):
     """(device ms per call, kernel names) of `fn` under torch.profiler: each
     kernel's mean duration times its launches per call, without launch gaps.
     A profiler that ran earlier in the process (--profile) can drop events,
-    so an incomplete profile is repeated and the time comes from means."""
+    so an incomplete profile is repeated and the time comes from means.
+    With per_kernel, the names are a dict: kernel name -> ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -282,9 +291,11 @@ def device_ms(fn, iters: int = 20, tries: int = 3):
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
         if not by_name:
             continue
-        calls = max(len(v) for v in by_name.values())  # the kernel each call launches once
-        best = (sum(sum(v) / calls for v in by_name.values()), sorted(by_name))
-        if calls == iters:
+        # each kernel's mean duration times its launches per call (a call of
+        # a library op may launch one kernel several times)
+        per = {k: sum(v) / len(v) * max(1, round(len(v) / iters)) for k, v in by_name.items()}
+        best = (sum(per.values()), per if per_kernel else sorted(by_name))
+        if all(len(v) % iters == 0 for v in by_name.values()):
             break
     if best is None:
         raise AssertionError("the profiler recorded no device time")
@@ -329,6 +340,95 @@ def kernel_device_phase(cfg, t_pad, seed, rows):
         log(f"kernel device {name} per forward: device_ms={dev_tot:.4f} "
             f"library_device_ms={lib_tot:.4f} bound_ms={row['bound_ms']:.4f} "
             f"bound_share={row['bound_share']:.3f}")
+
+
+def _subsample_case(rng, B, T, Fd, C, dev):
+    """Random subsampler operands at one shape: x, w1, b1, w2 (f32), b2 and
+    a bf16 cotangent with a fifth of its elements 0."""
+    from onebit_asr_tpu_torch.ops.subsampler import out_len
+
+    gn = rng.standard_normal((B, out_len(out_len(T)), out_len(out_len(Fd)), C))
+    gn[rng.random(gn.shape) < 0.2] = 0.0  # as the masked time steps give
+    x, w1, b1, w2, b2, g = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.standard_normal((B, T, Fd)),
+        rng.standard_normal((3, 3, C)) / 3.0,
+        rng.uniform(-1 / 3, 1 / 3, C),
+        rng.standard_normal((9 * C, C)) / np.sqrt(9 * C),
+        rng.uniform(-1, 1, C) / np.sqrt(9 * C),
+        gn,
+    ))
+    return (x, w1, b1, w2, b2), g.to(torch.bfloat16)
+
+
+def subsample_device_phase(cfg, frames, seed, rows):
+    """Device time per launch (torch.profiler) of rows 5 and 6 and of the
+    port's unfused cuDNN conv pair (forward; backward through autograd): row
+    5 at the serving shape (B=8, `frames`) and the train step's (B=16,
+    T=1,024), row 6 at the train step's, per pass. Adds device_ms,
+    library_device_ms, bound_share (bound_ms / device_ms), the CTAs and
+    grids of the launch plan, row 6's per-pass device ms and workspace MB to
+    the kernels' rows. Run after every timed phase, as kernel_device_phase."""
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 2)
+    Fd, C = cfg.input_dim, cfg.enc_d_model
+    passes = (("mask", "conv2_kernel<true>"), ("conv1", "bwd_conv1_kernel"),
+              ("dw2", "bwd_dw2_kernel"), ("reduce", "bwd_reduce"))
+    row5, row6 = rows["fused_subsample"], rows["fused_subsample_bwd"]
+    for label, B, T in (("serving", BATCH, frames), ("train step", 16, 1024)):
+        (x, w1, b1, w2, b2), g = _subsample_case(rng, B, T, Fd, C, dev)
+        w2b = w2.to(torch.bfloat16)
+        plan = ss.launch_plan(B, T, Fd, C)
+        with torch.no_grad():
+            ms, names = device_ms(lambda: ss.fused_subsample(x, w1, b1, w2b, b2), per_kernel=True)
+            lib_ms, _ = device_ms(lambda: unfused_subsample(x, w1, b1, w2b, b2))
+        if len(names) != 1 or "conv2_kernel<false>" not in next(iter(names)):
+            raise AssertionError(f"fused_subsample {label}: device kernels {sorted(names)}, want "
+                                 f"one fused_subsample_conv2_kernel<false>")
+        grid = [plan["fwd_grid_x"], plan["fwd_grid_y"], plan["fwd_grid_z"]]
+        ctas = grid[0] * grid[1] * grid[2]
+        T2, F2 = ss.out_len(ss.out_len(T)), ss.out_len(ss.out_len(Fd))
+        T1, F1 = ss.out_len(T), ss.out_len(Fd)
+        t_bytes = (x.numel() * 4 + B * T2 * F2 * C * 2 + w2.numel() * 2 + 11 * C * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        t_conv2 = 2.0 * B * T2 * F2 * C * 9 * C / PEAK_OPS["bf16"] * 1e3
+        t_conv1 = 2.0 * B * T1 * F1 * C * 9 / PEAK_OPS["f32"] * 1e3
+        bound = max(t_bytes, t_conv2, t_conv1)
+        log(f"kernel device fused_subsample {label} B={B} T={T}: device_ms={ms:.5f} "
+            f"library_device_ms={lib_ms:.5f} (unfused cuDNN convs) bound_ms={bound:.5f} "
+            f"bound_share={bound / ms:.3f} ctas={ctas} grid={grid} rows/CTA={plan['fwd_r2']}")
+        if label == "serving":
+            row5.update(device_ms=ms, library_device_ms=lib_ms, bound_share=row5["bound_ms"] / ms,
+                        ctas=ctas, grid=grid)
+            continue
+        row5.update(train_device_ms=ms, train_library_device_ms=lib_ms,
+                    train_bound_share=bound / ms, train_ctas=ctas, train_grid=grid)
+        ops = (x, w1, b1, w2, b2)
+        # the launch's four kernels (the call also casts the f32 w2 to bf16)
+        _, per = device_ms(lambda: ss.fused_subsample_bwd(*ops, g), iters=10, per_kernel=True)
+        by_pass = {name: sum(v for k, v in per.items() if key in k) for name, key in passes}
+        ms6 = sum(by_pass.values())
+        if not all(by_pass.values()):
+            raise AssertionError(f"fused_subsample_bwd: device kernels {sorted(per)}, want the "
+                                 f"four passes {[k for _, k in passes]}")
+        leaves = [t.clone().requires_grad_(True) for t in ops]
+        y = unfused_subsample(*leaves)
+        lib6, _ = device_ms(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True),
+                            iters=10)
+        del y, leaves
+        grids = {"mask": grid, "conv1": [plan["conv1_ctas"] // B, B, 1],
+                 "dw2": [C // 16, -(-C // 256), plan["dw2_splits"]]}
+        ctas6 = {"mask": ctas, "conv1": plan["conv1_ctas"], "dw2": plan["dw2_ctas"]}
+        ws_mb = plan["workspace_floats"] * 4 / 1e6
+        row6.update(device_ms=ms6, library_device_ms=lib6, bound_share=row6["bound_ms"] / ms6,
+                    pass_device_ms=by_pass, ctas=ctas6, grid=grids, workspace_mb=ws_mb)
+        log(f"kernel device fused_subsample_bwd {label} B={B} T={T}: device_ms={ms6:.5f} ("
+            + " ".join(f"{k}={v:.5f}" for k, v in by_pass.items())
+            + f") library_device_ms={lib6:.5f} (the unfused cuDNN conv pair's backward) "
+            f"bound_ms={row6['bound_ms']:.5f} bound_share={row6['bound_ms'] / ms6:.3f} "
+            f"ctas={ctas6} grids={grids} rows/block: mask {plan['fwd_r2']}, conv1 "
+            f"{plan['conv1_r2']}, dw2 {plan['dw2_rows']}; workspace {ws_mb:.1f} MB")
 
 
 def subsample_kernel_phase(cfg, frames, seed, rows):
@@ -435,18 +535,8 @@ def subsample_bwd_kernel_phase(cfg, seed, rows):
     for label, B, T, C in (("step", 16, 1024, C_path), ("ragged", 3, 103, C_path),
                            ("conformer_s", 2, 600, 144)):
         T2, F2 = ss.out_len(ss.out_len(T)), ss.out_len(ss.out_len(Fd))
-        gn = rng.standard_normal((B, T2, F2, C))
-        gn[rng.random(gn.shape) < 0.2] = 0.0  # as the masked time steps give
-        x, w1, b1, w2, b2, g = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-            rng.standard_normal((B, T, Fd)),
-            rng.standard_normal((3, 3, C)) / 3.0,
-            rng.uniform(-1 / 3, 1 / 3, C),
-            rng.standard_normal((9 * C, C)) / np.sqrt(9 * C),
-            rng.uniform(-1, 1, C) / np.sqrt(9 * C),
-            gn,
-        ))
-        g = g.to(torch.bfloat16)
-        ops = (x, w1, b1, w2, b2)
+        ops, g = _subsample_case(rng, B, T, Fd, C, dev)
+        x, w1, b1, w2, b2 = ops
         out = ss.fused_subsample_bwd(*ops, g)
         again = ss.fused_subsample_bwd(*ops, g)
         torch.cuda.synchronize()
@@ -1395,6 +1485,7 @@ def main(argv=None) -> int:
         "fused_attention on the attention kernels and under fused_subsampler on the "
         "subsampler kernels too")
     kernel_device_phase(cfg, t_pad, args.seed, rows)
+    subsample_device_phase(cfg, frames, args.seed, rows)
     for what, fn, top in profiles if args.profile else ():
         log(f"profile of {what}:")
         profile_breakdown(fn, top)

@@ -43,8 +43,8 @@ SIGNATURES = {
     "ternary_matmul_w2a8": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # int8, M, K, N, device, out[4] (MT, CTAs along N, CTAs, shared bytes)
     "ternary_matmul_plan": (_I, _I, _I, _I, _I, _P),
-    # x, w1, b1, w2, b2, y, B, T, F, C, device, stream
-    "fused_subsample_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, y, B, T, F, C, r2 (0: the plan's), device, stream
+    "fused_subsample_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, p, u, vb, key_mask, drop8, out, B, H, T, dh, scale, drop_k,
     # drop_scale, device, stream
     "fused_relpos_attention_fwd": (_P,) * 9 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),
@@ -56,10 +56,12 @@ SIGNATURES = {
     # x, w1, b1, w2, b2, g, dx, dw1, db1, dw2, db2, workspace,
     # workspace_floats, B, T, F, C, device, stream
     "fused_subsample_bwd": (_P,) * 12 + (ctypes.c_longlong, _I, _I, _I, _I, _I, _P),
-    # x, w1, b1, w2, b2, g, gm, B, T, F, C, device, stream
-    "fused_subsample_bwd_mask": (_P,) * 7 + (_I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, g, gm, B, T, F, C, r2 (0: the plan's), device, stream
+    "fused_subsample_bwd_mask": (_P,) * 7 + (_I, _I, _I, _I, _I, _I, _P),
     # B, T, F, C -> workspace floats (-1: shapes it does not take)
     "fused_subsample_bwd_workspace": (_I, _I, _I, _I),
+    # B, T, F, C, out[15] (the passes' tilings, CTAs, shared bytes; workspace)
+    "fused_subsample_plan": (_I, _I, _I, _I, _P),
     # emit, lens, skip, init, out, B, T, S, device, stream
     "ctc_alpha_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ctc_beta_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

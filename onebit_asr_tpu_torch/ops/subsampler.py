@@ -144,7 +144,7 @@ def _fwd(x, w1, b1, w2, b2, compute_dtype=torch.bfloat16):
         return out
     err = _build.library().fused_subsample_fwd(
         xf.data_ptr(), w1f.data_ptr(), b1f.data_ptr(), w2b.data_ptr(),
-        b2f.data_ptr(), out.data_ptr(), B, T, F, C, device, stream,
+        b2f.data_ptr(), out.data_ptr(), B, T, F, C, 0, device, stream,
     )
     _build.check(err, "fused_subsample_fwd")
     fused_subsample.launches += 1
@@ -239,6 +239,22 @@ def bwd_workspace_floats(B, T, F, C) -> int:
     return n
 
 
+PLAN_KEYS = ("fwd_r2", "fwd_grid_x", "fwd_grid_y", "fwd_grid_z", "fwd_smem",
+             "conv1_r2", "conv1_ctas", "conv1_smem", "dw2_rows", "dw2_blocks", "dw2_splits",
+             "dw2_ctas", "dw2_smem", "fwd_r2_max", "workspace_floats")
+
+
+def launch_plan(B, T, F, C) -> dict:
+    """The kernels' plan for these shapes (needs the kernel library, CUDA):
+    the forward's (and the mask pass's) output rows per CTA, grid and shared
+    bytes; the backward's conv1 pass (rows per block, CTAs, shared bytes)
+    and dw2 pass (rows per block, blocks, splits, CTAs, shared bytes); the
+    largest rows per CTA the forward takes; the workspace floats."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(_build.library().fused_subsample_plan(B, T, F, C, out), "fused_subsample_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
 def masked_cotangent(x, w1, b1, w2, b2, g, compute_dtype=torch.bfloat16):
     """The first pass of the backward kernel alone on CUDA: gm [B*T2*F2, C]
     in bf16 (g where y_pre > 0, else 0), as `fused_subsample_bwd` computes
@@ -256,7 +272,7 @@ def masked_cotangent(x, w1, b1, w2, b2, g, compute_dtype=torch.bfloat16):
     if B == 0:
         return gm
     err = _build.library().fused_subsample_bwd_mask(*(t.data_ptr() for t in (*ops, gm)), B, T, F, C,
-                                              device, stream)
+                                                    0, device, stream)
     _build.check(err, "fused_subsample_bwd_mask")
     return gm
 

@@ -267,10 +267,15 @@ def _subsample_operands(B, T, F, C, seed, device):
 
 
 # (B, T, F, C): Conformer-S/M/L widths at the 16 s serving shape (T2=398,
-# not a multiple of the kernel's row block), B=1, a short T2=9, a narrow F
+# not a multiple of the kernel's row block), B=1, a short T2=9, a narrow F;
+# T2=257 (a multiple of neither the 5- or 6-row blocks nor the dw2 pass's
+# 16-row blocks) at Conformer-S/M/L widths; C=272 (a last 16-channel conv1
+# slice and a second, 16-wide output chunk) and C=48
 SUBSAMPLE_SHAPES = [
     (8, 1598, 80, 256), (2, 1598, 80, 144), (2, 1598, 80, 512),
     (1, 1598, 80, 256), (3, 43, 80, 256), (2, 101, 17, 64), (1, 7, 7, 16),
+    (3, 1031, 80, 144), (3, 1031, 80, 256), (2, 1031, 80, 512), (2, 301, 80, 272),
+    (2, 301, 80, 48),
 ]
 
 
@@ -287,6 +292,54 @@ def test_fused_subsample_kernel_matches_plain(cuda, shape):
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     assert out.shape == (B, ss.out_len(ss.out_len(T)), ss.out_len(ss.out_len(F)), C)
     torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+
+
+def test_fused_subsample_kernel_gives_the_same_bits_twice(cuda):
+    ops = _subsample_operands(3, 1031, 80, 256, seed=11, device=cuda)
+    ops[3] = ops[3].to(torch.bfloat16)
+    out = ss.fused_subsample(*ops)
+    assert torch.equal(out, ss.fused_subsample(*ops))
+
+
+def _launch_subsample(ops, r2, g=None):
+    """The forward (or, with g, the mask pass) at r2 output rows per CTA."""
+    from onebit_asr_tpu_torch.ops import _build
+
+    x, w1, b1, w2, b2 = ops
+    B, T, F = x.shape
+    C = w1.shape[-1]
+    T2, F2 = ss.out_len(ss.out_len(T)), ss.out_len(ss.out_len(F))
+    out = torch.full((B, T2, F2, C), float("nan"), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    if g is None:
+        err = lib.fused_subsample_fwd(*(t.data_ptr() for t in (x, w1, b1, w2, b2, out)), B, T, F,
+                                      C, r2, x.device.index, stream)
+    else:
+        err = lib.fused_subsample_bwd_mask(*(t.data_ptr() for t in (x, w1, b1, w2, b2, g, out)),
+                                           B, T, F, C, r2, x.device.index, stream)
+    _build.check(err, "subsampler launch")
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 301, 80, 144), (3, 1031, 80, 256), (2, 101, 17, 64)])
+def test_every_subsample_tiling_gives_the_same_bits(cuda, shape):
+    """Every rows-per-CTA the forward takes sums conv2 in the same k order,
+    so the forward and the mask pass give the same bits at each, within one
+    bf16 ulp of the plain version; two launches give the same bits."""
+    ops = _subsample_operands(*shape, seed=sum(shape) + 3, device=cuda)
+    ops[3] = ops[3].to(torch.bfloat16)
+    g = _subsample_cotangent(*shape, seed=sum(shape) + 4, device=cuda)
+    plan = ss.launch_plan(*shape)
+    ref = ss.fused_subsample_reference(*ops)
+    want = _launch_subsample(ops, plan["fwd_r2"])
+    want_gm = _launch_subsample(ops, plan["fwd_r2"], g)
+    torch.testing.assert_close(want.float(), ref.float(), rtol=2.0 ** -7, atol=1e-3)
+    assert torch.equal(want, ss.fused_subsample(*ops))
+    assert torch.equal(want_gm.reshape(-1, shape[3]), ss.masked_cotangent(*ops, g))
+    for r2 in range(1, plan["fwd_r2_max"] + 1):
+        assert torch.equal(_launch_subsample(ops, r2), want), r2
+        assert torch.equal(_launch_subsample(ops, r2, g), want_gm), r2
 
 
 def test_fused_subsample_kernel_takes_unaligned_views(cuda):
@@ -377,11 +430,14 @@ def _assert_subsample_bwd_close(ops, g, grads):
 
 
 # (B, T, F, C): the train step's shape of Conformer-M (B=16 per branch,
-# T=1024), a ragged T2=25 (not a multiple of the 4-row block), Conformer-S's
-# C=144 (a 16-wide last slice), Conformer-L's C=512, a narrow F, one pixel
+# T=1024), a ragged T2=25 (not a multiple of the row blocks), Conformer-S's
+# C=144 (a 16-wide last slice), Conformer-L's C=512, a narrow F, one pixel;
+# T2=257 (a multiple of none of the 5-, 6- or 16-row blocks) at
+# Conformer-S/M/L widths; C=272 (a 16-wide last slice and output chunk)
 SUBSAMPLE_BWD_SHAPES = [
     (16, 1024, 80, 256), (3, 103, 80, 256), (2, 600, 80, 144), (2, 301, 80, 512),
     (2, 101, 17, 64), (1, 7, 7, 16),
+    (3, 1031, 80, 144), (3, 1031, 80, 256), (2, 1031, 80, 512), (2, 301, 80, 272),
 ]
 
 
