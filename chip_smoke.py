@@ -51,10 +51,15 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    case with an all-pad row (T=255) and at dh=36 (T=200): all six
    gradients within one bf16 ulp of the element plus one of the tensor's
    largest (f32 sums in another order; a ds element may round the other
-   way), and two launches must give the same bits (fixed-order sums). It
-   is timed beside its bound and the unfused attention chain's
-   `.backward()` through autograd (`library_ms`, a yardstick only), and
-   row 3's forward is timed at the same shape;
+   way), and two launches must give the same bits (fixed-order sums), as
+   must the backward on the row statistics that row 3's training form
+   wrote. That form's output (the train step's forward) must equal the
+   serving form's bits and be held as step 2 holds it, and its row max and
+   sum within 1e-4 of the plain ones (|d| <= 1e-4 (1 + |m|), 1e-4 l; the
+   same products summed in another f32 order). It is timed on those statistics (the main path) beside its bound
+   and the unfused attention chain's `.backward()` through autograd
+   (`library_ms`, a yardstick only), and row 3's training form is timed at
+   the same shape;
 5. subsampler backward: the fused subsampler backward kernel (row 6) is
    held against its plain version at the train step's shape (B=16,
    T=1024, F=80, C=256), on a ragged T (T2=25) and at C=144: its masked
@@ -114,7 +119,23 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    (mask, conv1, dw2, reduce), each beside the unfused cuDNN conv pair's
    device time (forward; backward through autograd) and its bound
    (`device_ms`, `library_device_ms`, `bound_share`), with the CTAs and
-   grid of each launch and row 6's workspace in MB.
+   grid of each launch and row 6's workspace in MB;
+11. device time of the attention kernels: row 3 at the serving shape and,
+   in its training form (which also writes each row's max and sum), at the
+   train step's (B=16, T'=256, dropout 0.1); row 4 at the train step's on
+   those statistics, per kernel (rowdot, gradients, reduce), and alone;
+   each beside the unfused attention chain's device time (forward;
+   backward through autograd), a second yardstick that is not the same
+   function (F.scaled_dot_product_attention on the same q, k, v and key
+   mask: the content term only) and its bound (`device_ms` per serving
+   forward for row 3 and per launch for row 4, `train_device_ms` for the
+   row's 36 launches of a train step, `library_device_ms`,
+   `sdpa_device_ms`, `bound_share`), with the CTAs, grid and shared bytes
+   of each launch and row 4's workspace in MB; each wrapper call must run
+   exactly its own kernels, in a complete profile, and its profiler time
+   must lie within [0.7, 1.1] x the CUDA events' time of the same calls
+   queued back to back behind a spin of the card (the host's dispatch
+   hidden).
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -167,7 +188,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def profile_breakdown(fn, top: int = 15) -> None:
     """Device time of one call of `fn` by kernel name (torch.profiler), and
-    the share of the call's wall time in which the card ran no kernel."""
+    the share of the call's wall time in which the card ran no kernel. The
+    card's busy time is printed with and without the host-to-device copies,
+    whose time depends on the host (a pageable copy waits for it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,13 +208,20 @@ def profile_breakdown(fn, top: int = 15) -> None:
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kernels):
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
+
+    def busy_ms(events):
+        busy, end = 0.0, float("-inf")
+        for s, e in sorted((k.time_range.start, k.time_range.end) for k in events):
+            busy += max(0.0, e - max(s, end))
+            end = max(end, e)
+        return busy / 1e3
+
+    busy = busy_ms(kernels)
+    no_htod = busy_ms([k for k in kernels if "HtoD" not in k.name])
     total = sum(by_name.values())
-    log(f"profile: wall_ms={wall_ms:.2f} kernel_ms={total:.2f} busy_ms={busy / 1e3:.2f} "
-        f"idle_share={1 - busy / 1e3 / wall_ms:.3f} kernels={len(kernels)}")
+    log(f"profile: wall_ms={wall_ms:.2f} kernel_ms={total:.2f} busy_ms={busy:.2f} "
+        f"busy_ms_without_htod={no_htod:.2f} idle_share={1 - busy / wall_ms:.3f} "
+        f"kernels={len(kernels)}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"profile: {ms:8.3f} ms {ms / total:6.1%}  {name[:90]}")
 
@@ -271,13 +301,13 @@ def kernel_phase(cfg, t_pad, seed):
 def device_ms(fn, iters: int = 20, tries: int = 3, per_kernel: bool = False):
     """(device ms per call, kernel names) of `fn` under torch.profiler: each
     kernel's mean duration times its launches per call, without launch gaps.
-    A profiler that ran earlier in the process (--profile) can drop events,
-    so an incomplete profile is repeated and the time comes from means.
+    A profile in which a kernel ran on fewer calls than were made (a
+    profiler can drop events) is taken again, and raises after `tries`.
     With per_kernel, the names are a dict: kernel name -> ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    best = None
+    counts = {}
     for _ in range(tries):
         fn()
         torch.cuda.synchronize()
@@ -289,17 +319,39 @@ def device_ms(fn, iters: int = 20, tries: int = 3, per_kernel: bool = False):
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-        if not by_name:
-            continue
-        # each kernel's mean duration times its launches per call (a call of
-        # a library op may launch one kernel several times)
-        per = {k: sum(v) / len(v) * max(1, round(len(v) / iters)) for k, v in by_name.items()}
-        best = (sum(per.values()), per if per_kernel else sorted(by_name))
-        if all(len(v) % iters == 0 for v in by_name.values()):
-            break
-    if best is None:
-        raise AssertionError("the profiler recorded no device time")
-    return best
+        counts = {k[:60]: len(v) for k, v in by_name.items()}
+        if by_name and all(len(v) % iters == 0 for v in by_name.values()):
+            # each kernel's mean duration times its launches per call (a call
+            # of a library op may launch one kernel several times)
+            per = {k: sum(v) / len(v) * (len(v) // iters) for k, v in by_name.items()}
+            return sum(per.values()), per if per_kernel else sorted(by_name)
+    raise AssertionError(f"the profiler recorded no complete profile of {iters} calls in "
+                         f"{tries} tries (events per kernel in the last: {counts})")
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call on the card with the host's dispatch hidden: CUDA
+    events around `iters` calls queued behind a spin of the card
+    (torch.cuda._sleep) that outlasts their dispatch, so the card runs them
+    back to back. The spin doubles until the start event is still pending
+    when the last call is queued."""
+    for _ in range(warmup):
+        fn()
+    cycles = 1 << 24  # ~10 ms at the H100's clock
+    for _ in range(6):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError("the host did not queue the calls ahead of the card")
 
 
 def kernel_device_phase(cfg, t_pad, seed, rows):
@@ -429,6 +481,168 @@ def subsample_device_phase(cfg, frames, seed, rows):
             f"bound_ms={row6['bound_ms']:.5f} bound_share={row6['bound_ms'] / ms6:.3f} "
             f"ctas={ctas6} grids={grids} rows/block: mask {plan['fwd_r2']}, conv1 "
             f"{plan['conv1_r2']}, dw2 {plan['dw2_rows']}; workspace {ws_mb:.1f} MB")
+
+
+# kernel-name keys of the attention launches (csrc/attention_rows.cuh modes:
+# 1 serving, 9 training forward with row statistics, 6 the backward's rowdot
+# on them, 10 the backward's rowdot computing them)
+ATTENTION_KERNELS = {
+    "serving": ("rows_kernel<64, 1>",),
+    "train": ("rows_kernel<64, 9>",),
+    "bwd": ("rows_kernel<64, 6>", "bwd_kernel<64>", "bwd_reduce"),
+    "bwd_alone": ("rows_kernel<64, 10>", "bwd_kernel<64>", "bwd_reduce"),
+}
+
+
+def _own_kernels(what, per, keys):
+    """{key: device ms per call} of a wrapper call's kernels; raises unless
+    the call ran exactly one kernel for each key and nothing else."""
+    by_key = {key: [ms for name, ms in per.items() if key in name] for key in keys}
+    if len(per) != len(keys) or any(len(v) != 1 for v in by_key.values()):
+        raise AssertionError(f"{what}: device kernels {sorted(per)}, want one each of {keys}")
+    return {key: v[0] for key, v in by_key.items()}
+
+
+def checked_device_ms(what, fn, keys, iters: int = 20):
+    """(device ms per call, {key: ms}) of a wrapper call that must run one
+    kernel for each of `keys` and nothing else; raises unless the profiler's
+    sum lies within [0.7, 1.1] x the queued events' time of the same call."""
+    ms, per = device_ms(fn, iters=iters, per_kernel=True)
+    parts = _own_kernels(what, per, keys)
+    q_ms = queued_ms(fn, iters=iters)
+    if not 0.7 * q_ms <= ms <= 1.1 * q_ms:
+        raise AssertionError(f"{what}: profiler device_ms {ms:.5f} disagrees with the queued "
+                             f"events' {q_ms:.5f} ms per call")
+    return ms, parts, q_ms
+
+
+def attention_device_phase(cfg, t_pad, t_valid, seed, rows):
+    """Device time per launch (torch.profiler) of rows 3 and 4: row 3 at the
+    serving shape (B=8, T'=512, no dropout) and, in its training form (which
+    also writes the row statistics), at the train step's (B=16, T'=256,
+    dropout 0.1); row 4 at the train step's on those statistics, per kernel
+    (rowdot, gradients, reduce), and alone (computing them). Beside each:
+    the unfused attention chain (forward; backward through autograd, its
+    forward outside the timed region) and, as a second yardstick that is
+    not the same function, F.scaled_dot_product_attention on the same q, k,
+    v and key mask (the content term only; the port never calls it). Adds
+    device_ms, train_device_ms (the row's 36 launches of a train step),
+    library_device_ms, sdpa_device_ms, bound_share, CTAs, grids, shared
+    bytes per CTA and row 4's workspace in MB to the rows. Each of the
+    kernels' device times must lie within [0.7, 1.1] x the CUDA events' time
+    of the same calls queued back to back (`checked_device_ms`). Run after
+    every timed phase, as kernel_device_phase."""
+    import torch.nn.functional as F
+
+    from onebit_asr_tpu_torch.model.conformer import relpos_attention_chain
+    from onebit_asr_tpu_torch.model.layers import fast_dropout
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 3)
+    H, dh, n = cfg.enc_heads, cfg.enc_d_model // cfg.enc_heads, cfg.enc_layers
+    row3, row4 = rows["fused_relpos_attention"], rows["fused_relpos_attention_bwd"]
+    serve_lens = np.concatenate([[t_valid], rng.integers(t_valid // 8, t_valid + 1, BATCH - 1)])
+    step_lens = np.concatenate([[255], rng.integers(128, 256, 15)])
+    for label, B, T, rate, lens in (("serving", BATCH, t_pad, 0.0, serve_lens),
+                                    ("train step", 16, 256, 0.1, step_lens)):
+        key_mask = torch.from_numpy(
+            (np.arange(T)[None] < lens[:, None]).astype(np.float32)).to(dev)
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((B, H, T, dh)).astype(np.float32))
+                      .to(dev).to(torch.bfloat16) for _ in range(4))
+        p = torch.from_numpy(rng.standard_normal((H, 2 * T - 1, dh)).astype(np.float32))
+        p = p.to(dev).to(torch.bfloat16)
+        u, vb = (torch.from_numpy((0.1 * rng.standard_normal((H, dh))).astype(np.float32))
+                 .to(dev).to(torch.bfloat16) for _ in range(2))
+        drop8 = torch.from_numpy(
+            rng.integers(0, 256, size=(B, H, T, T), dtype=np.uint8) if rate
+            else np.zeros((1, 1, 1, 1), np.uint8)).to(dev)
+        scale = 1.0 / float(np.sqrt(dh))
+        ops = (q, k, v, p, u, vb, key_mask, drop8)
+        plan = fa.launch_plan(B, H, T, dh)
+        grid = [plan["tiles"], H, B]
+        ctas = grid[0] * H * B
+        chain_ops = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        chain_ops += [p.transpose(0, 1).contiguous(), u, vb]
+        chain_extra = [key_mask > 0, scale]
+        if rate:
+            chain_extra.append(lambda a: fast_dropout(a, rate, drop8))
+        sdpa_mask = (key_mask > 0)[:, None, None, :]
+
+        def sdpa(q_, k_, v_):
+            return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=sdpa_mask,
+                                                  dropout_p=rate, scale=scale)
+
+        kind = "serving" if label == "serving" else "train"
+        with torch.no_grad():
+            fwd = ((lambda: fa.fused_relpos_attention(*ops, scale, rate)) if kind == "serving"
+                   else (lambda: fa._fwd(*ops, scale, rate, stats=True)))
+            ms, _, q_ms = checked_device_ms(f"fused_relpos_attention {label}", fwd,
+                                            ATTENTION_KERNELS[kind])
+            lib_ms, _ = device_ms(lambda: relpos_attention_chain(*chain_ops, *chain_extra))
+            sdpa_ms, sdpa_names = device_ms(lambda: sdpa(q, k, v))
+        P, bhtd = 2 * T - 1, B * H * T * dh
+        f_bytes = (4 * bhtd * 2 + H * P * dh * 2 + 2 * H * dh * 2 + B * T * 4
+                   + (B * H * T * T if rate else 0)) / HBM_BYTES_PER_S * 1e3
+        f_ops = 2.0 * B * H * T * (3 * T) * dh / PEAK_OPS["bf16"] * 1e3
+        bound = max(f_bytes, f_ops)
+        log(f"kernel device fused_relpos_attention {label} ({kind} form) B={B} H={H} T={T} "
+            f"dh={dh} rate={rate}: device_ms={ms:.5f} per launch (queued events "
+            f"{q_ms:.5f}), library_device_ms="
+            f"{lib_ms:.5f} (unfused attention chain) sdpa_device_ms={sdpa_ms:.5f} "
+            f"(F.scaled_dot_product_attention, content term only: not the same function; "
+            f"{', '.join(x[:50] for x in sdpa_names)}) bound_ms={bound:.5f} "
+            f"bound_share={bound / ms:.3f} ctas={ctas} grid={grid} threads/CTA="
+            f"{plan['rows_threads']} smem/CTA={plan['rows_smem']} B")
+        if kind == "serving":
+            row3.update(device_ms=n * ms, library_device_ms=n * lib_ms,
+                        sdpa_device_ms=n * sdpa_ms, bound_share=row3["bound_ms"] / (n * ms),
+                        ctas=ctas, grid=grid, smem_bytes=plan["rows_smem"])
+            continue
+        row3.update(train_device_ms=3 * n * ms, train_launch_device_ms=ms,
+                    train_library_device_ms=lib_ms, train_bound_share=bound / ms)
+
+        # row 4 on the training forward's row statistics (the main path), and alone
+        _, stats = fa._fwd(*ops, scale, rate, stats=True)
+        ms4, parts, q4 = checked_device_ms(
+            f"fused_relpos_attention_bwd {label}",
+            lambda: fa.fused_relpos_attention_bwd(*ops, g, scale, rate, stats=stats),
+            ATTENTION_KERNELS["bwd"], iters=10)
+        ms4a, parts_a, q4a = checked_device_ms(
+            f"fused_relpos_attention_bwd {label} alone",
+            lambda: fa.fused_relpos_attention_bwd(*ops, g, scale, rate),
+            ATTENTION_KERNELS["bwd_alone"], iters=10)
+        leaves = [t.clone().requires_grad_(True) for t in chain_ops]
+        chain_out = relpos_attention_chain(*leaves, *chain_extra)
+        g_chain = g.transpose(1, 2)
+        lib4, _ = device_ms(lambda: torch.autograd.grad(chain_out, leaves, g_chain,
+                                                        retain_graph=True), iters=10)
+        del chain_out, leaves
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = sdpa(*qkv)
+        sdpa4, _ = device_ms(lambda: torch.autograd.grad(sdpa_out, qkv, g, retain_graph=True),
+                             iters=10)
+        del sdpa_out, qkv
+        ws_mb = plan["workspace_floats"] * 4 / 1e6
+        names = ("rowdot", "gradients", "reduce")
+        row4.update(device_ms=ms4, train_device_ms=3 * n * ms4, library_device_ms=lib4,
+                    sdpa_device_ms=sdpa4, bound_share=row4["bound_ms"] / ms4,
+                    kernel_device_ms=dict(zip(names, parts.values())),
+                    alone_device_ms=ms4a, ctas={"rowdot": ctas, "gradients": ctas},
+                    grid={"rowdot": grid, "gradients": grid},
+                    smem_bytes={"rowdot": plan["rows_smem"], "gradients": plan["bwd_smem"]},
+                    workspace_mb=ws_mb)
+        log(f"kernel device fused_relpos_attention_bwd {label} B={B} H={H} T={T} dh={dh} "
+            f"rate={rate}: device_ms={ms4:.5f} per launch on the forward's row statistics ("
+            + " ".join(f"{k}={v:.5f}" for k, v in zip(names, parts.values()))
+            + f"; queued events {q4:.5f}); alone device_ms={ms4a:.5f} ("
+            + " ".join(f"{k}={v:.5f}" for k, v in zip(names, parts_a.values()))
+            + f"; queued events {q4a:.5f}) library_device_ms={lib4:.5f} (the unfused chain's backward) "
+            f"sdpa_device_ms={sdpa4:.5f} (F.scaled_dot_product_attention's backward: not the "
+            f"same function) bound_ms={row4['bound_ms']:.5f} bound_share="
+            f"{row4['bound_ms'] / ms4:.3f} ctas={ctas}+{ctas} grid={grid} threads/CTA "
+            f"{plan['rows_threads']}+{plan['bwd_threads']} smem/CTA {plan['rows_smem']}+"
+            f"{plan['bwd_smem']} B; workspace {ws_mb:.1f} MB")
 
 
 def subsample_kernel_phase(cfg, frames, seed, rows):
@@ -706,7 +920,8 @@ def attention_bwd_kernel_phase(cfg, seed, rows):
     """The fused attention backward kernel against its plain version at the
     train step's shape (one launch per block and branch of bench.py's batch)
     with dropout 0.1 and 0, on a ragged case with an all-pad row and at
-    dh=36; timed beside its bound and the unfused chain's backward, with
+    dh=36, with row 3's training form (output and row statistics) held at
+    each; timed beside its bound and the unfused chain's backward, with
     row 3's forward timed at the same shape."""
     from onebit_asr_tpu_torch.model.conformer import relpos_attention_chain
     from onebit_asr_tpu_torch.model.layers import fast_dropout
@@ -739,10 +954,43 @@ def attention_bwd_kernel_phase(cfg, seed, rows):
         ops = (q, k, v, p, u, vb, key_mask, drop8)
         out = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
         again = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
+        trained, stats = fa._fwd(*ops, scale, rate, stats=True)
+        saved = fa.fused_relpos_attention_bwd(*ops, g, scale, rate, stats=stats)
         ref = fa.fused_relpos_attention_bwd_reference(*ops, g, scale, rate)
         torch.cuda.synchronize()
+        # row 3's training form, which the step runs: its output as phase 2
+        # holds the serving form (and the same bits), its row statistics as
+        # the card tests do (the same products summed in another f32 order)
+        if not torch.equal(trained, fa._fwd(*ops, scale, rate)):
+            raise AssertionError(f"fused_relpos_attention {label}: the training form's output "
+                                 f"differs from the serving form's")
+        f_ref = fa.fused_relpos_attention_reference(*ops, scale, rate).float()
+        d = (trained.float() - f_ref).abs()
+        if not bool((d <= 1e-2 + 2.0 ** -7 * f_ref.abs()).all()):
+            raise AssertionError(f"fused_relpos_attention {label} (training form): max |d| "
+                                 f"{d.max().item()} over tolerance")
+        f_err = d.max().item()
+        m_ref, l_ref = fa.row_stats_reference(q, k, p, u, vb, key_mask, scale)
+        m_d, l_d = (stats[0] - m_ref).abs(), (stats[1] - l_ref).abs()
+        if not (bool((m_d <= 1e-4 * (1 + m_ref.abs())).all())
+                and bool((l_d <= 1e-4 * l_ref).all())):
+            raise AssertionError(f"fused_relpos_attention {label}: row statistics max |d| m "
+                                 f"{m_d.max().item()} l {l_d.max().item()} over tolerance")
+        m_err = (m_d / (1 + m_ref.abs())).max().item()
+        l_err = (l_d / l_ref).max().item()
+        del f_ref, m_ref, l_ref, m_d, l_d
+        row3 = rows["fused_relpos_attention"]
+        row3["train_max_abs_err"] = max(row3.get("train_max_abs_err", 0.0), f_err)
+        row3["max_abs_err"] = max(row3["max_abs_err"], f_err)
+        row3["stats_max_rel_err"] = max(row3.get("stats_max_rel_err", 0.0), m_err, l_err)
+        log(f"kernel fused_relpos_attention {label} (training form) B={B} H={Hc} T={T} dh={dh} "
+            f"rate={rate}: max|d|={f_err:.3g}, the serving form's bits; row statistics "
+            f"|d|/(1+|m|) {m_err:.3g}, |d|/l {l_err:.3g} (limit 1e-4)")
         if not all(torch.equal(a, b) for a, b in zip(out, again)):
             raise AssertionError(f"fused_relpos_attention_bwd {label}: two launches differ")
+        if not all(torch.equal(a, b) for a, b in zip(out, saved)):
+            raise AssertionError(f"fused_relpos_attention_bwd {label}: the backward on the "
+                                 f"forward's row statistics differs from the one computing them")
         errs, same, n = [], 0, 0
         for name, a, r in zip(GRADS, out, ref):
             if a.dtype != torch.bfloat16 or a.shape != r.shape:
@@ -760,10 +1008,11 @@ def attention_bwd_kernel_phase(cfg, seed, rows):
             n += a.numel()
         log(f"kernel fused_relpos_attention_bwd {label} B={B} H={Hc} T={T} dh={dh} "
             f"rate={rate}: max|d|/max|ref| {' '.join(errs)} bit_identical={same / n:.4f} "
-            f"two launches bit-identical")
+            f"two launches and the one on the forward's row statistics bit-identical")
         if label != "step":
             continue
-        ms = cuda_ms(lambda: fa.fused_relpos_attention_bwd(*ops, g, scale, rate))
+        # the main path: the backward on the row statistics the forward wrote
+        ms = cuda_ms(lambda: fa.fused_relpos_attention_bwd(*ops, g, scale, rate, stats=stats))
         plain_ms = cuda_ms(lambda: fa.fused_relpos_attention_bwd_reference(*ops, g, scale, rate),
                            iters=5, warmup=1)
         # the port's unfused chain on the same operands and draws, [B, T, H, dh];
@@ -784,8 +1033,8 @@ def attention_bwd_kernel_phase(cfg, seed, rows):
         # qu k^T, the T x T band of qv p^T, g v^T, attn^T g, ds k, dbraw p,
         # ds^T qu, dbraw^T qv
         t_ops = 8 * 2.0 * B * Hc * T * T * dh / PEAK_OPS["bf16"] * 1e3
-        with torch.no_grad():
-            fwd_ms = cuda_ms(lambda: fa.fused_relpos_attention(*ops, scale, rate))
+        with torch.no_grad():  # the training forward, which writes the row statistics
+            fwd_ms = cuda_ms(lambda: fa._fwd(*ops, scale, rate, stats=True))
         f_bytes = (4 * bhtd * 2 + Hc * P * dh * 2 + B * T * 4 + B * Hc * T * T) / HBM_BYTES_PER_S
         f_ops = 2.0 * B * Hc * T * 3 * T * dh / PEAK_OPS["bf16"]
         log(f"kernel fused_relpos_attention_bwd {label}: per launch ms={ms:.4f} "
@@ -933,7 +1182,7 @@ def check_variant(name, t, int8_act, batch, lens, kernels):
         raise AssertionError(f"{name}: kernel path strays from the plain path")
 
 
-def path_phase(cfg, params, wavs, rows, profile=False):
+def path_phase(cfg, params, wavs, rows):
     from onebit_asr_tpu_torch.cli import transcribe as cli
     from onebit_asr_tpu_torch.ops import attention as fa
     from onebit_asr_tpu_torch.ops import subsampler as ss
@@ -1021,11 +1270,23 @@ def path_phase(cfg, params, wavs, rows, profile=False):
         t = cli.Transcriber(TrainConfig(model=model_cfg), params, 2, int8_act, cmvn, "cuda")
         check_variant(name, t, int8_act, batch, lens, kernels)
         del t  # nothing of one variant stays allocated for the next
-    # profiled last: a finished profiler run can slow later host code
-    for name, model_cfg, int8_act in variants if profile else ():
-        t = cli.Transcriber(TrainConfig(model=model_cfg), params, 2, int8_act, cmvn, "cuda")
-        log(f"profile of one batch through {name}:")
-        profile_breakdown(lambda: t.transcribe(batch, lens))
+
+    def one_batch(model_cfg, int8_act):
+        """One batch through a Transcriber built on the first call."""
+        held = []
+
+        def run():
+            if not held:
+                held.append(cli.Transcriber(TrainConfig(model=model_cfg), params, 2, int8_act,
+                                            cmvn, "cuda"))
+            return held[0].transcribe(batch, lens)
+        return run
+
+    # what to profile, run after every timed phase (the device phases
+    # included): a finished profiler run can slow later host code and
+    # change later profiles
+    return [(f"one batch through {name}", one_batch(model_cfg, int8_act), 15)
+            for name, model_cfg, int8_act in variants]
 
 
 def _lattice_case(rng, B, T, U, V, t_valid, dev):
@@ -1460,7 +1721,7 @@ def main(argv=None) -> int:
     log("kernels: every kernel agrees with its plain version at the path's shapes")
 
     params = init_params(cfg, args.seed)
-    path_phase(cfg, params, synthetic_waveforms(args.seed), rows, args.profile)
+    profiles = path_phase(cfg, params, synthetic_waveforms(args.seed), rows)
     log("path: transcribe ran on the kernels and agrees with the plain path")
     del params
 
@@ -1476,7 +1737,7 @@ def main(argv=None) -> int:
                "fused_relpos_attention": fa.fused_relpos_attention,
                "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd,
                "ctc_alpha": cl.ctc_alpha, "ctc_beta": cl.ctc_beta}
-    profiles = train_step_phase(cfg, args.seed, rows, kernels)
+    profiles += train_step_phase(cfg, args.seed, rows, kernels)
     for flag in ("fused_attention", "fused_subsampler"):
         profiles += train_step_phase(dataclasses.replace(cfg, **{flag: True}), args.seed,
                                      rows, kernels)
@@ -1486,6 +1747,7 @@ def main(argv=None) -> int:
         "subsampler kernels too")
     kernel_device_phase(cfg, t_pad, args.seed, rows)
     subsample_device_phase(cfg, frames, args.seed, rows)
+    attention_device_phase(cfg, t_pad, t_sub, args.seed, rows)
     for what, fn, top in profiles if args.profile else ():
         log(f"profile of {what}:")
         profile_breakdown(fn, top)

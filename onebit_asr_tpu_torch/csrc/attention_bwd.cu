@@ -25,656 +25,610 @@
 // the uint8 draws (4.2 MB) and p: ~19 MB (5.7 us at 3.35 TB/s). Bytes,
 // with dropout.
 //
-// Design (a simple, correct first kernel; wgmma/TMA and pipelining later):
-//   - one CTA of 4 warps per (query tile of 64 rows, h, b), as the forward;
-//     each warp owns 16 query rows. The key axis is walked in tiles of 64
-//     keys three times: pass 1 gives each row's max and sum (online, f32),
-//     pass 2 its rowdot, pass 3 the gradients. `rowdot` needs the f32
-//     probabilities before dropout times dattn after it, so FlashAttention's
-//     rowsum(dO * O) shortcut (O was formed from bf16 probabilities and
-//     rounded) would round elsewhere;
-//   - pass 3 keeps the warp's dq in two f32 register accumulators (ds_c k
-//     and dbraw p: du and dvb need them apart, dq their sum rounded once);
-//     ds_c comes from registers as an mma A fragment, as P does in the
-//     forward. bf16(attn_d)^T, ds_c^T and dbraw^T go through shared memory
-//     ([key][query], [key][query], [band row][query]), and each warp
-//     multiplies 16 of the tile's rows by the CTA's 64 query rows: the
-//     tile's partial dv, dk (64 keys) and dp (its 128-row band of p);
-//   - the skew's adjoint without a scatter to device memory: the (query
-//     tile, key tile) pair touches the p rows j in [T-64-t0+s0, +127); ds_c
-//     is written into that band (row 63 - r + s' for query r, key s'),
-//     zero elsewhere, and read back as dbraw for dq (each warp the 80 band
-//     rows its 16 rows reach) and transposed for dp;
-//   - sums across CTAs in a fixed order, no atomics: every CTA writes f32
-//     partials of dk and dv (per query tile), dp (per query tile and key
-//     tile) and du, dvb (per warp) into the caller's workspace, and a second
-//     kernel sums them (b ascending, then query tile, key tile) and rounds
-//     to bf16. Two launches on the same inputs give the same bits;
-//   - products on mma.sync m16n8k16 bf16 -> f32; shared tiles padded by 8
-//     bf16 per row; the score sum and scale as __fadd_rn then __fmul_rn,
-//     the gradient formulas with _rn intrinsics (no FMA contraction), expf
-//     and an IEEE divide (no --use_fast_math);
-//   - query rows past T and key columns past T contribute nothing; masked
-//     keys inside [0, T) take -1e9 and still count, so an all-pad row is
-//     uniform 1/T, as in JAX. No load reads past T.
+// Design: three launches.
+//   1. rowdot (csrc/attention_rows.cuh, M_ROWDOT): query-major, one CTA of
+//      4 warps per (64 queries, h, b), one pass over the keys with each
+//      row's max and sum as the training forward wrote them (M_STATS_IN);
+//      without them (a standalone call) it runs the forward's own pass 1
+//      first and writes them (M_STATS_OUT), so both give the same bits.
+//      `rowdot` needs the f32 probabilities before dropout times dattn
+//      after it, so FlashAttention's rowsum(dO * O) (O was formed from bf16
+//      probabilities and rounded) would round elsewhere.
+//   2. gradients, key-major: one CTA of 16 warps (512 threads, at most 128
+//      registers each, one CTA per SM) per (64 keys, h, b) walks the query
+//      tiles of 64. dk and dv of its keys stay in f32 registers over the
+//      walk and are written once, in bf16: no partials. Per query tile,
+//      warp (r4, cg) forms the scores of queries 16 r4.. x keys 16 cg..,
+//      then attn, dattn and ds, and writes bf16(attn_d), ds_c
+//      ([query][key]) and dbraw ([query][band row]) to shared memory; then
+//      every operand of the five gradient products comes from those tiles
+//      and the row-major q, g, k, p tiles by ldmatrix or ldmatrix.trans (no
+//      transposed copy), each warp a 16 x 16 share of dq, dk and dv and a
+//      16 x dh/2 share of dp. The dq of the query tile (ds_c k + dbraw p)
+//      goes to a per-key-tile f32 partial. dp: the band of (query tile qt,
+//      the CTA's key tile) is p blocks X_qt and X_qt-1 (X_n = rows
+//      [T-64-64n+s0, +64)), so each block is touched by two consecutive
+//      query tiles; warps 0-7 own the even blocks and warps 8-15 the odd
+//      ones, keep the block in registers over its two tiles and then write
+//      it once: nq + 1 blocks a CTA, not 2 nq. q, g, the dropout bytes, the
+//      statistics and the next p block of query tile i+1 are in flight
+//      (cp.async, a double-buffered stage and a 3-slot ring) while tile i
+//      computes. The dbraw tile is zeroed once: every tile writes the same
+//      diagonal strip of it.
+//   3. a fixed-order sum of the partials (dq over key tiles; dp, du, dvb
+//      with b ascending, then key tile), four columns a thread, rounded to
+//      bf16. No atomics: two launches on the same inputs give the same
+//      bits. The workspace is 38.1 MB at the step's shape (dq 16.8, dp 21.0).
+// Products on mma.sync m16n8k16 bf16 -> f32; the score sum and scale as
+// __fadd_rn then __fmul_rn, the gradient formulas with _rn intrinsics (no
+// FMA contraction), expf and the correctly rounded quotient (sm_div, one
+// reciprocal a row; no --use_fast_math). Query rows past T and key columns
+// past T contribute nothing; masked keys inside [0, T) take -1e9 and still
+// count, so an all-pad row is uniform 1/T, as in JAX. No load reads past T.
 //
-// The entry launches both kernels on the given stream, allocates nothing
-// and returns cudaGetLastError() (or cudaErrorInvalidValue for shapes it
-// does not take: dh outside [1, 64], a drop threshold outside [0, 255], a
-// workspace smaller than bwd_workspace_floats()).
+// The entry launches the three kernels on the given stream, allocates
+// nothing and returns cudaGetLastError() (or cudaErrorInvalidValue for
+// shapes it does not take: dh outside [1, 64], a drop threshold outside
+// [0, 255], a workspace smaller than fused_relpos_attention_plan's).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_rows.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BQ = WARPS * 16;   // query rows per CTA
-constexpr int BK = 64;           // keys per tile
-constexpr int NT_S = BK / 8;     // n8 score tiles per warp and key tile
-constexpr int BAND = 128;        // p rows one key tile needs (127), padded
-constexpr int WBAND = 80;        // band rows one warp needs (79), padded
-constexpr int NT_B = WBAND / 8;  // n8 tiles of a warp's band product
-constexpr int WBAND_LD = WBAND + 8;  // f32 row stride of a warp's band scores
-constexpr int LDQ = BQ + 8;      // bf16 row stride of [x][query or key] tiles
-constexpr int LDB = BAND + 8;    // bf16 row stride of the transposed p band
-constexpr float NEG = -1e9f;
+constexpr int BWD_WARPS = 16;
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int PD_LD = BK + 8;        // bf16 row stride of [query][key] tiles
+constexpr int DB_LD = 2 * PBLK + 8;  // bf16 row stride of the dbraw tile [query][band row]
+constexpr int BSCR_LD = 16 + 4;      // f32 row stride of a warp's shifted band scores
 constexpr int REDUCE_THREADS = 256;
 
-typedef __nv_bfloat16 bf16;
-
 template <int DHP>
-struct Layout {
+struct BwdLayout {
   static constexpr int LD = DHP + 8;  // bf16 row stride of [row][dh] tiles
-  static constexpr int KT = 0;                          // k tile [key][dh]
-  static constexpr int KC = KT + BK * LD * 2;           // k tile [dh][key]
-  static constexpr int VR = KC + DHP * LDQ * 2;         // v tile [key][dh]
-  static constexpr int PB = VR + BK * LD * 2;           // p band [row][dh]
-  static constexpr int PC = PB + BAND * LD * 2;         // p band [dh][row]
-  static constexpr int QUR = PC + DHP * LDB * 2;        // qu [query][dh]
-  static constexpr int QVR = QUR + BQ * LD * 2;         // qv [query][dh]
-  static constexpr int GR = QVR + BQ * LD * 2;          // g [query][dh]
-  static constexpr int QUT = GR + BQ * LD * 2;          // qu [dh][query]
-  static constexpr int QVT = QUT + DHP * LDQ * 2;       // qv [dh][query]
-  static constexpr int GT = QVT + DHP * LDQ * 2;        // g [dh][query]
-  static constexpr int PT = GT + DHP * LDQ * 2;         // bf16(attn_d) [key][query]
-  static constexpr int DST = PT + BK * LDQ * 2;         // ds_c [key][query]
-  static constexpr int DBT = DST + BK * LDQ * 2;        // dbraw [band row][query]
-  static constexpr int BS = DBT + BAND * LDQ * 2;       // warps' band scores, f32
-  static constexpr int COLV = BS + WARPS * 16 * WBAND_LD * 4;
-  static constexpr int BYTES = COLV + BK * 4;
+  static constexpr int TILE = 64 * LD * 2;
+  static constexpr int KT = 0;              // k of the CTA's keys [key][dh]
+  static constexpr int VT = KT + TILE;      // v [key][dh]
+  static constexpr int MASK = VT + TILE;    // the keys' mask, f32
+  static constexpr int UV = MASK + BK * 4;  // u and vb in f32 [2][DHP], zero past dh
+  static constexpr int STAGES = UV + 2 * DHP * 4;
+  // a stage (two): the query tile's q and g [query][dh], dropout bytes
+  // [query][key], m, l and rowdot
+  static constexpr int SQ = 0;
+  static constexpr int SG = TILE;
+  static constexpr int SDROP = 2 * TILE;
+  static constexpr int SM = SDROP + BQ * DROP_LD;
+  static constexpr int SL = SM + BQ * 4;
+  static constexpr int SRD = SL + BQ * 4;
+  static constexpr int STAGE = SRD + BQ * 4;
+  static constexpr int RING = STAGES + 2 * STAGE;  // 3 slots of PBLK p rows
+  static constexpr int QU = RING + 3 * TILE;       // qu [query][dh]
+  static constexpr int QV = QU + TILE;             // qv [query][dh]
+  static constexpr int PD = QV + TILE;             // bf16(attn_d) [query][key]
+  static constexpr int DS = PD + BQ * PD_LD * 2;   // ds_c [query][key]
+  static constexpr int DB = DS + BQ * PD_LD * 2;   // dbraw [query][band row]
+  static constexpr int BS = DB + BQ * DB_LD * 2;   // warps' shifted band scores, f32
+  // at the end: the query groups' sums of dqu and dqv, f32 [2][4][DHP]
+  static constexpr int BYTES = BS + cmax(BWD_WARPS * 16 * BSCR_LD * 4, 2 * 4 * DHP * 4);
 };
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows [r0, r0 + 16), columns [c0, c0 + 16) of a row-major
-// bf16 tile with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int ld, int r0,
-                                       int c0, int g, int tq) {
-  const bf16* p = base + (r0 + g) * ld + c0 + 2 * tq;
-  a[0] = ld_u32(p);
-  a[1] = ld_u32(p + 8 * ld);
-  a[2] = ld_u32(p + 8);
-  a[3] = ld_u32(p + 8 * ld + 8);
-}
-
-// Rows [lo, lo + n) of a row-major [rows, dh] bf16 matrix into shared
-// memory: element (r, c) goes to dst[r * ld + c], or to dst[c * ld + r]
-// with `transpose`; zero for rows outside [0, rows) and for c in [dh, DHP).
-template <int DHP, bool transpose>
-__device__ void load_rows(bf16* dst, int ld, const bf16* __restrict__ src,
-                          int lo, int n, int rows, int dh) {
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  if (dh % 8 == 0) {  // 16-byte rows: one uint4 per 8 elements
-    constexpr int C8 = DHP / 8;
-    for (int i = threadIdx.x; i < n * C8; i += THREADS) {
-      const int r = i / C8, c = 8 * (i % C8), row = lo + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row >= 0 && row < rows && c < dh) {
-        val = *reinterpret_cast<const uint4*>(src + (size_t)row * dh + c);
-      }
-      if (transpose) {
-        const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-        for (int x = 0; x < 8; ++x) dst[(c + x) * ld + r] = e[x];
-      } else {
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-      }
-    }
-  } else {  // rows not 16-byte aligned (dh = 36: 72 bytes): element by element
-    for (int i = threadIdx.x; i < n * DHP; i += THREADS) {
-      const int r = i / DHP, c = i % DHP, row = lo + r;
-      const bf16 val = (row >= 0 && row < rows && c < dh) ? src[(size_t)row * dh + c] : zero;
-      dst[transpose ? c * ld + r : r * ld + c] = val;
-    }
-  }
-}
-
-// The workspace of f32 partials, carved as ops/attention.py::
-// bwd_workspace_floats sizes it.
+// The workspace, carved as fused_relpos_attention_plan sizes it.
 struct Partials {
-  float* dk;   // [B, H, nq, T, dh]
-  float* dv;   // [B, H, nq, T, dh]
-  float* dp;   // [B, H, nq, nq, BAND, dh]
-  float* du;   // [B, H, nq * WARPS, dh]
-  float* dvb;  // [B, H, nq * WARPS, dh]
+  float* dq;      // [B, H, nk, T, dh]: per key tile, dqu + dqv of every query
+  float* dp;      // [B, H, nk, nk + 1, PBLK, dh]: per key tile, blocks X_-1 .. X_nk-1
+  float* du;      // [B, H, nk, dh]: per key tile, column sums of dqu
+  float* dvb;     // [B, H, nk, dh]: the same of dqv
+  float* m;       // [B, H, T]: each row's max and sum when the caller has none
+  float* l;
+  float* rowdot;  // [B, H, T]
 };
 
-__host__ __device__ inline size_t bwd_workspace_floats(int B, int H, int T, int dh) {
-  const size_t nq = (size_t)((T + BQ - 1) / BQ);
-  return (size_t)B * H * nq * (2 * (size_t)T * dh + nq * BAND * dh + 2 * WARPS * (size_t)dh);
+inline size_t bwd_workspace_floats(int B, int H, int T, int dh) {
+  const size_t nk = (size_t)((T + BK - 1) / BK), bhk = (size_t)B * H * nk;
+  return bhk * ((size_t)T * dh + (nk + 1) * PBLK * dh + 2 * (size_t)dh) + 3 * (size_t)B * H * T;
 }
 
-__host__ __device__ inline Partials carve(float* ws, int B, int H, int T, int dh) {
-  const size_t nq = (size_t)((T + BQ - 1) / BQ), bhq = (size_t)B * H * nq;
+inline Partials carve(float* ws, int B, int H, int T, int dh) {
+  const size_t nk = (size_t)((T + BK - 1) / BK), bhk = (size_t)B * H * nk;
   Partials w;
-  w.dk = ws;
-  w.dv = w.dk + bhq * T * dh;
-  w.dp = w.dv + bhq * T * dh;
-  w.du = w.dp + bhq * nq * BAND * dh;
-  w.dvb = w.du + bhq * WARPS * dh;
+  w.dq = ws;
+  w.dp = w.dq + bhk * T * dh;
+  w.du = w.dp + bhk * (nk + 1) * PBLK * dh;
+  w.dvb = w.du + bhk * dh;
+  w.m = w.dvb + bhk * dh;
+  w.l = w.m + (size_t)B * H * T;
+  w.rowdot = w.l + (size_t)B * H * T;
   return w;
 }
 
-template <int DHP>
-__global__ void __launch_bounds__(THREADS)
-    relpos_attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, const bf16* __restrict__ p,
-                                const bf16* __restrict__ u, const bf16* __restrict__ vb,
-                                const float* __restrict__ key_mask,
-                                const uint8_t* __restrict__ drop8,
-                                const bf16* __restrict__ gin, bf16* __restrict__ dq,
-                                Partials ws, int H, int T, int dh, float scale, int drop_k,
-                                float drop_scale) {
-  using L = Layout<DHP>;
-  constexpr int LD = L::LD;
-  constexpr int KS = DHP / 16;  // k16 steps over dh
-  constexpr int NO = DHP / 8;   // n8 tiles over dh (those at or past dh skipped)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kt = reinterpret_cast<bf16*>(smem + L::KT);
-  bf16* kc = reinterpret_cast<bf16*>(smem + L::KC);
-  bf16* vr = reinterpret_cast<bf16*>(smem + L::VR);
-  bf16* pb = reinterpret_cast<bf16*>(smem + L::PB);
-  bf16* pc = reinterpret_cast<bf16*>(smem + L::PC);
-  bf16* qur = reinterpret_cast<bf16*>(smem + L::QUR);
-  bf16* qvr = reinterpret_cast<bf16*>(smem + L::QVR);
-  bf16* gr = reinterpret_cast<bf16*>(smem + L::GR);
-  bf16* qut = reinterpret_cast<bf16*>(smem + L::QUT);
-  bf16* qvt = reinterpret_cast<bf16*>(smem + L::QVT);
-  bf16* gt = reinterpret_cast<bf16*>(smem + L::GT);
-  bf16* pt = reinterpret_cast<bf16*>(smem + L::PT);
-  bf16* dst = reinterpret_cast<bf16*>(smem + L::DST);
-  bf16* dbt = reinterpret_cast<bf16*>(smem + L::DBT);
-  float* colv = reinterpret_cast<float*>(smem + L::COLV);
+struct BwdArgs {
+  const bf16 *q, *k, *v, *p, *u, *vb, *g;
+  const float* key_mask;
+  const uint8_t* drop8;
+  const float *m, *l, *rowdot;
+  bf16 *dk, *dv;
+  Partials ws;
+  int H, T, dh;
+  float scale;
+  int drop_k;
+  float drop_scale;
+};
 
-  const int qt = blockIdx.x, t0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int nq = gridDim.x;
-  const size_t bh = (size_t)b * H + h;
+template <int DHP>
+__global__ void __launch_bounds__(BWD_THREADS, 1) relpos_attention_bwd_kernel(BwdArgs a) {
+  using L = BwdLayout<DHP>;
+  constexpr int LD = L::LD;
+  constexpr int KS = DHP / 16;  // k16 steps over dh = column groups of 16
+  constexpr int NO = DHP / 8;   // n8 tiles over dh
+  constexpr int NHP = NO / 2;   // n8 tiles of half of dh (dp)
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* kt_s = reinterpret_cast<bf16*>(smem + L::KT);
+  bf16* vt_s = reinterpret_cast<bf16*>(smem + L::VT);
+  float* mask_s = reinterpret_cast<float*>(smem + L::MASK);
+  float* uv = reinterpret_cast<float*>(smem + L::UV);
+  bf16* qu_s = reinterpret_cast<bf16*>(smem + L::QU);
+  bf16* qv_s = reinterpret_cast<bf16*>(smem + L::QV);
+  bf16* pd = reinterpret_cast<bf16*>(smem + L::PD);
+  bf16* dsm = reinterpret_cast<bf16*>(smem + L::DS);
+  bf16* db = reinterpret_cast<bf16*>(smem + L::DB);
+
+  const int T = a.T, dh = a.dh;
+  const int kt = blockIdx.x, s0 = kt * BK, h = blockIdx.y, b = blockIdx.z;
+  const int nk = gridDim.x;  // key tiles = query tiles
+  const size_t bh = (size_t)b * a.H + h;
   const int P = 2 * T - 1;
-  const bf16* qg = q + bh * T * dh;
-  const bf16* kg = k + bh * T * dh;
-  const bf16* vg = v + bh * T * dh;
-  const bf16* gg = gin + bh * T * dh;
-  const bf16* pg = p + (size_t)h * P * dh;
-  const float* mg = key_mask + (size_t)b * T;
+  const bf16* qg = a.q + bh * T * dh;
+  const bf16* gg = a.g + bh * T * dh;
+  const bf16* pg = a.p + (size_t)h * P * dh;
+  const uint8_t* dg = a.drop8 + bh * T * T;
+  const bool use_drop = a.drop_k > 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;      // this warp's first query row in the tile
-  const int trow = t0 + r0 + g;  // query row of e < 2; e >= 2 is + 8
+  // warp roles: r4 = warp & 3 picks 16 query rows (scores, dq) or 16 keys
+  // (dk, dv) or 16 rows of a dp block; cg = warp >> 2 a group of 16 keys
+  // (scores) or of 16 columns of dh (dq, dk, dv); dp takes warps 0-7 for
+  // the even blocks and 8-15 for the odd ones, each 16 rows x half of dh
+  const int r4 = warp & 3, cg = warp >> 2;
+  const int i0 = 16 * r4;          // query rows of the scores and of dq
+  const int kw = 16 * cg;          // keys of the scores
+  const bool cols = cg < KS;       // the warp has a column group of dh
+  const int half = (warp >> 2) & 1, grp = warp >> 3;  // dp: half of dh, block parity
+  const int xr0 = T - PBLK + s0;   // first p row of block X_0
 
-  // ---- qu = bf16(q + u), qv = bf16(q + vb) and g, zero past T and dh, row-
-  // major (A fragments) and transposed (B fragments over the query axis)
-  for (int i = threadIdx.x; i < BQ * DHP; i += THREADS) {
-    const int r = i / DHP, c = i % DHP;
-    float a = 0.f, c2 = 0.f, gv = 0.f;
-    if (t0 + r < T && c < dh) {
-      const float x = __bfloat162float(qg[(size_t)(t0 + r) * dh + c]);
-      a = __fadd_rn(x, __bfloat162float(u[h * dh + c]));
-      c2 = __fadd_rn(x, __bfloat162float(vb[h * dh + c]));
-      gv = __bfloat162float(gg[(size_t)(t0 + r) * dh + c]);
-    }
-    const bf16 ab = __float2bfloat16_rn(a), cb2 = __float2bfloat16_rn(c2),
-               gb = __float2bfloat16_rn(gv);
-    qur[r * LD + c] = ab;
-    qvr[r * LD + c] = cb2;
-    gr[r * LD + c] = gb;
-    qut[c * LDQ + r] = ab;
-    qvt[c * LDQ + r] = cb2;
-    gt[c * LDQ + r] = gb;
-  }
-  // this warp's [16 x WBAND_LD] f32 band scores
-  float* bs = reinterpret_cast<float*>(smem + L::BS) + warp * 16 * WBAND_LD;
-  const int cb = 48 - 16 * warp;  // first band row this warp's rows need
-
-  // Load the key tile [s0, s0 + BK): k, its band of p, v (passes 2-3), the
-  // transposed k and p band and a zeroed dbraw band (pass 3), and the column
-  // states (1 valid, 0 masked, -1 past T). Brackets its loads with barriers,
-  // so the tile before is no longer read.
-  auto load_tile = [&](int s0, int pass) {
-    __syncthreads();
-    const int j0 = T - 1 - (t0 + BQ - 1) + s0;
-    load_rows<DHP, false>(kt, LD, kg, s0, BK, T, dh);
-    load_rows<DHP, false>(pb, LD, pg, j0, BAND, P, dh);
-    if (pass >= 2) load_rows<DHP, false>(vr, LD, vg, s0, BK, T, dh);
-    if (pass == 3) {
-      load_rows<DHP, true>(kc, LDQ, kg, s0, BK, T, dh);
-      load_rows<DHP, true>(pc, LDB, pg, j0, BAND, P, dh);
-      uint4* z = reinterpret_cast<uint4*>(dbt);
-      for (int i = threadIdx.x; i < BAND * LDQ * 2 / 16; i += THREADS) {
-        z[i] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    for (int i = threadIdx.x; i < BK; i += THREADS) {
-      colv[i] = s0 + i < T ? (mg[s0 + i] > 0.f ? 1.f : 0.f) : -1.f;
-    }
-    __syncthreads();
+  // block X_n (n >= -1) lives in ring slot (n + 1) % 3
+  auto slot = [&](int n) {
+    return reinterpret_cast<bf16*>(smem + L::RING + ((n + 1) % 3) * L::TILE);
+  };
+  auto stage = [&](int qt) { return smem + L::STAGES + (qt & 1) * L::STAGE; };
+  auto load_stage = [&](int qt) {
+    unsigned char* st = stage(qt);
+    const int t0 = qt * BQ;
+    copy_rows<DHP, LD, BWD_THREADS>(reinterpret_cast<bf16*>(st + L::SQ), qg, t0, BQ, T, dh);
+    copy_rows<DHP, LD, BWD_THREADS>(reinterpret_cast<bf16*>(st + L::SG), gg, t0, BQ, T, dh);
+    if (use_drop) copy_drop<BWD_THREADS>(st + L::SDROP, dg, t0, s0, T);
+    copy_f32<BWD_THREADS>(reinterpret_cast<float*>(st + L::SM), a.m + bh * T, t0, BQ, T);
+    copy_f32<BWD_THREADS>(reinterpret_cast<float*>(st + L::SL), a.l + bh * T, t0, BQ, T);
+    copy_f32<BWD_THREADS>(reinterpret_cast<float*>(st + L::SRD), a.rowdot + bh * T, t0, BQ, T);
+    copy_rows<DHP, LD, BWD_THREADS>(slot(qt), pg, xr0 - PBLK * qt, PBLK, P, dh);
+    cp_async_commit();
   };
 
-  // Scores of this warp's 16 rows x the tile's 64 keys: sc[j][e] is row
-  // g + 8 * (e >> 1), key 8 * j + 2 * tq + (e & 1); -inf past T.
-  auto scores = [&](float (&sc)[NT_S][4]) {
+  // ---- the CTA's keys (k, v, mask), block X_-1, query tile 0 in flight;
+  // u and vb in f32; the dbraw tile zeroed
+  copy_rows<DHP, LD, BWD_THREADS>(kt_s, a.k + bh * T * dh, s0, BK, T, dh);
+  copy_rows<DHP, LD, BWD_THREADS>(vt_s, a.v + bh * T * dh, s0, BK, T, dh);
+  copy_f32<BWD_THREADS>(mask_s, a.key_mask + (size_t)b * T, s0, BK, T);
+  copy_rows<DHP, LD, BWD_THREADS>(slot(-1), pg, xr0 + PBLK, PBLK, P, dh);
+  load_stage(0);
+  for (int i = threadIdx.x; i < 2 * DHP; i += BWD_THREADS) {
+    const int c = i % DHP;
+    const bf16* src = i < DHP ? a.u : a.vb;
+    uv[i] = c < dh ? __bfloat162float(src[h * dh + c]) : 0.f;
+  }
+  for (int i = threadIdx.x; i < BQ * DB_LD * 2 / 16; i += BWD_THREADS) {
+    reinterpret_cast<uint4*>(db)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  float* bsw = reinterpret_cast<float*>(smem + L::BS) + warp * 16 * BSCR_LD;
+
+  float acc_dv[2][4], acc_dk[2][4], acc_dp[NHP][4], su[2][2], sv[2][2];
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j)
+  for (int n = 0; n < 2; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    for (int x = 0; x < 4; ++x) acc_dv[n][x] = acc_dk[n][x] = 0.f;
+    su[n][0] = su[n][1] = sv[n][0] = sv[n][1] = 0.f;
+  }
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4];
-      load_a(a, qur, LD, r0, 16 * ks, g, tq);
+  for (int n = 0; n < NHP; ++n)
 #pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        const bf16* kr = kt + (8 * j + g) * LD + 16 * ks + 2 * tq;
-        mma_bf16(sc[j], a, ld_u32(kr), ld_u32(kr + 8));
+    for (int x = 0; x < 4; ++x) acc_dp[n][x] = 0.f;
+
+  // block X_n's partial dp (this warp's 16 rows x half of dh) to the
+  // workspace, then zero
+  auto flush_dp = [&](int n) {
+    float* w = a.ws.dp + (((bh * nk + kt) * (nk + 1) + (n + 1)) * PBLK + 16 * r4) * dh;
+#pragma unroll
+    for (int nn = 0; nn < NHP; ++nn)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int c = 8 * (half * NHP + nn) + 2 * tq + (x & 1);
+        if (c < dh) w[(g + 8 * (x >> 1)) * dh + c] = acc_dp[nn][x];
+        acc_dp[nn][x] = 0.f;
       }
+  };
+
+  for (int qt = 0; qt < nk; ++qt) {
+    // query tile qt's stage has landed and tile qt-1 is done in every warp,
+    // so its stage and ring slot take tile qt+1's loads
+    cp_async_wait<0>();
+    __syncthreads();
+    if (qt + 1 < nk) load_stage(qt + 1);
+    const int t0 = qt * BQ;
+    const unsigned char* st = stage(qt);
+    const bf16* qs = reinterpret_cast<const bf16*>(st + L::SQ);
+    const bf16* gs = reinterpret_cast<const bf16*>(st + L::SG);
+    const uint8_t* drop_s = st + L::SDROP;
+    const float* ms = reinterpret_cast<const float*>(st + L::SM);
+    const float* ls = reinterpret_cast<const float*>(st + L::SL);
+    const float* rds = reinterpret_cast<const float*>(st + L::SRD);
+    const bf16* xlo = slot(qt);      // band rows [0, 64)
+    const bf16* xhi = slot(qt - 1);  // band rows [64, 128)
+
+    // ---- qu = bf16(q + u), qv = bf16(q + vb), zero past T
+    for (int i = threadIdx.x; i < BQ * (DHP / 8); i += BWD_THREADS) {
+      const int r = i / (DHP / 8), c = 8 * (i % (DHP / 8));
+      const uint4 raw = *reinterpret_cast<const uint4*>(qs + r * LD + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      uint4 o1, o2;
+      bf16* w1 = reinterpret_cast<bf16*>(&o1);
+      bf16* w2 = reinterpret_cast<bf16*>(&o2);
+      const bool live = t0 + r < T;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const float xv = __bfloat162float(e[x]);
+        w1[x] = __float2bfloat16_rn(live ? __fadd_rn(xv, uv[c + x]) : 0.f);
+        w2[x] = __float2bfloat16_rn(live ? __fadd_rn(xv, uv[DHP + c + x]) : 0.f);
+      }
+      *reinterpret_cast<uint4*>(qu_s + r * LD + c) = o1;
+      *reinterpret_cast<uint4*>(qv_s + r * LD + c) = o2;
     }
+    __syncthreads();
+
+    // ---- scores of queries i0.. x keys kw..: sc[j][x] is query row
+    // i0 + g + 8 * (x >> 1), key kw + 8 * j + 2 * tq + (x & 1); dattn alike
     {
-      float bb[NT_B][4];
+      float sc[2][4], da[2][4];
 #pragma unroll
-      for (int j = 0; j < NT_B; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) bb[j][e] = 0.f;
+        for (int x = 0; x < 4; ++x) sc[j][x] = da[j][x] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4];
-        load_a(a, qvr, LD, r0, 16 * ks, g, tq);
-#pragma unroll
-        for (int j = 0; j < NT_B; ++j) {
-          const bf16* pr = pb + (cb + 8 * j + g) * LD + 16 * ks + 2 * tq;
-          mma_bf16(bb[j], a, ld_u32(pr), ld_u32(pr + 8));
-        }
+        uint32_t aq[4], ag[4], bb[4];
+        ldsm_x4(aq, frag_a(qu_s, LD, i0, 16 * ks, lane));
+        ldsm_x4(ag, frag_a(gs, LD, i0, 16 * ks, lane));
+        ldsm_x4(bb, frag_b_nk(kt_s, LD, kw, 16 * ks, lane));
+        mma_bf16(sc[0], aq, bb[0], bb[1]);
+        mma_bf16(sc[1], aq, bb[2], bb[3]);
+        ldsm_x4(bb, frag_b_nk(vt_s, LD, kw, 16 * ks, lane));
+        mma_bf16(da[0], ag, bb[0], bb[1]);
+        mma_bf16(da[1], ag, bb[2], bb[3]);
       }
+      {
+        // the 32 band rows from cb: row i of the warp needs column
+        // 15 - i + s' for its key s'
+        const int cb = 48 - i0 + kw;
+        float bd[4][4];
 #pragma unroll
-      for (int j = 0; j < NT_B; ++j)
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          bs[(g + 8 * (e >> 1)) * WBAND_LD + 8 * j + 2 * tq + (e & 1)] = bb[j][e];
-    }
-    __syncwarp();
-    const float absent = __int_as_float(0xff800000);  // -inf
+          for (int x = 0; x < 4; ++x) bd[j][x] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t av[4];
+          ldsm_x4(av, frag_a(qv_s, LD, i0, 16 * ks, lane));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = g + 8 * (e >> 1), s = 8 * j + 2 * tq + (e & 1);
-        // bd[t, s0 + s] = band row (t0 + BQ - 1 - t) + s of the CTA,
-        // = column 15 - i + s of this warp's band product
-        const float bd = bs[i * WBAND_LD + 15 - i + s];
-        const float x = __fmul_rn(__fadd_rn(sc[j][e], bd), scale);
-        const float cv = colv[s];
-        sc[j][e] = cv > 0.f ? x : (cv == 0.f ? NEG : absent);
-      }
-    }
-    __syncwarp();
-  };
-
-  // g v^T of this warp's 16 rows x the tile's 64 keys, in the layout of sc
-  auto dattn = [&](float (&da)[NT_S][4]) {
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) da[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4];
-      load_a(a, gr, LD, r0, 16 * ks, g, tq);
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        const bf16* vv = vr + (8 * j + g) * LD + 16 * ks + 2 * tq;
-        mma_bf16(da[j], a, ld_u32(vv), ld_u32(vv + 8));
-      }
-    }
-  };
-
-  // keep byte of (query row t, key s), both < T
-  auto kept = [&](int t, int s) { return (int)drop8[(bh * T + t) * T + s] >= drop_k; };
-
-  // ---- pass 1: row max and sum, online in f32 (rows g and g + 8)
-  float m[2] = {__int_as_float(0xff800000), __int_as_float(0xff800000)};
-  float l[2] = {0.f, 0.f};
-  for (int s0 = 0; s0 < T; s0 += BK) {
-    load_tile(s0, 1);
-    float sc[NT_S][4];
-    scores(sc);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float tmax = sc[0][2 * r];
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j)
-        tmax = fmaxf(tmax, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      const float mnew = fmaxf(m[r], tmax);  // finite: key s0 < T is in the tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j)
-        sum += expf(sc[j][2 * r] - mnew) + expf(sc[j][2 * r + 1] - mnew);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[r] = l[r] * expf(m[r] - mnew) + sum;
-      m[r] = mnew;
-    }
-  }
-
-  // ---- pass 2: rowdot = sum_s dropout(dattn) * attn
-  float rd[2] = {0.f, 0.f};
-  for (int s0 = 0; s0 < T; s0 += BK) {
-    load_tile(s0, 2);
-    float sc[NT_S][4], da[NT_S][4];
-    scores(sc);
-    dattn(da);
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float a = expf(sc[j][e] - m[r]) / l[r];
-        float d = da[j][e];
-        if (drop_k > 0) {
-          const int t = trow + 8 * r, s = s0 + 8 * j + 2 * tq + (e & 1);
-          if (t < T && s < T) d = kept(t, s) ? __fmul_rn(d, drop_scale) : 0.f;
-        }
-        rd[r] = __fadd_rn(rd[r], __fmul_rn(d, a));
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 1);
-    rd[r] += __shfl_xor_sync(0xffffffffu, rd[r], 2);
-  }
-
-  // ---- pass 3: ds, then dq (registers) and the tile's partial dv, dk, dp
-  float dqu[NO][4], dqv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqu[n][e] = dqv[n][e] = 0.f;
-  const size_t part_rows = (size_t)(bh * nq + qt) * T;  // dk/dv partial rows
-  for (int s0 = 0; s0 < T; s0 += BK) {
-    load_tile(s0, 3);
-    float sc[NT_S][4];
-    {
-      float da[NT_S][4];
-      scores(sc);
-      dattn(da);
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int il = r0 + g + 8 * r, sl = 8 * j + 2 * tq + (e & 1);
-          const int t = t0 + il, s = s0 + sl;
-          const float a = expf(sc[j][e] - m[r]) / l[r];
-          float ad = a, d = da[j][e];
-          if (drop_k > 0 && t < T && s < T) {
-            const bool keep = kept(t, s);
-            ad = keep ? __fmul_rn(a, drop_scale) : 0.f;
-            d = keep ? __fmul_rn(d, drop_scale) : 0.f;
+          for (int jj = 0; jj < 2; ++jj) {
+            const int rb = cb + 16 * jj;
+            uint32_t bb[4];
+            ldsm_x4(bb, frag_b_nk(rb < 64 ? xlo : xhi, LD, rb & 63, 16 * ks, lane));
+            mma_bf16(bd[2 * jj], av, bb[0], bb[1]);
+            mma_bf16(bd[2 * jj + 1], av, bb[2], bb[3]);
           }
-          float ds = __fmul_rn(__fmul_rn(a, __fsub_rn(d, rd[r])), scale);
-          if (t >= T) ad = ds = 0.f;
-          sc[j][e] = ds;
-          const bf16 dsb = __float2bfloat16_rn(ds);
-          pt[sl * LDQ + il] = __float2bfloat16_rn(ad);
-          dst[sl * LDQ + il] = dsb;
-          dbt[(BQ - 1 - il + sl) * LDQ + il] = dsb;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int i = g + 8 * (x >> 1), sk = 8 * j + 2 * tq + (x & 1) + i - 15;
+            if (sk >= 0 && sk < 16) bsw[i * BSCR_LD + sk] = bd[j][x];
+          }
+      }
+      __syncwarp();
+      // attn = exp(s - m) / l of the warp's elements, in the layout of sc
+      const float absent = __int_as_float(0xff800000);  // -inf
+      const float mr[2] = {ms[i0 + g], ms[i0 + g + 8]};
+      const float lr[2] = {ls[i0 + g], ls[i0 + g + 8]};
+      const float rlr[2] = {sm_rcp(lr[0]), sm_rcp(lr[1])};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int sk = 8 * j + 2 * tq + (x & 1), sl = kw + sk, s = s0 + sl;
+          const float v = __fmul_rn(
+              __fadd_rn(sc[j][x], bsw[(g + 8 * (x >> 1)) * BSCR_LD + sk]), a.scale);
+          const float sv2 = s >= T ? absent : (mask_s[sl] > 0.f ? v : NEG);
+          sc[j][x] = sm_exp(sv2 - mr[x >> 1]);
+        }
+      sm_div_rows(sc, lr, rlr);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int il = i0 + g + 8 * r, t = t0 + il;
+        const float rdr = rds[il];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float ad2[2], ds2[2];
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            const int x = 2 * r + y, sl = kw + 8 * j + 2 * tq + y, s = s0 + sl;
+            const float at = sc[j][x];
+            float ad = at, d = da[j][x];
+            if (use_drop && t < T && s < T) {
+              const bool keep = drop_s[il * DROP_LD + sl] >= a.drop_k;
+              ad = keep ? __fmul_rn(at, a.drop_scale) : 0.f;
+              d = keep ? __fmul_rn(d, a.drop_scale) : 0.f;
+            }
+            float ds = __fmul_rn(__fmul_rn(at, __fsub_rn(d, rdr)), a.scale);
+            if (t >= T) ad = ds = 0.f;
+            ad2[y] = ad;
+            ds2[y] = ds;
+            db[il * DB_LD + BQ - 1 - il + sl] = __float2bfloat16_rn(ds);
+          }
+          const int sl0 = kw + 8 * j + 2 * tq;
+          *reinterpret_cast<uint32_t*>(pd + il * PD_LD + sl0) = pack_bf16(ad2[0], ad2[1]);
+          *reinterpret_cast<uint32_t*>(dsm + il * PD_LD + sl0) = pack_bf16(ds2[0], ds2[1]);
         }
       }
     }
     __syncthreads();
-    // dq's content part: ds_c (this warp's rows, from registers) k
+
+    if (cols) {
+      // ---- dq of queries i0.., columns 16 cg..: ds_c k + dbraw p, per key tile
+      float dqu[2][4], dqv[2][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        if (8 * n >= dh) continue;
-        const bf16* kr = kc + (8 * n + g) * LDQ + 16 * kk + 2 * tq;
-        mma_bf16(dqu[n], a, ld_u32(kr), ld_u32(kr + 8));
+        for (int x = 0; x < 4; ++x) dqu[n][x] = dqv[n][x] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t aa[4], bb[4];
+        ldsm_x4(aa, frag_a(dsm, PD_LD, i0, 16 * kk, lane));
+        ldsm_x4_t(bb, frag_b_kn(kt_s, LD, 16 * kk, 16 * cg, lane));
+        mma_bf16(dqu[0], aa, bb[0], bb[1]);
+        mma_bf16(dqu[1], aa, bb[2], bb[3]);
       }
-    }
-    // dq's position part: dbraw (the warp's 80 band rows, gathered from the
-    // transposed band) p
+      const int cq = 48 - i0;  // the 80 band rows queries i0.. reach
 #pragma unroll
-    for (int kk = 0; kk < WBAND / 16; ++kk) {
-      const int c = cb + 16 * kk + 2 * tq;
-      const int ra = r0 + g, rb = r0 + g + 8;
-      uint32_t a[4];
-      a[0] = pack2(dbt[c * LDQ + ra], dbt[(c + 1) * LDQ + ra]);
-      a[1] = pack2(dbt[c * LDQ + rb], dbt[(c + 1) * LDQ + rb]);
-      a[2] = pack2(dbt[(c + 8) * LDQ + ra], dbt[(c + 9) * LDQ + ra]);
-      a[3] = pack2(dbt[(c + 8) * LDQ + rb], dbt[(c + 9) * LDQ + rb]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        if (8 * n >= dh) continue;
-        const bf16* pr = pc + (8 * n + g) * LDB + c;
-        mma_bf16(dqv[n], a, ld_u32(pr), ld_u32(pr + 8));
+      for (int kk = 0; kk < 5; ++kk) {
+        const int rb = cq + 16 * kk;
+        uint32_t aa[4], bb[4];
+        ldsm_x4(aa, frag_a(db, DB_LD, i0, rb, lane));
+        ldsm_x4_t(bb, frag_b_kn(rb < 64 ? xlo : xhi, LD, rb & 63, 16 * cg, lane));
+        mma_bf16(dqv[0], aa, bb[0], bb[1]);
+        mma_bf16(dqv[1], aa, bb[2], bb[3]);
       }
-    }
-    // the tile's partial dv = bf16(attn_d)^T g and dk = ds_c^T qu over this
-    // CTA's 64 query rows: keys [s0 + 16 * warp, + 16)
+      float* wq = a.ws.dq + (bh * nk + kt) * T * dh;
 #pragma unroll
-    for (int which = 0; which < 2; ++which) {
-      const bf16* at = which == 0 ? pt : dst;
-      const bf16* bt = which == 0 ? gt : qut;
-      float* out = which == 0 ? ws.dv : ws.dk;
-      float acc[NO][4];
+      for (int n = 0; n < 2; ++n) {
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
+        for (int x = 0; x < 4; ++x) {
+          const int t = t0 + i0 + g + 8 * (x >> 1), c = 16 * cg + 8 * n + 2 * tq + (x & 1);
+          if (t < T && c < dh) wq[(size_t)t * dh + c] = __fadd_rn(dqu[n][x], dqv[n][x]);
+        }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+        for (int y = 0; y < 2; ++y) {
+          su[n][y] = __fadd_rn(su[n][y], __fadd_rn(dqu[n][y], dqu[n][y + 2]));
+          sv[n][y] = __fadd_rn(sv[n][y], __fadd_rn(dqv[n][y], dqv[n][y + 2]));
+        }
+      }
+
+      // ---- dv += bf16(attn_d)^T g and dk += ds_c^T qu: keys 16 r4..,
+      // columns 16 cg.., over the tile's 64 queries
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, at, LDQ, r0, 16 * kk, g, tq);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          if (8 * n >= dh) continue;
-          const bf16* br = bt + (8 * n + g) * LDQ + 16 * kk + 2 * tq;
-          mma_bf16(acc[n], a, ld_u32(br), ld_u32(br + 8));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int s = s0 + r0 + g + 8 * (e >> 1), c = 8 * n + 2 * tq + (e & 1);
-          if (s < T && c < dh) out[(part_rows + s) * dh + c] = acc[n][e];
-        }
+        uint32_t ap[4], as[4], bb[4];
+        ldsm_x4_t(ap, frag_a_km(pd, PD_LD, 16 * r4, 16 * kk, lane));
+        ldsm_x4_t(as, frag_a_km(dsm, PD_LD, 16 * r4, 16 * kk, lane));
+        ldsm_x4_t(bb, frag_b_kn(gs, LD, 16 * kk, 16 * cg, lane));
+        mma_bf16(acc_dv[0], ap, bb[0], bb[1]);
+        mma_bf16(acc_dv[1], ap, bb[2], bb[3]);
+        ldsm_x4_t(bb, frag_b_kn(qu_s, LD, 16 * kk, 16 * cg, lane));
+        mma_bf16(acc_dk[0], as, bb[0], bb[1]);
+        mma_bf16(acc_dk[1], as, bb[2], bb[3]);
       }
     }
-    // the tile's partial dp = dbraw^T qv over its 128 band rows: this warp
-    // takes rows [32 * warp, + 32)
+
+    // ---- dp += dbraw^T qv over this warp's 16 rows x half of dh of the
+    // block its group holds: warps 0-7 the even blocks, 8-15 the odd ones.
+    // X_qt (band rows [0, 64)) is new; X_qt-1 ([64, 128)) is complete after
+    // this tile.
     {
-      float* out = ws.dp + (((size_t)(bh * nq + qt) * nq + s0 / BK) * BAND) * dh;
+      const bool fresh = grp == (qt & 1);
+      const int rbp = (fresh ? 0 : PBLK) + 16 * r4;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        float acc[NO][4];
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t ad[4];
+        ldsm_x4_t(ad, frag_a_km(db, DB_LD, rbp, 16 * kk, lane));
 #pragma unroll
-        for (int n = 0; n < NO; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          uint32_t a[4];
-          load_a(a, dbt, LDQ, 32 * warp + 16 * mt, 16 * kk, g, tq);
-#pragma unroll
-          for (int n = 0; n < NO; ++n) {
-            if (8 * n >= dh) continue;
-            const bf16* br = qvt + (8 * n + g) * LDQ + 16 * kk + 2 * tq;
-            mma_bf16(acc[n], a, ld_u32(br), ld_u32(br + 8));
-          }
+        for (int nn = 0; nn < NHP; ++nn) {
+          uint32_t bb[2];
+          ldsm_x2_t(bb, frag_b1_kn(qv_s, LD, 16 * kk, 8 * (half * NHP + nn), lane));
+          mma_bf16(acc_dp[nn], ad, bb[0], bb[1]);
         }
+      }
+      if (!fresh) flush_dp(qt - 1);
+    }
+  }
+  if (grp == ((nk - 1) & 1)) flush_dp(nk - 1);
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(smem + L::BS);  // the band scores are done
+
+  // ---- dk, dv of the CTA's keys; the du and dvb partials
+  bf16* dkg = a.dk + bh * T * dh;
+  bf16* dvg = a.dv + bh * T * dh;
+  if (cols) {
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
+    for (int n = 0; n < 2; ++n) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = 32 * warp + 16 * mt + g + 8 * (e >> 1);
-            const int c = 8 * n + 2 * tq + (e & 1);
-            if (c < dh) out[(size_t)row * dh + c] = acc[n][e];
-          }
+      for (int x = 0; x < 4; ++x) {
+        const int s = s0 + 16 * r4 + g + 8 * (x >> 1), c = 16 * cg + 8 * n + 2 * tq + (x & 1);
+        if (s < T && c < dh) {
+          dkg[(size_t)s * dh + c] = __float2bfloat16_rn(acc_dk[n][x]);
+          dvg[(size_t)s * dh + c] = __float2bfloat16_rn(acc_dv[n][x]);
+        }
+      }
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+        float u1 = su[n][y], v1 = sv[n][y];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          u1 = __fadd_rn(u1, __shfl_xor_sync(0xffffffffu, u1, off));
+          v1 = __fadd_rn(v1, __shfl_xor_sync(0xffffffffu, v1, off));
+        }
+        const int c = 16 * cg + 8 * n + 2 * tq + y;
+        if (g == 0) {
+          sums[r4 * DHP + c] = u1;
+          sums[(4 + r4) * DHP + c] = v1;
         }
       }
     }
   }
-
-  // ---- epilogue: dq = bf16(dqu + dqv) for rows < T; this warp's column sums
-  // of dqu and dqv (du and dvb partials, in a fixed shuffle order)
-  bf16* dqg = dq + bh * T * dh;
-  const size_t wrow = (bh * nq + qt) * WARPS + warp;
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = trow + 8 * (e >> 1), c = 8 * n + 2 * tq + (e & 1);
-      if (t < T && c < dh) {
-        dqg[(size_t)t * dh + c] = __float2bfloat16_rn(__fadd_rn(dqu[n][e], dqv[n][e]));
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      float su = __fadd_rn(dqu[n][x], dqu[n][x + 2]);
-      float sv = __fadd_rn(dqv[n][x], dqv[n][x + 2]);
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        su = __fadd_rn(su, __shfl_xor_sync(0xffffffffu, su, off));
-        sv = __fadd_rn(sv, __shfl_xor_sync(0xffffffffu, sv, off));
-      }
-      const int c = 8 * n + 2 * tq + x;
-      if (g == 0 && c < dh) {
-        ws.du[wrow * dh + c] = su;
-        ws.dvb[wrow * dh + c] = sv;
-      }
-    }
+  __syncthreads();
+  // the key tile's du and dvb partials: the four query groups in order
+  for (int i = threadIdx.x; i < 2 * dh; i += BWD_THREADS) {
+    const int which = i / dh, c = i % dh;
+    const float* col = sums + 4 * which * DHP + c;
+    const float acc = __fadd_rn(__fadd_rn(__fadd_rn(col[0], col[DHP]), col[2 * DHP]),
+                                col[3 * DHP]);
+    (which ? a.ws.dvb : a.ws.du)[(bh * nk + kt) * dh + c] = acc;
   }
 }
 
-// Sums the partials in a fixed order and rounds to bf16: one thread per
-// element of dk and dv (together), then of dp, then of du and dvb.
+// Sums the partials in a fixed order and rounds to bf16: one thread per V
+// consecutive columns (V = 4 when dh % 4 == 0: 16-byte loads) of du and
+// dvb (together), then of dp, then of dq. The sums over the batch come
+// first in the grid, so that their longer chains of loads overlap the dq
+// blocks' streaming; each sum runs b ascending, then key tile.
+template <int V>
+__device__ __forceinline__ void load_v(float (&x)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void add_v(float (&acc)[V], const float* p) {
+  float x[V];
+  load_v<V>(x, p);
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], x[e]);
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(bf16* dst, const float (&acc)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) dst[e] = __float2bfloat16_rn(acc[e]);
+}
+
+template <int V>
 __global__ void __launch_bounds__(REDUCE_THREADS)
-    relpos_attention_bwd_reduce(Partials ws, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                                bf16* __restrict__ dp, bf16* __restrict__ du,
-                                bf16* __restrict__ dvb, int B, int H, int T, int dh, int nq) {
-  const int P = 2 * T - 1;
-  const size_t n1 = (size_t)B * H * T * dh, n2 = (size_t)H * P * dh, n3 = (size_t)H * dh;
+    relpos_attention_bwd_reduce(Partials ws, bf16* __restrict__ dq, bf16* __restrict__ dp,
+                                bf16* __restrict__ du, bf16* __restrict__ dvb, int B, int H,
+                                int T, int dh, int nk) {
+  const int P = 2 * T - 1, dv = dh / V;  // column groups of V
+  const size_t n1 = (size_t)H * dv, n2 = (size_t)H * P * dv, n3 = (size_t)B * H * T * dv;
   size_t i = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
   if (i < n1) {
-    const size_t c = i % dh, s = (i / dh) % T, bh = i / ((size_t)T * dh);
-    float a = 0.f, b2 = 0.f;
-    for (int qt = 0; qt < nq; ++qt) {
-      const size_t off = ((bh * nq + qt) * T + s) * dh + c;
-      a = __fadd_rn(a, ws.dk[off]);
-      b2 = __fadd_rn(b2, ws.dv[off]);
+    const size_t c = V * (i % dv), h = i / dv;
+    float a1[V], a2[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) a1[e] = a2[e] = 0.f;
+#pragma unroll 4
+    for (int w = 0; w < B * nk; ++w) {  // w = b * nk + kt
+      const int b = w / nk, kt = w % nk;
+      const size_t off = (((size_t)b * H + h) * nk + kt) * dh + c;
+      add_v<V>(a1, ws.du + off);
+      add_v<V>(a2, ws.dvb + off);
     }
-    dk[i] = __float2bfloat16_rn(a);
-    dv[i] = __float2bfloat16_rn(b2);
+    store_v<V>(du + h * dh + c, a1);
+    store_v<V>(dvb + h * dh + c, a2);
     return;
   }
   i -= n1;
   if (i < n2) {
-    const int c = (int)(i % dh), j = (int)((i / dh) % P), h = (int)(i / ((size_t)P * dh));
-    float a = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const size_t bh = (size_t)b * H + h;
-      for (int qt = 0; qt < nq; ++qt) {
-        for (int kt = 0; kt < nq; ++kt) {
-          // the band of (qt, kt) starts at p row T - 64 - 64 qt + 64 kt
-          const int jb = j - (T - BQ - BQ * qt + BK * kt);
-          if (jb < 0 || jb >= BAND) continue;
-          a = __fadd_rn(a, ws.dp[(((bh * nq + qt) * nq + kt) * BAND + jb) * dh + c]);
-        }
-      }
+    const int c = V * (int)(i % dv), j = (int)((i / dv) % P), h = (int)(i / ((size_t)P * dv));
+    // p row j lies in block X_n of key tile kt (rows [T-64-64n+64kt, +64))
+    // for the key tiles kt in [kt_lo, kt_hi]
+    const int kt_lo = max(0, (j - T) / BK);
+    const int kt_hi = min(nk - 1, (BK * nk - T + j) / BK);
+    const int len = kt_hi - kt_lo + 1;
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll 4
+    for (int w = 0; w < B * len; ++w) {  // w = b * len + kt - kt_lo
+      const int b = w / len, kt = kt_lo + w % len;
+      const int n = (T - 1 + BK * kt - j + PBLK) / PBLK - 1;
+      const int rho = j - (T - PBLK - PBLK * n + BK * kt);
+      add_v<V>(acc, ws.dp + ((((size_t)b * H + h) * nk + kt) * (nk + 1) + n + 1) * PBLK * dh
+                        + (size_t)rho * dh + c);
     }
-    dp[i] = __float2bfloat16_rn(a);
+    store_v<V>(dp + ((size_t)h * P + j) * dh + c, acc);
     return;
   }
   i -= n2;
   if (i < n3) {
-    const size_t c = i % dh, h = i / dh;
-    float a = 0.f, b2 = 0.f;
-    for (int b = 0; b < B; ++b) {
-      for (int w = 0; w < nq * WARPS; ++w) {
-        const size_t off = (((size_t)b * H + h) * nq * WARPS + w) * dh + c;
-        a = __fadd_rn(a, ws.du[off]);
-        b2 = __fadd_rn(b2, ws.dvb[off]);
-      }
-    }
-    du[i] = __float2bfloat16_rn(a);
-    dvb[i] = __float2bfloat16_rn(b2);
+    const size_t c = V * (i % dv), t = (i / dv) % T, bh = i / ((size_t)T * dv);
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll 8
+    for (int kt = 0; kt < nk; ++kt) add_v<V>(acc, ws.dq + ((bh * nk + kt) * T + t) * dh + c);
+    store_v<V>(dq + (bh * T + t) * dh + c, acc);
   }
 }
 
+template <int V>
+int launch_reduce(const Partials& ws, void* dq, void* dp, void* du, void* dvb, int B, int H,
+                  int T, int dh, cudaStream_t stream) {
+  const int nk = (T + BK - 1) / BK, dv = dh / V;
+  const size_t total = ((size_t)B * H * T + (size_t)H * (2 * T - 1) + H) * dv;
+  relpos_attention_bwd_reduce<V><<<(unsigned)((total + REDUCE_THREADS - 1) / REDUCE_THREADS),
+                                   REDUCE_THREADS, 0, stream>>>(
+      ws, static_cast<bf16*>(dq), static_cast<bf16*>(dp), static_cast<bf16*>(du),
+      static_cast<bf16*>(dvb), B, H, T, dh, nk);
+  return (int)cudaGetLastError();
+}
+
 template <int DHP>
-int launch(const void* q, const void* k, const void* v, const void* p, const void* u,
-           const void* vb, const void* key_mask, const void* drop8, const void* g, void* dq,
-           void* dk, void* dv, void* dp, void* du, void* dvb, Partials ws, int B, int H,
-           int T, int dh, float scale, int drop_k, float drop_scale, cudaStream_t stream) {
-  constexpr int smem = Layout<DHP>::BYTES;
+int launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = BwdLayout<DHP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(relpos_attention_bwd_kernel<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int nq = (T + BQ - 1) / BQ;
-  const dim3 grid((unsigned)nq, (unsigned)H, (unsigned)B);
-  relpos_attention_bwd_kernel<DHP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(p), static_cast<const bf16*>(u), static_cast<const bf16*>(vb),
-      static_cast<const float*>(key_mask), static_cast<const uint8_t*>(drop8),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dq), ws, H, T, dh, scale, drop_k,
-      drop_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)B * H * T * dh + (size_t)H * (2 * T - 1) * dh + (size_t)H * dh;
-  relpos_attention_bwd_reduce<<<(unsigned)((total + REDUCE_THREADS - 1) / REDUCE_THREADS),
-                                REDUCE_THREADS, 0, stream>>>(
-      ws, static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<bf16*>(dp),
-      static_cast<bf16*>(du), static_cast<bf16*>(dvb), B, H, T, dh, nq);
+  const dim3 grid((unsigned)((a.T + BK - 1) / BK), (unsigned)a.H, (unsigned)B);
+  relpos_attention_bwd_kernel<DHP><<<grid, BWD_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+inline int bwd_smem_bytes(int dh) {
+  switch ((dh + 15) / 16) {
+    case 1: return BwdLayout<16>::BYTES;
+    case 2: return BwdLayout<32>::BYTES;
+    case 3: return BwdLayout<48>::BYTES;
+    default: return BwdLayout<64>::BYTES;
+  }
 }
 
 }  // namespace
@@ -684,30 +638,87 @@ extern "C" {
 // Gradients of the rel-pos attention (csrc/attention.cu) for the cotangent
 // g [B,H,T,dh]: dq/dk/dv [B,H,T,dh], dp [H,2T-1,dh], du/dvb [H,dh], all
 // bf16; operands as the forward's (bf16, contiguous, 16-byte aligned;
-// key_mask f32; drop8 read only when drop_k > 0). `workspace` holds
-// `workspace_floats` f32 elements, at least bwd_workspace_floats(B,H,T,dh)
-// of ops/attention.py.
+// key_mask f32; drop8 read only when drop_k > 0). stat_m and stat_l (f32
+// [B,H,T], or both null) are each row's max and sum as the forward wrote
+// them; without them the first launch computes them. `workspace` holds
+// `workspace_floats` f32 elements, at least fused_relpos_attention_plan's.
 int fused_relpos_attention_bwd(const void* q, const void* k, const void* v, const void* p,
                                const void* u, const void* vb, const void* key_mask,
-                               const void* drop8, const void* g, void* dq, void* dk, void* dv,
-                               void* dp, void* du, void* dvb, void* workspace,
-                               long long workspace_floats, int B, int H, int T, int dh,
-                               float scale, int drop_k, float drop_scale, int device,
-                               void* stream) {
+                               const void* drop8, const void* g, const void* stat_m,
+                               const void* stat_l, void* dq, void* dk, void* dv, void* dp,
+                               void* du, void* dvb, void* workspace, long long workspace_floats,
+                               int B, int H, int T, int dh, float scale, int drop_k,
+                               float drop_scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || H < 1 || T < 1 || dh < 1 || dh > 64 || drop_k < 0 || drop_k > 255 ||
-      workspace_floats < 0 || (size_t)workspace_floats < bwd_workspace_floats(B, H, T, dh)) {
+      (stat_m == nullptr) != (stat_l == nullptr) || workspace_floats < 0 ||
+      (size_t)workspace_floats < bwd_workspace_floats(B, H, T, dh)) {
     return (int)cudaErrorInvalidValue;
   }
   const Partials ws = carve(static_cast<float*>(workspace), B, H, T, dh);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch ((dh + 15) / 16) {
-    case 1: return launch<16>(q, k, v, p, u, vb, key_mask, drop8, g, dq, dk, dv, dp, du, dvb, ws, B, H, T, dh, scale, drop_k, drop_scale, s);
-    case 2: return launch<32>(q, k, v, p, u, vb, key_mask, drop8, g, dq, dk, dv, dp, du, dvb, ws, B, H, T, dh, scale, drop_k, drop_scale, s);
-    case 3: return launch<48>(q, k, v, p, u, vb, key_mask, drop8, g, dq, dk, dv, dp, du, dvb, ws, B, H, T, dh, scale, drop_k, drop_scale, s);
-    default: return launch<64>(q, k, v, p, u, vb, key_mask, drop8, g, dq, dk, dv, dp, du, dvb, ws, B, H, T, dh, scale, drop_k, drop_scale, s);
+  RowsArgs ra;
+  ra.q = static_cast<const bf16*>(q);
+  ra.k = static_cast<const bf16*>(k);
+  ra.v = static_cast<const bf16*>(v);
+  ra.p = static_cast<const bf16*>(p);
+  ra.u = static_cast<const bf16*>(u);
+  ra.vb = static_cast<const bf16*>(vb);
+  ra.key_mask = static_cast<const float*>(key_mask);
+  ra.drop8 = static_cast<const uint8_t*>(drop8);
+  ra.g = static_cast<const bf16*>(g);
+  ra.out = nullptr;
+  ra.rowdot = ws.rowdot;
+  ra.B = B, ra.H = H, ra.T = T, ra.dh = dh;
+  ra.scale = scale, ra.drop_k = drop_k, ra.drop_scale = drop_scale;
+  int rc;
+  if (stat_m) {
+    ra.m = const_cast<float*>(static_cast<const float*>(stat_m));
+    ra.l = const_cast<float*>(static_cast<const float*>(stat_l));
+    rc = launch_rows_dh<M_ROWDOT | M_STATS_IN>(ra, s);
+  } else {
+    ra.m = ws.m;
+    ra.l = ws.l;
+    rc = launch_rows_dh<M_ROWDOT | M_STATS_OUT>(ra, s);
   }
+  if (rc != 0) return rc;
+
+  BwdArgs ba;
+  ba.q = ra.q, ba.k = ra.k, ba.v = ra.v, ba.p = ra.p, ba.u = ra.u, ba.vb = ra.vb, ba.g = ra.g;
+  ba.key_mask = ra.key_mask;
+  ba.drop8 = ra.drop8;
+  ba.m = ra.m, ba.l = ra.l, ba.rowdot = ws.rowdot;
+  ba.dk = static_cast<bf16*>(dk);
+  ba.dv = static_cast<bf16*>(dv);
+  ba.ws = ws;
+  ba.H = H, ba.T = T, ba.dh = dh;
+  ba.scale = scale, ba.drop_k = drop_k, ba.drop_scale = drop_scale;
+  switch ((dh + 15) / 16) {
+    case 1: rc = launch_bwd<16>(ba, B, s); break;
+    case 2: rc = launch_bwd<32>(ba, B, s); break;
+    case 3: rc = launch_bwd<48>(ba, B, s); break;
+    default: rc = launch_bwd<64>(ba, B, s); break;
+  }
+  if (rc != 0) return rc;
+  return dh % 4 == 0 ? launch_reduce<4>(ws, dq, dp, du, dvb, B, H, T, dh, s)
+                     : launch_reduce<1>(ws, dq, dp, du, dvb, B, H, T, dh, s);
+}
+
+// The launch plan at (B, H, T, dh): out[0] query (= key) tiles of 64,
+// out[1] threads and out[2] shared bytes of a forward-family CTA (grid
+// [tiles, H, B]), out[3] threads and out[4] shared bytes of a backward
+// gradient CTA (grid [tiles, H, B]), out[5] the backward's workspace in f32
+// elements. Returns cudaErrorInvalidValue for shapes the kernels do not take.
+int fused_relpos_attention_plan(int B, int H, int T, int dh, long long* out) {
+  if (B < 1 || H < 1 || T < 1 || dh < 1 || dh > 64) return (int)cudaErrorInvalidValue;
+  out[0] = (T + BQ - 1) / BQ;
+  out[1] = ROWS_THREADS;
+  out[2] = rows_smem_bytes(dh);
+  out[3] = BWD_THREADS;
+  out[4] = bwd_smem_bytes(dh);
+  out[5] = (long long)bwd_workspace_floats(B, H, T, dh);
+  return 0;
 }
 
 }  // extern "C"

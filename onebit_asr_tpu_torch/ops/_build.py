@@ -1,11 +1,12 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-`library()` compiles every `csrc/*.cu` into one shared library with a plain C
-interface at first use, into `_build/` beside this package (listed in
-.gitignore), and loads it: one `nvcc` per source, all started together,
-then one link. The library's name carries a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing is
-built or loaded when the module is imported.
+`library()` compiles every `csrc/*.cu` (which may include `csrc/*.cuh`) into
+one shared library with a plain C interface at first use, into `_build/`
+beside this package (listed in .gitignore), and loads it: one `nvcc` per
+source, all started together, then one link. The library's name carries a
+hash of the sources, headers and flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Nothing is built or loaded when the
+module is imported.
 
 Every C entry but the workspace query returns `cudaGetLastError()` after its
 launch; `check` turns a non-zero code into a RuntimeError with CUDA's own
@@ -45,14 +46,17 @@ SIGNATURES = {
     "ternary_matmul_plan": (_I, _I, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, y, B, T, F, C, r2 (0: the plan's), device, stream
     "fused_subsample_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, p, u, vb, key_mask, drop8, out, B, H, T, dh, scale, drop_k,
-    # drop_scale, device, stream
-    "fused_relpos_attention_fwd": (_P,) * 9 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),
-    # q, k, v, p, u, vb, key_mask, drop8, g, dq, dk, dv, dp, du, dvb,
-    # workspace, workspace_floats, B, H, T, dh, scale, drop_k, drop_scale,
-    # device, stream
-    "fused_relpos_attention_bwd": (_P,) * 16 + (ctypes.c_longlong, _I, _I, _I, _I, _F, _I,
+    # q, k, v, p, u, vb, key_mask, drop8, out, stat_m, stat_l (both null:
+    # no statistics), B, H, T, dh, scale, drop_k, drop_scale, device, stream
+    "fused_relpos_attention_fwd": (_P,) * 11 + (_I, _I, _I, _I, _F, _I, _F, _I, _P),
+    # q, k, v, p, u, vb, key_mask, drop8, g, stat_m, stat_l (both null: the
+    # backward computes them), dq, dk, dv, dp, du, dvb, workspace,
+    # workspace_floats, B, H, T, dh, scale, drop_k, drop_scale, device, stream
+    "fused_relpos_attention_bwd": (_P,) * 18 + (ctypes.c_longlong, _I, _I, _I, _I, _F, _I,
                                                 _F, _I, _P),
+    # B, H, T, dh, out[6] (tiles, forward-family threads and shared bytes,
+    # backward threads and shared bytes, backward workspace floats)
+    "fused_relpos_attention_plan": (_I, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, g, dx, dw1, db1, dw2, db2, workspace,
     # workspace_floats, B, T, F, C, device, stream
     "fused_subsample_bwd": (_P,) * 12 + (ctypes.c_longlong, _I, _I, _I, _I, _I, _P),
@@ -91,9 +95,13 @@ def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in [*srcs, *headers()]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -7,9 +7,13 @@ Transformer-XL attention
     softmax(((q+u) k^T + skew((q+vb) p^T)) * scale, key mask) -> dropout -> @ v
 
 runs in one launch (csrc/attention.cu, replacing the TPU kernel
-`_fwd_kernel`, ops/attention.py:141-162), and its gradient in one launch plus
-a fixed-order reduction (csrc/attention_bwd.cu, replacing `_bwd_kernel`,
-:165-232): no [T, T]-or-wider tensor reaches device memory.
+`_fwd_kernel`, ops/attention.py:141-162), and its gradient in three: rowdot,
+the gradients and a fixed-order reduction (csrc/attention_bwd.cu, replacing
+`_bwd_kernel`, :165-232): no [T, T]-or-wider tensor reaches device memory.
+In training the forward also writes each row's max and sum of the softmax
+(f32 [B, H, T]), which the Function saves and the backward reads in place of
+recomputing them; called alone, the backward computes them with the
+forward's own code, so both give the same bits.
 
 The forward's arithmetic follows `_fwd_kernel`, which rounds differently
 from the port's unfused attention chain (model/conformer.py::RelPosMHSA,
@@ -27,7 +31,8 @@ them there):
   dtype.
 
 The backward follows `_bwd_kernel`: it recomputes the scores and softmax
-from the inputs (the only residuals, drop8 included), then
+from the inputs (drop8 included; on CUDA with the forward's row statistics),
+then
 - attn_d = keep ? attn * inv : 0; dv = bf16(attn_d)^T g (f32 sums);
 - dattn = g v^T, then keep ? dattn * inv : 0; rowdot = sum_s dattn * attn
   over the f32 probabilities before dropout;
@@ -57,9 +62,9 @@ from onebit_asr_tpu_torch.ops.ternary_matmul import _cuda_launch_args
 
 NEG = -1e9
 MAX_HEAD_DIM = 64  # the kernels keep a warp's q rows and output in registers
-BWD_ROWS = 64  # query rows of one backward CTA (csrc/attention_bwd.cu BQ)
-BWD_WARPS = 4
-BWD_BAND = 128  # p rows one (query tile, key tile) pair touches (127), padded
+# csrc/attention_bwd.cu::fused_relpos_attention_plan's outputs
+PLAN_KEYS = ("tiles", "rows_threads", "rows_smem", "bwd_threads", "bwd_smem",
+             "workspace_floats")
 
 
 def drop_threshold(dropout_rate: float) -> int:
@@ -93,9 +98,8 @@ def _skew_index(T, device):
     return (T - 1 - t)[:, None] + t[None, :]
 
 
-def _probs(q, k, p, u, vb, key_mask, scale):
-    """The f32 softmax probabilities [B, H, T, T] of `_scores_h` and
-    `_softmax_rows`."""
+def _scores(q, k, p, u, vb, key_mask, scale):
+    """The masked f32 scores [B, H, T, T] of `_scores_h`."""
     f32 = torch.float32
     B, H, T, dh = q.shape
     qu = q + u[None, :, None, :]
@@ -105,10 +109,24 @@ def _probs(q, k, p, u, vb, key_mask, scale):
         braw = qv.to(f32) @ p.to(f32).transpose(-1, -2)  # [B, H, T, 2T-1]
     bd = braw.gather(-1, _skew_index(T, q.device).expand(B, H, T, T))
     s = (ac + bd) * scale
-    s = torch.where(key_mask[:, None, None, :] > 0, s, NEG)
+    return torch.where(key_mask[:, None, None, :] > 0, s, NEG)
+
+
+def _probs(q, k, p, u, vb, key_mask, scale):
+    """The f32 softmax probabilities [B, H, T, T] of `_scores_h` and
+    `_softmax_rows`."""
+    s = _scores(q, k, p, u, vb, key_mask, scale)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     return e / e.sum(dim=-1, keepdim=True)
+
+
+def row_stats_reference(q, k, p, u, vb, key_mask, scale):
+    """Each row's softmax max and sum of exp(s - max) (f32 [B, H, T]), from the
+    scores of `_probs`: what the forward kernel writes for the backward."""
+    s = _scores(q, k, p, u, vb, key_mask, scale)
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1)
 
 
 def fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
@@ -125,27 +143,37 @@ def fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
     return out.to(v.dtype)
 
 
-def _fwd(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
+def _fwd(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate, stats=False):
     """The forward on the tensors' device: the plain version on the CPU, the
-    kernel (counted in `fused_relpos_attention.launches`) on CUDA."""
+    kernel (counted in `fused_relpos_attention.launches`) on CUDA. With
+    `stats`, returns (out, stats): on CUDA stats = (m, l), each row's max and
+    sum (f32 [B, H, T]) written by the same launch; on the CPU ()."""
     kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
     if q.device.type == "cpu":
-        return fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
-                                                dropout_rate)
+        out = fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
+                                               dropout_rate)
+        return (out, ()) if stats else out
     B, H, T, dh = q.shape
     device, stream, ops = _kernel_operands("fused_relpos_attention", kd, q, k, v, p, u, vb,
                                            key_mask, drop8)
     out = torch.empty((B, H, T, dh), dtype=torch.bfloat16, device=q.device)
+    ml = tuple(torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+               for _ in range(2 if stats else 0))
     if B == 0 or T == 0:
-        return out
+        return (out, ml) if stats else out
     err = _build.library().fused_relpos_attention_fwd(
         *(t.data_ptr() for t in ops), out.data_ptr(),
+        *([t.data_ptr() for t in ml] or [None, None]),
         B, H, T, dh, ctypes.c_float(scale), kd, ctypes.c_float(256.0 / (256 - kd)),
         device, stream,
     )
     _build.check(err, "fused_relpos_attention_fwd")
     fused_relpos_attention.launches += 1
-    return out
+    return (out, ml) if stats else out
+
+
+def _fwd_saving_stats(*args):
+    return _fwd(*args, stats=True)
 
 
 def _kernel_operands(what, kd, q, k, v, p, u, vb, key_mask, drop8, *cotangent):
@@ -209,19 +237,42 @@ def fused_relpos_attention_bwd_reference(q, k, v, p, u, vb, key_mask, drop8, g, 
             dvb.to(vb.dtype))
 
 
+def launch_plan(B, H, T, dh) -> dict:
+    """The kernels' plan at these shapes (needs the kernel library, CUDA):
+    query (= key) tiles of 64; threads and shared bytes of a forward-family
+    CTA (the forward and the backward's rowdot launch, grid [tiles, H, B])
+    and of a backward gradient CTA (grid [tiles, H, B]); the backward's
+    workspace in f32 elements."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    _build.check(_build.library().fused_relpos_attention_plan(B, H, T, dh, out),
+                 "fused_relpos_attention_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
 def bwd_workspace_floats(B, H, T, dh):
-    """f32 elements of the backward's workspace: per query tile the partial
-    dk and dv of every key, per (query tile, key tile) the partial dp of its
-    128-row band of p, per warp the partial du and dvb."""
-    nq = -(-T // BWD_ROWS)
-    return B * H * nq * (2 * T * dh + nq * BWD_BAND * dh + 2 * BWD_WARPS * dh)
+    """f32 elements of the backward's workspace (asks the kernel library):
+    per key tile the partial dq of every query, the partial dp of its
+    tiles + 1 blocks of 64 p rows and the partial du and dvb; each row's
+    max, sum and rowdot."""
+    return launch_plan(B, H, T, dh)["workspace_floats"]
 
 
-def fused_relpos_attention_bwd(q, k, v, p, u, vb, key_mask, drop8, g, scale, dropout_rate):
+def _check_stats(stats, q):
+    B, H, T, _ = q.shape
+    for t in stats:
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, T) or t.device != q.device:
+            raise ValueError(f"row statistics must be float32 {(B, H, T)} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def fused_relpos_attention_bwd(q, k, v, p, u, vb, key_mask, drop8, g, scale, dropout_rate,
+                               stats=None):
     """Gradients of `fused_relpos_attention` for the cotangent g [B, H, T, dh]:
     (dq, dk, dv, dp, du, dvb), as `fused_relpos_attention_bwd_reference`.
     On CUDA every tensor operand but key_mask and drop8 must be bfloat16,
-    and dh at most 64."""
+    and dh at most 64. `stats` = (m, l), the forward kernel's row
+    statistics, spares the kernel their recomputation (the same bits
+    either way); the plain version on the CPU ignores them."""
     kd = _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
     if tuple(g.shape) != tuple(q.shape):
         raise ValueError(f"g {tuple(g.shape)} != {tuple(q.shape)}")
@@ -231,6 +282,9 @@ def fused_relpos_attention_bwd(q, k, v, p, u, vb, key_mask, drop8, g, scale, dro
     B, H, T, dh = q.shape
     device, stream, ops = _kernel_operands("fused_relpos_attention_bwd", kd, q, k, v, p, u, vb,
                                            key_mask, drop8, g)
+    if stats:
+        _check_stats(stats, q)
+        stats = [_aligned(t) for t in stats]
     bf = dict(dtype=torch.bfloat16, device=q.device)
     dq, dk, dv = (torch.empty((B, H, T, dh), **bf) for _ in range(3))
     dp = torch.empty((H, 2 * T - 1, dh), **bf)
@@ -240,7 +294,8 @@ def fused_relpos_attention_bwd(q, k, v, p, u, vb, key_mask, drop8, g, scale, dro
     n_ws = bwd_workspace_floats(B, H, T, dh)
     ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     err = _build.library().fused_relpos_attention_bwd(
-        *(t.data_ptr() for t in (*ops, dq, dk, dv, dp, du, dvb, ws)), ctypes.c_longlong(n_ws),
+        *(t.data_ptr() for t in ops), *([t.data_ptr() for t in stats] if stats else [None, None]),
+        *(t.data_ptr() for t in (dq, dk, dv, dp, du, dvb, ws)), ctypes.c_longlong(n_ws),
         B, H, T, dh, ctypes.c_float(scale), kd, ctypes.c_float(256.0 / (256 - kd)),
         device, stream,
     )
@@ -254,24 +309,33 @@ fused_relpos_attention_bwd.launches = 0
 
 class _RelPosAttention(torch.autograd.Function):
     """Rel-pos attention whose forward is fns[0] and whose backward is fns[1]
-    on the saved inputs, as `_fa_fwd` saves them (drop8 included): nothing
+    on the saved inputs, as `_fa_fwd` saves them (drop8 included), and on
+    the kernel path on CUDA each row's max and sum that the forward kernel
+    wrote (fns[0] returns (out, stats); stats is () elsewhere): nothing else
     of the forward's intermediates is kept. key_mask, drop8, scale and
     dropout_rate get no gradient."""
 
     @staticmethod
     def forward(ctx, fns, q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
         ctx.bwd, ctx.scale, ctx.dropout_rate = fns[1], scale, dropout_rate
-        ctx.save_for_backward(q, k, v, p, u, vb, key_mask, drop8)
-        return fns[0](q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate)
+        out, stats = fns[0](q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate)
+        ctx.save_for_backward(q, k, v, p, u, vb, key_mask, drop8, *stats)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        grads = ctx.bwd(*ctx.saved_tensors, g, ctx.scale, ctx.dropout_rate)
+        saved = ctx.saved_tensors
+        stats = {"stats": saved[8:]} if len(saved) > 8 else {}
+        grads = ctx.bwd(*saved[:8], g, ctx.scale, ctx.dropout_rate, **stats)
         return (None, *grads, None, None, None, None)
 
 
-_KERNELS = (_fwd, fused_relpos_attention_bwd)
-_PLAIN = (fused_relpos_attention_reference, fused_relpos_attention_bwd_reference)
+def _plain_fwd(*args):
+    return fused_relpos_attention_reference(*args), ()
+
+
+_KERNELS = (_fwd_saving_stats, fused_relpos_attention_bwd)
+_PLAIN = (_plain_fwd, fused_relpos_attention_bwd_reference)
 
 
 def fused_relpos_attention(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
@@ -284,9 +348,12 @@ def fused_relpos_attention(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_ra
     uint8 draws (keep iff byte >= round(rate * 256)), ignored (any uint8
     tensor will do) when dropout_rate rounds to 0. Returns [B, H, T, dh] in
     v.dtype. On CUDA every tensor operand but key_mask and drop8 must be
-    bfloat16, and dh at most 64."""
-    return _RelPosAttention.apply(_KERNELS, q, k, v, p, u, vb, key_mask, drop8, scale,
-                                  dropout_rate)
+    bfloat16, and dh at most 64. Without a gradient to take (serving), the
+    forward kernel runs alone and writes no row statistics."""
+    ops = (q, k, v, p, u, vb)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
+        return _RelPosAttention.apply(_KERNELS, *ops, key_mask, drop8, scale, dropout_rate)
+    return _fwd(*ops, key_mask, drop8, scale, dropout_rate)
 
 
 fused_relpos_attention.launches = 0

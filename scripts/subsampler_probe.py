@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_build = ss = None  # the package's modules, imported in main()
+_build = ss = smoke = None  # the package's modules and chip_smoke, imported in main()
 
 SHAPES = [("serving", 8, 1598, 80, 256), ("train step", 16, 1024, 80, 256)]
 PASSES = (("mask", "conv2_kernel<true>"), ("conv1", "bwd_conv1_kernel"),
@@ -106,23 +106,10 @@ def build_knockouts() -> dict:
     return libs
 
 
-def device_ms_by_kernel(fn, iters: int = 10) -> dict:
-    """Device ms per call of each kernel `fn` launches (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    return by_name
-
+def device_ms_by_kernel(fn) -> dict:
+    """Device ms per call of each kernel `fn` launches: chip_smoke's
+    device_ms (torch.profiler) over 10 calls."""
+    return smoke.device_ms(fn, iters=10, per_kernel=True)[1]
 
 def total(by_name: dict) -> float:
     return sum(by_name.values())
@@ -193,7 +180,7 @@ def rows_only(unfused_subsample) -> None:
 
 
 def main(argv=None) -> int:
-    global _build, ss
+    global _build, ss, smoke
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--package", default=REPO,
@@ -204,8 +191,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("subsampler_probe: no CUDA card", file=sys.stderr)
         return 1
-    sys.path[:0] = [os.path.abspath(args.package), REPO]
-    from chip_smoke import unfused_subsample
+    sys.path[:0] = [REPO]  # this checkout's chip_smoke, whatever --package says
+    import chip_smoke as smoke
+    sys.path[:0] = [os.path.abspath(args.package)]
+    unfused_subsample = smoke.unfused_subsample
     from onebit_asr_tpu_torch.ops import _build
     from onebit_asr_tpu_torch.ops import subsampler as ss
 

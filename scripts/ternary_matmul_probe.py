@@ -33,6 +33,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+import chip_smoke  # noqa: E402
 from onebit_asr_tpu_torch.ops import _build  # noqa: E402
 from onebit_asr_tpu_torch.ops import ternary_matmul as tm  # noqa: E402
 
@@ -113,24 +114,9 @@ def build_knockouts() -> dict:
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    """Device ms per call: each kernel's mean duration times its launches
-    per call (the kernel launched once per call sets the count)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
-    calls = max(len(v) for v in by_name.values())
-    return sum(sum(v) / calls for v in by_name.values())
-
+    """Device ms per call: chip_smoke's device_ms (torch.profiler), each
+    kernel's mean duration times its launches per call."""
+    return chip_smoke.device_ms(fn, iters=iters)[0]
 
 def launch(lib, int8, x, packed, alpha, out, mt=0, nsplit=0):
     M, K = x.shape

@@ -145,6 +145,36 @@ def test_function_matches_autograd_of_plain_forward(rate):
         assert torch.equal(a, b)
 
 
+def test_function_saves_its_inputs_on_the_cpu_and_matches_plain_and_jax():
+    """On the CUDA kernel path the Function also saves the forward kernel's
+    row statistics; on the CPU (the plain versions) it saves its eight
+    inputs only, its gradients equal `fused_relpos_attention_plain`'s bit for
+    bit and JAX's `_fa_bwd` (interpret mode) within 1e-5 x the largest
+    |element| (f32, dropout 0.1), and without a gradient to take it returns
+    the same forward."""
+    rate, scale = 0.1, 0.3
+    tensors, key_mask, drop8, g = _operands(11, 16, 8, rate=rate, all_pad=False)
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in tensors]
+    extra = (torch.from_numpy(key_mask), torch.from_numpy(drop8), scale, rate)
+    out = fa.fused_relpos_attention(*leaves, *extra)
+    assert len(out.grad_fn.saved_tensors) == 8
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    plain = fa.fused_relpos_attention_plain(*leaves, *extra)
+    for a, b in zip(got, torch.autograd.grad(plain, leaves, torch.from_numpy(g))):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        assert torch.equal(fa.fused_relpos_attention(*leaves, *extra), out)
+
+    def jf(*ts):
+        return jax_attention.fused_relpos_attention(*ts, jnp.asarray(key_mask),
+                                                    jnp.asarray(drop8), scale, rate)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(t) for t in tensors))
+    for name, a, ref in zip(GRADS, got, vjp(jnp.asarray(g))):
+        ref = np.asarray(ref)
+        assert float(np.abs(a.numpy() - ref).max()) <= 1e-5 * float(np.abs(ref).max()), name
+
+
 @pytest.fixture(scope="module")
 def fused_steps():
     """Two f32 steps of the fused_attention model in JAX (forced onto its

@@ -548,10 +548,14 @@ def _assert_attention_close(out, ref):
 
 # (B, H, T, dh): B=1 at T=37 (one ragged key tile) and T=512 (the serving
 # T' of 16 s), the Conformer-M/L head width 64, Conformer-S 36 (rows not
-# 16-byte aligned), 16 and 32; then the serving shape at B=8
+# 16-byte aligned), 16 and 32; then the serving shape at B=8; tile edges:
+# T=257 and 511 (a last tile of 1 and of 63 rows, the draws' rows not
+# 16-byte aligned), T=1000 (16 tiles: the p-block ring wraps four times a
+# pass) and T=1 (a single key)
 ATTENTION_SHAPES = [
     (1, 2, T, dh) for T in (37, 512) for dh in (16, 36, 64)
-] + [(1, 2, 100, 32), (8, 4, 512, 64)]
+] + [(1, 2, 100, 32), (8, 4, 512, 64), (2, 2, 257, 64), (1, 2, 511, 64), (1, 1, 1000, 64),
+     (2, 2, 1, 16)]
 
 
 @pytest.mark.parametrize("shape", ATTENTION_SHAPES)
@@ -584,7 +588,7 @@ def test_fused_attention_kernel_ragged_keys_and_all_pad_row(cuda, T):
     torch.testing.assert_close(out[1].float(), uniform, rtol=1e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("dh", [16, 36, 64])
 def test_fused_attention_kernel_dropout(cuda, dh):
     from onebit_asr_tpu_torch.ops import attention as fa
 
@@ -593,6 +597,98 @@ def test_fused_attention_kernel_dropout(cuda, dh):
     ref = fa.fused_relpos_attention_reference(*ops, 0.125, 0.1)
     _assert_attention_close(out, ref)
     assert not torch.allclose(out, fa.fused_relpos_attention_reference(*ops, 0.125, 0.0))
+
+
+@pytest.mark.parametrize("shape,rate", [((2, 2, 100, 64), 0.1), ((1, 4, 512, 64), 0.0),
+                                        ((2, 2, 77, 36), 0.1), ((3, 1, 1000, 16), 0.0)])
+def test_fused_attention_kernel_gives_the_same_bits_twice(cuda, shape, rate):
+    """Two launches give the same bits; the training forward, which also
+    writes each row's max and sum, gives the serving forward's bits, and its
+    statistics match the plain ones (the same products summed in another
+    f32 order: m within 1e-4 (1 + |m|), l within 1e-4 relative)."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    B, H, T, dh = shape
+    ops = _attention_operands(*shape, seed=T + dh, device=cuda, rate=rate)
+    scale = 1.0 / float(np.sqrt(dh))
+    out = fa.fused_relpos_attention(*ops, scale, rate)
+    again = fa.fused_relpos_attention(*ops, scale, rate)
+    trained, (m, l) = fa._fwd(*ops, scale, rate, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, trained)
+    q, k, _, p, u, vb, key_mask, _ = ops
+    m_ref, l_ref = fa.row_stats_reference(q, k, p, u, vb, key_mask, scale)
+    assert m.dtype == l.dtype == torch.float32 and m.shape == l.shape == (B, H, T)
+    assert bool(((m - m_ref).abs() <= 1e-4 * (1 + m_ref.abs())).all())
+    assert bool(((l - l_ref).abs() <= 1e-4 * l_ref).all())
+
+
+# sm_div_rows of csrc/attention_common.cuh (the softmax's divide: each
+# row's reciprocal taken once, the divide itself for a warp that holds a
+# tiny numerator) and the IEEE divide, side by side in one kernel: thread i
+# divides a[4i .. 4i+3] by the row sums b[2i] (the first two) and b[2i+1]
+DIVIDE_CHECK_CU = r"""
+#include "attention_common.cuh"
+__global__ void divide_check_kernel(const float* a, const float* b, float* q, float* r) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float e[1][4];
+  const float l[2] = {b[2 * i], b[2 * i + 1]};
+  const float y[2] = {sm_rcp(l[0]), sm_rcp(l[1])};
+  for (int x = 0; x < 4; ++x) e[0][x] = a[4 * i + x];
+  sm_div_rows(e, l, y);
+  for (int x = 0; x < 4; ++x) {
+    q[4 * i + x] = e[0][x];
+    r[4 * i + x] = a[4 * i + x] / l[x >> 1];
+  }
+}
+extern "C" int divide_check(const void* a, const void* b, void* q, void* r, int threads) {
+  divide_check_kernel<<<threads / 256, 256>>>(static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<float*>(q), static_cast<float*>(r));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_softmax_divide_gives_the_ieee_quotient(cuda, tmp_path):
+    """The kernels' softmax divide (sm_div_rows: a row sum's reciprocal
+    taken once, then Markstein's FMA correction; the divide itself for a
+    warp holding a numerator below 2^-96) equals a / b bit for bit: 2^24
+    numerators in [2^-96, 1) (log-uniform, random significands: the FMA
+    path), 2^20 in [2^-126, 2^-90) (the divide's path and the switch), 0
+    and 1, over row sums in [1, 2^13) with random significands, with
+    all-ones significands and every integer up to 4096."""
+    import ctypes
+    import subprocess
+
+    from onebit_asr_tpu_torch.ops import _build
+
+    src = tmp_path / "divide_check.cu"
+    src.write_text(DIVIDE_CHECK_CU)
+    lib_path = tmp_path / "divide_check.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                    "-shared", "-o", str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.divide_check.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    rng = np.random.default_rng(7)
+
+    def floats(lo_exp, hi_exp, size):
+        e = rng.integers(lo_exp, hi_exp, size).astype(np.uint32)
+        m = rng.integers(0, 1 << 23, size).astype(np.uint32)
+        return ((e + 127) << 23 | m).view(np.float32)
+
+    ones = ((rng.integers(0, 13, 4096).astype(np.uint32) + 127) << 23 | 0x7FFFFF).view(np.float32)
+    a = np.concatenate([floats(-96, 0, 1 << 24), floats(-126, -90, 1 << 20),
+                        np.zeros(4096, np.float32), np.ones(4096, np.float32)])
+    b = np.concatenate([floats(0, 13, len(a) // 2 - 8192), ones,
+                        np.arange(1, 4097, dtype=np.float32)])
+    threads = len(a) // 4
+    assert len(a) == 4 * threads == 2 * len(b) and threads % 256 == 0
+    at, bt = (torch.from_numpy(x).to(cuda) for x in (a, b))
+    q, r = torch.empty_like(at), torch.empty_like(at)
+    assert lib.divide_check(at.data_ptr(), bt.data_ptr(), q.data_ptr(), r.data_ptr(),
+                            threads) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(q.view(torch.int32), r.view(torch.int32))
 
 
 def test_fused_attention_kernel_refuses_what_it_does_not_take(cuda):
@@ -657,9 +753,11 @@ def _assert_attention_grads_close(grads, ref):
 
 # (B, H, T, dh): one tile, the train step's shape of Conformer-M (B=16,
 # T'=256), a ragged last tile (T=255), Conformer-S's dh=36 at T=200, the
-# serving T'=512
+# serving T'=512; dh=16; tile edges: T=257 and 511 (a last tile of 1 and
+# of 63 rows), T=1000 (16 tiles: the p-block ring wraps five times) and T=1
 ATTENTION_BWD_SHAPES = [(2, 4, 16, 64), (16, 4, 256, 64), (3, 4, 255, 64), (2, 2, 200, 36),
-                        (8, 4, 512, 64)]
+                        (8, 4, 512, 64), (2, 2, 100, 16), (2, 2, 257, 64), (1, 2, 511, 64),
+                        (1, 1, 1000, 64), (2, 1, 1, 16)]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
@@ -687,6 +785,31 @@ def test_fused_attention_bwd_kernel_matches_plain(cuda, shape, rate):
                                                                                rate))
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", [(2, 4, 256, 64), (3, 2, 130, 36), (2, 2, 70, 16)])
+def test_fused_attention_bwd_on_saved_statistics_gives_the_same_bits(cuda, shape, rate):
+    """The backward on the row statistics the training forward wrote gives
+    the bits of the backward that computes them itself, launch after
+    launch."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    B, H, T, dh = shape
+    rng = np.random.default_rng(T + dh)
+    lens = rng.integers(T // 2, T + 1, size=B)
+    lens[-1] = 0
+    ops = _attention_operands(*shape, seed=T + dh, device=cuda, lens=lens, rate=rate)
+    g = torch.from_numpy(rng.standard_normal((B, H, T, dh)).astype(np.float32)).to(cuda)
+    g = g.to(torch.bfloat16)
+    scale = 1.0 / float(np.sqrt(dh))
+    _, stats = fa._fwd(*ops, scale, rate, stats=True)
+    own = fa.fused_relpos_attention_bwd(*ops, g, scale, rate)
+    saved = fa.fused_relpos_attention_bwd(*ops, g, scale, rate, stats=stats)
+    again = fa.fused_relpos_attention_bwd(*ops, g, scale, rate, stats=stats)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(own, saved))
+    assert all(torch.equal(a, b) for a, b in zip(saved, again))
+
+
 def test_fused_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
     from onebit_asr_tpu_torch.ops import attention as fa
 
@@ -703,6 +826,9 @@ def test_fused_attention_bwd_kernel_refuses_what_it_does_not_take(cuda):
         fa.fused_relpos_attention_bwd(*wide, torch.zeros_like(wide[0]), 0.25, 0.0)
     with pytest.raises(RuntimeError):  # split devices
         fa.fused_relpos_attention_bwd(*ops, g.cpu(), 0.25, 0.0)
+    with pytest.raises(ValueError):  # row statistics of another shape
+        fa.fused_relpos_attention_bwd(*ops, g, 0.25, 0.0,
+                                      stats=(torch.zeros(1, device=cuda),) * 2)
     assert fa.fused_relpos_attention_bwd.launches == before
 
 
