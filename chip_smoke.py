@@ -76,10 +76,11 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    versions at the train step's shape (the three branches of B=16 in one
    launch: B=48, T'=256, S=97), at LibriSpeech's ceiling (T=512, B=16,
    S=457) and on a ragged case (lengths < T, label length 0, an infeasible
-   row, repeated labels): NEG_INF entries must match as a pattern, finite
-   ones within 1e-5 relative; timed at the step's shape beside
-   F.ctc_loss forward (alpha) and forward + backward (beta), whose NLL
-   also cross-checks the port's;
+   row, repeated labels): equal bit for bit, and, as a second check, NEG_INF
+   entries matching as a pattern and finite ones within 1e-5 relative;
+   timed at the step's shape beside F.ctc_loss forward (alpha) and forward
+   + backward (beta), whose NLL also cross-checks the port's; the bound
+   counts the emission rows these lengths need;
 7. train: the library train step (train/step.py::make_train_step) at full
    Conformer-M width and depth, dropout 0.1, on bench.py's batch of record
    (B=16, 1,024 frames, U=48): a warm-up step, then TRAIN_STEPS steps that
@@ -135,7 +136,17 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    exactly its own kernels, in a complete profile, and its profiler time
    must lie within [0.7, 1.1] x the CUDA events' time of the same calls
    queued back to back behind a spin of the card (the host's dispatch
-   hidden).
+   hidden);
+12. device time of the CTC lattice kernels: rows 7 and 8 at the train
+   step's shape (B=48, T=256, S=97) and at LibriSpeech's ceiling (B=16,
+   T=512, S=457), each wrapper call exactly one device kernel on the loss's
+   operands (int64 lengths, a bool mask), its profiler time within [0.7,
+   1.1] x the queued CUDA events' as in step 11, beside its bound, the
+   time per step of the recursion (ms / (T-1)), the kernel variant (states
+   a lane, warps an utterance) and, as `library_device_ms`, the device time
+   of F.ctc_loss's own lattice kernel on the same lattice (its log-alpha
+   kernel in the forward, its log-beta kernel in the backward, picked by
+   name from the same profile; the port never calls it).
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -1344,6 +1355,9 @@ def ctc_kernel_phase(seed, rows):
                 raise AssertionError(f"{name} {label}: max |d| {err} over 1e-5 relative")
             errs[name] = max(errs[name], err)
             same = (out == ref).float().mean().item()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{name} {label}: not bit-identical to the plain version "
+                                     f"(share {same:.6f})")
             timed = f" ms={cuda_ms(lambda: fn(*ops)):.4f}" if label == "ceiling" else ""
             log(f"kernel {name} {label} B={B} T={T} S={S}: max|d|={err:.3g} "
                 f"bit_identical={same:.6f} neg_inf_share={neg.float().mean().item():.4f}{timed}")
@@ -1366,10 +1380,7 @@ def ctc_kernel_phase(seed, rows):
     nll_err = ((nll - lib_nll).abs() / lib_nll.abs())[ok].max().item()
     if nll_err > 1e-4:
         raise AssertionError(f"ctc NLL differs from F.ctc_loss by {nll_err} relative")
-    # one launch reads the emissions and the init row and writes the lattice
-    nbytes = 2 * B * T * S * 4 + B * S * 5 + B * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 10.0 * B * (T - 1) * S / PEAK_OPS["f32"] * 1e3  # 3 exp, 1 log, 6 add/max
+    t_bytes, t_ops = _lattice_bound(c)
     lib_ms = {"ctc_alpha": cuda_ms(lambda: library(False)),
               "ctc_beta": cuda_ms(lambda: library(True))}
     for name, fn, plain, init in (("ctc_alpha", cl.ctc_alpha, cl.ctc_alpha_reference, "alpha0"),
@@ -1402,6 +1413,18 @@ def ctc_kernel_phase(seed, rows):
         f"{int(ok.sum())} feasible rows")
 
 
+def _lattice_bound(c):
+    """(bytes ms, f32 ms) of one lattice launch on case `c`: it reads the
+    emission rows the lengths need (rows 1 .. len-1), the init row, the mask
+    and the lengths, and writes the lattice; 10 f32 operations (3 exp, 1
+    log, 6 add/max) a state and recursive step."""
+    B, T, S = c["emit"].shape
+    steps = int((c["lens"].clamp(1, T) - 1).sum())
+    nbytes = (steps * S * 4 + B * T * S * 4 + B * S * (4 + c["skip"].element_size())
+              + B * c["lens"].element_size())
+    return nbytes / HBM_BYTES_PER_S * 1e3, 10.0 * steps * S / PEAK_OPS["f32"] * 1e3
+
+
 def _lattice_case_inits(c):
     """The alpha and beta init rows of a case (again after its lengths were
     edited)."""
@@ -1413,6 +1436,77 @@ def _lattice_case_inits(c):
     beta0 = torch.where((s_idx == 2 * ll) | ((s_idx == 2 * ll - 1) & (ll > 0)), 0.0,
                         NEG_INF).float()
     return {"alpha0": tctc._alpha0_of(c["emit"], c["label_lens"]), "beta0": beta0}
+
+
+# kernel-name keys of the lattice launches (csrc/ctc_lattice.cu) and of
+# F.ctc_loss's own lattice kernels (PyTorch's native CUDA CTC)
+CTC_KERNELS = {"ctc_alpha": "ctc_alpha_kernel", "ctc_beta": "ctc_beta_kernel"}
+LIBRARY_CTC_KERNELS = {"ctc_alpha": "ctc_loss_log_alpha_gpu_kernel",
+                       "ctc_beta": "ctc_loss_backward_log_beta_gpu_kernel"}
+
+
+def ctc_device_phase(seed, rows):
+    """Device time per launch (torch.profiler) of rows 7 and 8 at the train
+    step's shape and at LibriSpeech's ceiling, on the loss's operands; each
+    wrapper call must run exactly its one kernel, within [0.7, 1.1] x the
+    queued events' time (`checked_device_ms`). Beside each: F.ctc_loss's
+    own lattice kernel on the same lattice, picked by name from a profile of
+    its forward (alpha) or forward + backward (beta). Adds device_ms,
+    queued_ms, step_us, library_device_ms, library_kernel, bound_share, the
+    variant and the same at the ceiling (`ceiling`) to the rows. Run after
+    every timed phase, as kernel_device_phase."""
+    import torch.nn.functional as F
+
+    from onebit_asr_tpu_torch.ops import ctc_lattice as cl
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)  # the path and ceiling cases of ctc_kernel_phase
+    for label, args in (("path", (48, 256, 48, 5004, 255)), ("ceiling", (16, 512, 228, 5004, 400))):
+        c = _lattice_case(rng, *args, dev)
+        B, T, S = c["emit"].shape
+        plan = cl.launch_plan(S)
+        t_bytes, t_ops = _lattice_bound(c)
+        bound = max(t_bytes, t_ops)
+        lp = torch.log_softmax(c["logits"], -1).transpose(0, 1).contiguous()  # [T, B, V]
+
+        def library(backward):
+            x = lp.detach().requires_grad_(backward)
+            loss = F.ctc_loss(x, c["labels"], c["lens"], c["label_lens"], blank=3,
+                              reduction="none")
+            if backward:
+                loss.sum().backward()
+
+        lib_per = {"ctc_alpha": device_ms(lambda: library(False), iters=10, per_kernel=True)[1],
+                   "ctc_beta": device_ms(lambda: library(True), iters=10, per_kernel=True)[1]}
+        for name, fn, init in (("ctc_alpha", cl.ctc_alpha, "alpha0"),
+                               ("ctc_beta", cl.ctc_beta, "beta0")):
+            ops = (c["emit"], c["lens"], c["skip"], c[init])
+            ms, _, q_ms = checked_device_ms(f"{name} {label}", lambda: fn(*ops),
+                                            (CTC_KERNELS[name],))
+            lib_names = [k for k in lib_per[name] if LIBRARY_CTC_KERNELS[name] in k]
+            lib_ms = lib_per[name][lib_names[0]] if len(lib_names) == 1 else None
+            lib_name = None  # its name from the kernel's own on, without the arguments
+            if len(lib_names) == 1:
+                tail = lib_names[0][lib_names[0].index(LIBRARY_CTC_KERNELS[name]):]
+                lib_name = tail.split(">(")[0] + ">" if ">(" in tail else tail.split("(")[0]
+            entry = {"device_ms": ms, "queued_ms": q_ms, "step_us": ms / (T - 1) * 1e3,
+                     "bound_ms": bound, "bound_share": bound / ms,
+                     "library_device_ms": lib_ms, "library_kernel": lib_name,
+                     "states_per_lane": plan["states_per_lane"], "warps": plan["warps"],
+                     "smem_bytes": plan["smem"]}
+            log(f"kernel device {name} {label} B={B} T={T} S={S}: device_ms={ms:.5f} per launch "
+                f"(queued events {q_ms:.5f}; {ms / (T - 1) * 1e3:.4f} us a step over {T - 1} "
+                f"steps) bound_ms={bound:.5f} (bytes {t_bytes:.5f}, f32 {t_ops:.6f}) "
+                f"bound_share={bound / ms:.4f} library_device_ms="
+                + (f"{lib_ms:.5f} ({lib_name})" if lib_ms is not None else
+                   f"none (no single {LIBRARY_CTC_KERNELS[name]} among "
+                   f"{[k[:60] for k in lib_per[name]]})")
+                + f" variant: {plan['states_per_lane']} states a lane, {plan['warps']} warps an "
+                f"utterance, {plan['smem']} B shared")
+            if label == "path":
+                rows[name].update(entry)
+            else:
+                rows[name]["ceiling"] = {"B": B, "T": T, "S": S, **entry}
 
 
 @contextlib.contextmanager
@@ -1748,6 +1842,7 @@ def main(argv=None) -> int:
     kernel_device_phase(cfg, t_pad, args.seed, rows)
     subsample_device_phase(cfg, frames, args.seed, rows)
     attention_device_phase(cfg, t_pad, t_sub, args.seed, rows)
+    ctc_device_phase(args.seed, rows)
     for what, fn, top in profiles if args.profile else ():
         log(f"profile of {what}:")
         profile_breakdown(fn, top)

@@ -66,9 +66,11 @@ SIGNATURES = {
     "fused_subsample_bwd_workspace": (_I, _I, _I, _I),
     # B, T, F, C, out[15] (the passes' tilings, CTAs, shared bytes; workspace)
     "fused_subsample_plan": (_I, _I, _I, _I, _P),
-    # emit, lens, skip, init, out, B, T, S, device, stream
-    "ctc_alpha_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ctc_beta_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # emit, lens, lens_64 (int64 lengths: 1), skip, init, out, B, T, S, device, stream
+    "ctc_alpha_fwd": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ctc_beta_bwd": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    # S, out[3] (states a lane, warps an utterance, shared bytes)
+    "ctc_lattice_plan": (_I, _P),
 }
 # entries that return something other than a CUDA error code
 RESTYPES = {"fused_subsample_bwd_workspace": ctypes.c_longlong}

@@ -20,15 +20,21 @@ Layout: the port takes the emissions and returns the lattice as [B, T, S]
 (batch-major, as `_emissions` gathers them), not the TPU kernels' [T, B, S]:
 that skips a transpose of the emissions and of each lattice. Otherwise the
 signatures are JAX's: emit f32, logit lengths [B] int, the skip mask [B, S]
-(bool or float, > 0 = may skip from s-2) and the init row [B, S] f32.
+(bool, uint8 or float, > 0 = may skip from s-2) and the init row [B, S] f32.
 
 The wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises: there is no size limit of the TPU
-kind (fits_vmem) and no fallback. Each wrapper counts its launches in
-`<wrapper>.launches`.
+kind (fits_vmem) and no fallback. The kernel reads int32 or int64 lengths
+and a bool or uint8 mask as they are, so on the operands that
+losses/ctc.py passes (int64 lengths, a bool mask, contiguous) a call
+allocates the lattice and launches one kernel, nothing else; other integer
+lengths and other masks (float: > 0 = may skip) are converted first. Each
+wrapper counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,8 +42,10 @@ from onebit_asr_tpu_torch.ops import _build
 from onebit_asr_tpu_torch.ops.ternary_matmul import _cuda_launch_args
 
 NEG_INF = -1e30
-# two f32 rows of the lattice in shared memory (csrc/ctc_lattice.cu)
-MAX_STATES = 227 * 1024 // 8
+# the largest variant of csrc/ctc_lattice.cu: 32 states a lane on 16 warps
+MAX_STATES = 16384
+# csrc/ctc_lattice.cu::ctc_lattice_plan's outputs
+PLAN_KEYS = ("states_per_lane", "warps", "smem")
 
 
 def _check_operands(emit, logit_lens, can_skip, init):
@@ -108,22 +116,32 @@ def ctc_beta_reference(emit, logit_lens, can_skip, init):
     return torch.stack(rows[::-1], dim=1)
 
 
+def launch_plan(S) -> dict:
+    """The variant that takes S states (needs the kernel library, CUDA):
+    states a lane, warps an utterance (one block each) and the block's
+    dynamic shared bytes (the emission ring and the warp-boundary slots)."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _build.check(_build.library().ctc_lattice_plan(S, out), "ctc_lattice_plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
 def _launch(entry, wrapper, emit, logit_lens, can_skip, init):
     device, stream = _cuda_launch_args(emit, logit_lens, can_skip, init)
     B, T, S = emit.shape
     if S > MAX_STATES:
-        raise ValueError(f"{entry}: S={S} states exceed the {MAX_STATES} whose two lattice rows "
-                         "fit one block's shared memory")
-    emit = emit.contiguous()
-    lens = logit_lens.to(torch.int32).contiguous()
-    skip = (can_skip > 0).to(torch.uint8).contiguous()
-    init = init.contiguous()
+        raise ValueError(f"{entry}: S={S} states exceed the {MAX_STATES} of the largest "
+                         "kernel variant")
+    lens = logit_lens if logit_lens.dtype in (torch.int32, torch.int64) else logit_lens.to(
+        torch.int32)
+    skip = can_skip if can_skip.dtype in (torch.bool, torch.uint8) else (can_skip > 0).to(
+        torch.uint8)
+    emit, lens, skip, init = (t.contiguous() for t in (emit, lens, skip, init))
     out = torch.empty((B, T, S), dtype=torch.float32, device=emit.device)
     if B == 0:
         return out
     err = getattr(_build.library(), entry)(
-        emit.data_ptr(), lens.data_ptr(), skip.data_ptr(), init.data_ptr(), out.data_ptr(),
-        B, T, S, device, stream,
+        emit.data_ptr(), lens.data_ptr(), int(lens.dtype == torch.int64), skip.data_ptr(),
+        init.data_ptr(), out.data_ptr(), B, T, S, device, stream,
     )
     _build.check(err, entry)
     wrapper.launches += 1

@@ -185,3 +185,18 @@ def test_wrappers_do_not_count_cpu_calls():
     cl.ctc_beta(*_port(emit, lens, skip, beta0))
     assert (cl.ctc_alpha.launches, cl.ctc_beta.launches) == before
     assert not os.environ.get("ONEBIT_CTC_PALLAS_FORCE_INTERPRET")
+
+
+def test_plain_lattices_take_every_length_and_mask_dtype():
+    """The operand forms the kernels read as they are (int32 and int64
+    lengths; bool and uint8 masks) and the float mask the wrapper converts
+    give the same lattice bits as the int32 / bool reference form."""
+    logits, lens, labels, label_lens = (torch.from_numpy(x) for x in _case(2, B=3, T=12, U=4))
+    z, skip = tctc._extended_targets(labels.long(), BLANK)
+    emit, _ = tctc._emissions(logits, z)
+    alpha0 = tctc._alpha0_of(emit, label_lens)
+    beta0 = torch.where(torch.arange(z.shape[1]) == 2 * label_lens[:, None], 0.0, cl.NEG_INF)
+    for fn, init in ((cl.ctc_alpha, alpha0), (cl.ctc_beta, beta0)):
+        ref = fn(emit, lens, skip, init)
+        for ll, sk in ((lens.long(), skip), (lens, skip.to(torch.uint8)), (lens, skip.float())):
+            assert torch.equal(fn(emit, ll, sk, init), ref), (ll.dtype, sk.dtype)

@@ -28,9 +28,10 @@ match the plain backward applied to the kernel's own gm, dx/dw1/db1 within
 one bf16 ulp of the element plus one of the largest (a dpat element may
 round the other way), dw2/db2 within 1e-4 (|ref| + max|ref|) (f32 sums of
 the same products in another order); two launches give the same bits. The CTC
-lattice kernels run the plain versions' f32 recursion in the same order:
-their NEG_INF entries (<= -5e29) must match as a pattern and the finite ones
-within 1e-5 relative (+1e-5), expf/logf of two builds aside.
+lattice kernels run the plain versions' f32 recursion in the same order with
+the same expf/logf: equal bit for bit (NEG_INF entries included), and, as a
+second check, NEG_INF entries (<= -5e29) matching as a pattern and the
+finite ones within 1e-5 relative (+1e-5).
 """
 
 import numpy as np
@@ -911,25 +912,115 @@ def _assert_lattice_close(out, ref):
     assert bool((d <= 1e-5 * ref.abs()[~neg] + 1e-5).all()), d.max().item()
 
 
-@pytest.mark.parametrize("T", [1, 37, 512])
-@pytest.mark.parametrize("S", [3, 97, 457, 1025])
+def _assert_lattice_exact(out, ref):
+    assert torch.equal(out, ref), (out != ref).sum().item()
+    _assert_lattice_close(out, ref)
+
+
+LATTICES = ((cl.ctc_alpha, cl.ctc_alpha_reference, 3), (cl.ctc_beta, cl.ctc_beta_reference, 4))
+
+
+def _lattice_operands_s(B, T, S, seed, device):
+    """`_lattice_operands` at any S (those of 2 (S // 2) + 1 states cut to
+    S, so even S too), with row 3 of length 1 and row 4 longer than T."""
+    ops = _lattice_operands(B, T, S // 2, seed, device)
+    emit, lens, skip, alpha0, beta0 = (x[..., :S].contiguous() if x.dim() > 1 else x
+                                       for x in ops)
+    lens[3], lens[4] = 1, T + 3
+    return emit, lens, skip, alpha0, beta0
+
+
+# csrc/ctc_lattice.cu's variants: 1 state a lane on up to 32 warps (S <=
+# 1024; 97 is the train step's S, 457 LibriSpeech's ceiling), 32 on up to
+# 16 (S <= 16384); S on every warp and variant boundary
+VARIANT_S = [1, 2, 3, 31, 32, 33, 63, 64, 65, 97, 127, 128, 129, 457, 1023, 1024, 1025,
+             4095, 4096, 4097, 8193, 16383, 16384]
+
+
+@pytest.mark.parametrize("T", [1, 2, 37, 512])
+@pytest.mark.parametrize("S", VARIANT_S)
 def test_ctc_lattice_kernels_match_plain(cuda, S, T):
-    emit, lens, skip, alpha0, beta0 = _lattice_operands(5, T, (S - 1) // 2, S + T, cuda)
-    for fn, plain, init in ((cl.ctc_alpha, cl.ctc_alpha_reference, alpha0),
-                            (cl.ctc_beta, cl.ctc_beta_reference, beta0)):
+    """Both kernels equal their plain versions bit for bit, one launch a
+    call, with lengths 1, T and > T, label length 0 and a row too short for
+    its labels."""
+    ops = _lattice_operands_s(6, T, S, S * 7 + T, cuda)
+    for fn, plain, i in LATTICES:
         before = fn.launches
-        out = fn(emit, lens, skip, init)
+        out = fn(*ops[:3], ops[i])
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        _assert_lattice_close(out, plain(emit, lens, skip, init))
+        _assert_lattice_exact(out, plain(*ops[:3], ops[i]))
+
+
+@pytest.mark.parametrize("S", [25, 97, 457])
+def test_ctc_lattice_kernels_take_every_length_and_mask_dtype(cuda, S):
+    """int32 and int64 lengths and bool, uint8 and float masks: the same
+    bits as the plain version, one launch a call."""
+    emit, lens, skip, alpha0, beta0 = _lattice_operands_s(6, 37, S, S, cuda)
+    for fn, plain, i in LATTICES:
+        init = (alpha0, beta0)[i - 3]
+        ref = plain(emit, lens, skip, init)
+        for ll in (lens, lens.to(torch.int32)):
+            for sk in (skip, skip.to(torch.uint8), skip.float()):
+                before = fn.launches
+                _assert_lattice_exact(fn(emit, ll, sk, init), ref)
+                assert fn.launches == before + 1, (ll.dtype, sk.dtype)
+
+
+@pytest.mark.parametrize("S", [25, 97, 457, 8193])
+def test_ctc_lattice_kernels_give_the_same_bits_twice(cuda, S):
+    ops = _lattice_operands_s(6, 64, S, 3, cuda)
+    for fn, _, i in LATTICES:
+        assert torch.equal(fn(*ops[:3], ops[i]), fn(*ops[:3], ops[i]))
+
+
+def test_ctc_lattice_call_is_one_kernel(cuda):
+    """On the loss's operands (int64 lengths, a bool mask) a wrapper call is
+    one device kernel and nothing else: no conversion launch. The profiler
+    can drop an event of a session (here it dropped one of 6 every time
+    after the file's earlier tests), so the kernels per call are read as
+    the difference between sessions of 6 and 3 calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = _lattice_operands_s(6, 64, 97, 2, cuda)
+    assert ops[1].dtype == torch.int64 and ops[2].dtype == torch.bool
+
+    def kernels(fn, init, calls):
+        fn(*ops[:3], init)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*ops[:3], init)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert names and all(fn.__name__ + "_kernel" in n for n in names), names
+        return len(names)
+
+    for fn, _, i in LATTICES:
+        for _ in range(5):  # the drops may differ between the two sessions: take both again
+            per_call = (kernels(fn, ops[i], 6) - kernels(fn, ops[i], 3)) / 3
+            if per_call == 1:
+                break
+        assert per_call == 1, per_call
+
+
+def test_ctc_lattice_plan_picks_the_variant(cuda):
+    assert cl.launch_plan(97) == {"states_per_lane": 1, "warps": 4, "smem": 8 * 128 * 4 + 64}
+    assert cl.launch_plan(457)["warps"] == 15
+    assert cl.launch_plan(1025) == {"states_per_lane": 32, "warps": 2, "smem": 3 * 2048 * 4 + 32}
+    assert cl.launch_plan(cl.MAX_STATES) == {"states_per_lane": 32, "warps": 16,
+                                             "smem": 3 * 16384 * 4 + 16 * 16}
+    with pytest.raises(RuntimeError):
+        cl.launch_plan(cl.MAX_STATES + 1)
 
 
 def test_ctc_lattice_kernels_beyond_4096_states(cuda):
-    """S = 8193: 32 states a thread and 64 KB of shared memory."""
+    """S = 8193: 32 states a lane on 9 warps, a ring 3 rows deep."""
     emit, lens, skip, alpha0, beta0 = _lattice_operands(2, 20, 4096, 7, cuda)
-    _assert_lattice_close(cl.ctc_alpha(emit, lens, skip, alpha0),
+    _assert_lattice_exact(cl.ctc_alpha(emit, lens, skip, alpha0),
                           cl.ctc_alpha_reference(emit, lens, skip, alpha0))
-    _assert_lattice_close(cl.ctc_beta(emit, lens, skip, beta0),
+    _assert_lattice_exact(cl.ctc_beta(emit, lens, skip, beta0),
                           cl.ctc_beta_reference(emit, lens, skip, beta0))
 
 
@@ -942,6 +1033,9 @@ def test_ctc_lattice_kernels_refuse_what_they_do_not_take(cuda):
                 fn(bad, lens, skip, alpha0)
         with pytest.raises(RuntimeError):  # split devices
             fn(emit, lens.cpu(), skip, alpha0)
+        S = cl.MAX_STATES + 1
+        with pytest.raises(ValueError):
+            fn(emit.new_zeros(1, 2, S), lens[:1], skip.new_zeros(1, S), emit.new_zeros(1, S))
         assert fn.launches == before
 
 
