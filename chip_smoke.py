@@ -6,7 +6,8 @@
 Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
-3-branch QAT train step of the same model:
+3-branch QAT train step of the same model and the train CLI, then serves and
+evaluates the runs the train CLI wrote:
 
 1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
    started together, then one link) and prints the time and each kernel's
@@ -32,7 +33,7 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    the port's unfused attention chain (`library_ms`, a yardstick only: it
    rounds the scores to bf16; no single PyTorch call has the skewed
    position term);
-3. path: the transcribe CLI runs end to end on the bf16 kernel, with
+3. path: the transcribe CLI (--packed) runs end to end on the bf16 kernel, with
    --int8_act, with a config that sets fused_subsampler, and with one that
    sets fused_attention and fused_subsampler; each run must launch its
    packed kernel 108 times per batch (9 packed projections x 12 blocks), the
@@ -146,7 +147,33 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
    a lane, warps an utterance) and, as `library_device_ms`, the device time
    of F.ctc_loss's own lattice kernel on the same lattice (its log-alpha
    kernel in the forward, its log-beta kernel in the backward, picked by
-   name from the same profile; the port never calls it).
+   name from the same profile; the port never calls it);
+13. serve the trained runs (run right after step 8, before the device
+   steps 9-12: it times host-bound loops, which a finished profiler run
+   slows): the runs step 8 wrote (Conformer-M at full width, the synthetic
+   backend's vocabulary of 32; "smoke" unfused, "smoke_fs_fa" with both
+   fused flags) are restored from their checkpoints and served on step 3's
+   8 waveforms through `transcribe --checkpoint`: packed at precision 2 and
+   1, with --int8_act and under the fused flags, each launching its packed
+   kernel 108 times a batch (and the fused kernels once and 12 times), its
+   ids equal to `Transcriber`'s on `jax_tree_from_state_dict` of the
+   restored parameters; unpacked (the QAT model) at precision 32, 2 and 1
+   under the fused flags, its CTC log-probs held against the same model on
+   the plain versions at step 3's tolerances (mean |d| <= 0.05, argmax
+   agreement >= 0.9); with --beam_size 10, with and without a 3-gram LM.
+   The device beam is held against the native host beam on the same f32
+   log-probs, beam 10, with and without a 3-gram LM fitted on seeded id
+   sequences, for the trained run and for step 3's random Conformer-M with
+   its vocabulary of 5,004 (`beam_agreement` states how a tie is told from
+   a bug); greedy, beam 10 and beam 10 + LM are timed per batch (B=8,
+   T'=398 padded to 512) with CUDA events. One 75 s waveform is served
+   --longform in 30 s windows overlapping by 4 s (3 windows), its stitched
+   log-probs held against the plain path at step 3's tolerances. `python -m
+   onebit_asr_tpu_torch.eval --checkpoint --dummy_data` runs greedy, with
+   the beam and --packed, printing loss, WER and CER per precision, with
+   the CTC alpha kernel once per batch and precision. The device kernels
+   and copies of one batch of each decode mode are counted with
+   torch.profiler at the end.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -514,17 +541,31 @@ def _own_kernels(what, per, keys):
     return {key: v[0] for key, v in by_key.items()}
 
 
-def checked_device_ms(what, fn, keys, iters: int = 20):
-    """(device ms per call, {key: ms}) of a wrapper call that must run one
-    kernel for each of `keys` and nothing else; raises unless the profiler's
-    sum lies within [0.7, 1.1] x the queued events' time of the same call."""
-    ms, per = device_ms(fn, iters=iters, per_kernel=True)
-    parts = _own_kernels(what, per, keys)
-    q_ms = queued_ms(fn, iters=iters)
-    if not 0.7 * q_ms <= ms <= 1.1 * q_ms:
-        raise AssertionError(f"{what}: profiler device_ms {ms:.5f} disagrees with the queued "
-                             f"events' {q_ms:.5f} ms per call")
-    return ms, parts, q_ms
+def checked_device_ms(what, fn, keys, iters: int = 20, tries: int = 3):
+    """(device ms per call, {key: ms}, queued ms) of a wrapper call that must
+    run one kernel for each of `keys` and nothing else; raises unless the
+    profiler's sum lies within [0.7, 1.1] x the queued events' time of the
+    same call. Both are taken after a spin of the card, so that it runs at
+    its load clock. A pair that disagrees (one profiled launch delayed by
+    something outside the call is enough at ten calls) is logged and both
+    are taken again; it raises after `tries` such pairs, and only a pair that
+    agrees is returned."""
+    seen = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 24)
+        ms, per = device_ms(fn, iters=iters, per_kernel=True)
+        parts = _own_kernels(what, per, keys)
+        q_ms = queued_ms(fn, iters=iters)
+        if 0.7 * q_ms <= ms <= 1.1 * q_ms:
+            return ms, parts, q_ms
+        pair = (f"profiler device_ms {ms:.5f} ("
+                + " ".join(f"{k}={v:.5f}" for k, v in parts.items())
+                + f") vs queued events' {q_ms:.5f} ms per call")
+        log(f"{what}: {pair}: disagree, measured again")
+        seen.append(pair)
+    raise AssertionError(f"{what}: the profiler disagrees with the queued events in each of "
+                         f"{tries} tries: " + "; ".join(seen))
 
 
 def attention_device_phase(cfg, t_pad, t_valid, seed, rows):
@@ -1089,6 +1130,23 @@ def pcm16(w: np.ndarray) -> np.ndarray:
     return (np.clip(w, -1, 1) * 32767).astype(np.int16)
 
 
+def write_wavs(directory, wavs, names=None):
+    """16-bit PCM mono wavs at 16 kHz, `utt<i>.wav` unless `names` given."""
+    os.makedirs(directory)
+    for i, w in enumerate(wavs):
+        name = names[i] if names else f"utt{i}"
+        with wave.open(os.path.join(directory, f"{name}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(SAMPLE_RATE)
+            f.writeframes(pcm16(w).tobytes())
+
+
+def write_cmvn(directory, cmvn):
+    os.makedirs(directory)
+    np.savez(os.path.join(directory, "cmvn_stats.npz"), mean=cmvn[0], std=cmvn[1])
+
+
 def write_inputs(root, configs, params, wavs, cmvn):
     """The CLI's inputs: params .npz, one config.json per entry of
     `configs` ({name: ModelConfig}), cmvn, 16-bit PCM wavs."""
@@ -1101,15 +1159,8 @@ def write_inputs(root, configs, params, wavs, cmvn):
         paths[name] = os.path.join(root, f"{name}.json")
         with open(paths[name], "w") as f:
             f.write(config_to_json(TrainConfig(model=cfg)))
-    os.makedirs(paths["data"])
-    np.savez(os.path.join(paths["data"], "cmvn_stats.npz"), mean=cmvn[0], std=cmvn[1])
-    os.makedirs(paths["wavs"])
-    for i, w in enumerate(wavs):
-        with wave.open(os.path.join(paths["wavs"], f"utt{i}.wav"), "wb") as f:
-            f.setnchannels(1)
-            f.setsampwidth(2)
-            f.setframerate(SAMPLE_RATE)
-            f.writeframes(pcm16(w).tobytes())
+    write_cmvn(paths["data"], cmvn)
+    write_wavs(paths["wavs"], wavs)
     return paths
 
 
@@ -1119,6 +1170,21 @@ def pad_batch(wavs):
     for i, w in enumerate(wavs):
         batch[i, : len(w)] = w
     return batch, lens
+
+
+def pcm_batch(wavs):
+    """The waveforms as the CLI reads them (16-bit PCM), padded into one
+    batch: both paths see one input."""
+    return pad_batch([pcm16(w).astype(np.float32) / 32768.0 for w in wavs])
+
+
+def cmvn_of(batch, lens):
+    """(mean, std) per mel bin over the valid frames of a batch."""
+    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend
+
+    feats, flens = LogMelFrontend()(torch.from_numpy(batch).cuda(), torch.from_numpy(lens).cuda())
+    v = feats[torch.arange(feats.shape[1], device="cuda")[None] < flens[:, None]]
+    return v.mean(0).cpu().numpy(), v.std(0).clamp(min=1e-8).cpu().numpy()
 
 
 def _use_plain(model, int8_act):
@@ -1198,16 +1264,10 @@ def path_phase(cfg, params, wavs, rows):
     from onebit_asr_tpu_torch.ops import attention as fa
     from onebit_asr_tpu_torch.ops import subsampler as ss
     from onebit_asr_tpu_torch.ops import ternary_matmul as tm
-    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend
     from onebit_asr_tpu_torch.utils.config import TrainConfig
 
-    # the CLI reads 16-bit PCM: quantize here too, so both paths see one input
-    batch, lens = pad_batch([pcm16(w).astype(np.float32) / 32768.0 for w in wavs])
-    fe = LogMelFrontend()
-    feats, flens = fe(torch.from_numpy(batch).cuda(), torch.from_numpy(lens).cuda())
-    valid = torch.arange(feats.shape[1], device="cuda")[None] < flens[:, None]
-    v = feats[valid]
-    cmvn = (v.mean(0).cpu().numpy(), v.std(0).clamp(min=1e-8).cpu().numpy())
+    batch, lens = pcm_batch(wavs)
+    cmvn = cmvn_of(batch, lens)
 
     kernels = {"ternary_matmul_bf16": tm.ternary_matmul,
                "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
@@ -1243,7 +1303,7 @@ def path_phase(cfg, params, wavs, rows):
         def argv(config, extra, out):
             return ["--params", paths["params.npz"], "--config", paths[config],
                     "--wav_dir", paths["wavs"], "--data_dir", paths["data"],
-                    "--batch_size", str(BATCH), "--out", out, *extra]
+                    "--batch_size", str(BATCH), "--out", out, "--packed", *extra]
 
         for label, config, extra, want in runs:
             out = os.path.join(root, f"hyp_{label}.tsv")
@@ -1696,81 +1756,376 @@ def train_step_phase(cfg, seed, rows, kernels):
              5)]
 
 
-def train_cli_phase(kernels):
+def train_cli_phase(kernels, root):
     """The training CLI at Conformer-M widths on the synthetic backend: two
-    epochs as a program, then a third with --resume in this process."""
+    epochs as a program, then a third with --resume in this process; the
+    runs stay under `root` for step 13."""
     from onebit_asr_tpu_torch.cli import train as tcli
 
-    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
-    os.makedirs(build_root, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_root) as root:
-        argv = ["--dummy_data", "--steps_per_epoch", "3", "--eval_batches", "1",
-                "--batch_size", "16", "--save_dir", root, "--run_name", "smoke",
-                "--device", DEVICE]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "onebit_asr_tpu_torch.train", "--epochs", "2", *argv],
-            cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
-            timeout=600)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"train CLI returned {proc.returncode}: {proc.stderr[-2000:]}")
-        run = os.path.join(root, "smoke")
-        for f in ("config.json", "metrics.jsonl", "ckpt/step_6.pt", "ckpt_best"):
-            if not os.path.exists(os.path.join(run, f)):
-                raise AssertionError(f"train CLI wrote no {f}")
-        for line in proc.stdout.splitlines():
-            log(f"train cli: {line}")
-        log(f"train cli: rc=0 wall_s={wall:.2f} (process start, build load, init, 6 steps, "
-            f"2 evaluations at 32/2/1 bits, checkpoints)")
+    argv = ["--dummy_data", "--steps_per_epoch", "3", "--eval_batches", "1",
+            "--batch_size", "16", "--save_dir", root, "--run_name", "smoke",
+            "--device", DEVICE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "onebit_asr_tpu_torch.train", "--epochs", "2", *argv],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train CLI returned {proc.returncode}: {proc.stderr[-2000:]}")
+    run = os.path.join(root, "smoke")
+    for f in ("config.json", "metrics.jsonl", "ckpt/step_6.pt", "ckpt_best"):
+        if not os.path.exists(os.path.join(run, f)):
+            raise AssertionError(f"train CLI wrote no {f}")
+    for line in proc.stdout.splitlines():
+        log(f"train cli: {line}")
+    log(f"train cli: rc=0 wall_s={wall:.2f} (process start, build load, init, 6 steps, "
+        f"2 evaluations at 32/2/1 bits, checkpoints)")
+    for fn in kernels.values():
+        fn.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tcli.main(["--epochs", "3", "--resume", *argv])
+    counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"train cli resume: {line}")
+    # 3 steps (alpha + beta) and 3 precisions x 1 eval batch (alpha)
+    want = {"ctc_alpha": 6, "ctc_beta": 3}
+    if rc != 0 or "resumed at step 6 (epoch 2)" not in text or counts != want:
+        raise AssertionError(f"train CLI --resume: rc={rc} launches {counts}, want {want}")
+    if not os.path.exists(os.path.join(run, "ckpt", "step_9.pt")):
+        raise AssertionError("train CLI --resume saved no step 9")
+    log(f"train cli resume: rc=0 continued from step 6 to 9, launches={counts}")
+
+    # one epoch under --fused_attention, then one under both fused flags:
+    # 3 steps x 3 branches (the subsampler) x L blocks (the attention),
+    # forward and backward, and 3 evaluation forwards (32/2/1 bits)
+    from onebit_asr_tpu_torch.utils.config import ModelConfig
+
+    L = ModelConfig().enc_layers
+    attention = {"fused_relpos_attention": 9 * L + 3 * L, "fused_relpos_attention_bwd": 9 * L}
+    for flags, name, want in (
+            (["--fused_attention"], "smoke_fa", attention),
+            (["--fused_subsampler", "--fused_attention"], "smoke_fs_fa",
+             {**attention, "fused_subsample": 9 + 3, "fused_subsample_bwd": 9})):
+        what = " ".join(f.lstrip("-") for f in flags)
+        want = {"ctc_alpha": 6, "ctc_beta": 3, **want}
         for fn in kernels.values():
             fn.launches = 0
         out = io.StringIO()
+        t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = tcli.main(["--epochs", "3", "--resume", *argv])
+            rc = tcli.main(["--epochs", "1", *flags, *argv[:argv.index("--run_name")],
+                            "--run_name", name, "--device", DEVICE])
+        wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-        text = out.getvalue()
-        for line in text.splitlines():
-            log(f"train cli resume: {line}")
-        # 3 steps (alpha + beta) and 3 precisions x 1 eval batch (alpha)
-        want = {"ctc_alpha": 6, "ctc_beta": 3}
-        if rc != 0 or "resumed at step 6 (epoch 2)" not in text or counts != want:
-            raise AssertionError(f"train CLI --resume: rc={rc} launches {counts}, want {want}")
-        if not os.path.exists(os.path.join(run, "ckpt", "step_9.pt")):
-            raise AssertionError("train CLI --resume saved no step 9")
-        log(f"train cli resume: rc=0 continued from step 6 to 9, launches={counts}")
+        for line in out.getvalue().splitlines():
+            log(f"train cli {what}: {line}")
+        run = os.path.join(root, name)
+        if rc != 0 or counts != want or not os.path.exists(os.path.join(run, "ckpt",
+                                                                         "step_3.pt")):
+            raise AssertionError(f"train CLI {' '.join(flags)}: rc={rc} launches {counts}, "
+                                 f"want {want}")
+        log(f"train cli {what}: rc=0 wall_s={wall:.2f} (in process: init, 3 steps, "
+            f"1 evaluation at 32/2/1 bits, checkpoint) launches={counts}")
 
-        # one epoch under --fused_attention, then one under both fused flags:
-        # 3 steps x 3 branches (the subsampler) x L blocks (the attention),
-        # forward and backward, and 3 evaluation forwards (32/2/1 bits)
-        from onebit_asr_tpu_torch.utils.config import ModelConfig
 
-        L = ModelConfig().enc_layers
-        attention = {"fused_relpos_attention": 9 * L + 3 * L, "fused_relpos_attention_bwd": 9 * L}
-        for flags, name, want in (
-                (["--fused_attention"], "smoke_fa", attention),
-                (["--fused_subsampler", "--fused_attention"], "smoke_fs_fa",
-                 {**attention, "fused_subsample": 9 + 3, "fused_subsample_bwd": 9})):
-            what = " ".join(f.lstrip("-") for f in flags)
-            want = {"ctc_alpha": 6, "ctc_beta": 3, **want}
-            for fn in kernels.values():
-                fn.launches = 0
-            out = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                rc = tcli.main(["--epochs", "1", *flags, *argv[:argv.index("--run_name")],
-                                "--run_name", name, "--device", DEVICE])
-            wall = time.perf_counter() - t0
-            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-            for line in out.getvalue().splitlines():
-                log(f"train cli {what}: {line}")
-            run = os.path.join(root, name)
-            if rc != 0 or counts != want or not os.path.exists(os.path.join(run, "ckpt",
-                                                                             "step_3.pt")):
-                raise AssertionError(f"train CLI {' '.join(flags)}: rc={rc} launches {counts}, "
-                                     f"want {want}")
-            log(f"train cli {what}: rc=0 wall_s={wall:.2f} (in process: init, 3 steps, "
-                f"1 evaluation at 32/2/1 bits, checkpoint) launches={counts}")
+
+SERVE_BEAM = 10
+SERVE_LM_WEIGHT = 0.3
+TIE_JITTER = 2.0 ** -12  # of a log-prob: breaks exact ties, far below any real gap
+TIE_NATS = 1e-3  # relative: two hypotheses' fused scores this close are a tie
+LONG_SECONDS = 75.0
+
+
+def _hyps(path):
+    """{utt_id: [ids]} of a transcribe output written without a tokenizer."""
+    with open(path) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    return {u: [int(x) for x in text.split()] for u, text in rows}
+
+
+def _lm_for(vocab, seed):
+    """A 3-gram LM fitted on seeded id sequences over the vocabulary's
+    subword ids [4, vocab)."""
+    from onebit_asr_tpu_torch.decode.lm import NGramLM
+
+    rng = np.random.default_rng(seed)
+    return NGramLM(3).fit([rng.integers(4, vocab, size=rng.integers(5, 40)).tolist()
+                           for _ in range(500)])
+
+
+def fused_score(lp, h, lm, lm_weight, blank_id=3):
+    """log P_ctc(h | lp) through the plain lattice (every alignment, on the
+    host) + lm_weight * log P_LM(h): the score a prefix beam approximates."""
+    from onebit_asr_tpu_torch.losses.ctc import ctc_neg_log_likelihood
+
+    labels = torch.tensor([h or [0]])
+    nll = ctc_neg_log_likelihood(lp[None], torch.tensor([lp.shape[0]]), labels,
+                                 torch.tensor([len(h)]), blank_id)
+    lm_part = sum(lm.score(h[:i], c) for i, c in enumerate(h)) if lm is not None else 0.0
+    return -float(nll[0]) + lm_weight * lm_part
+
+
+def beam_agreement(what, lp, lens, lm, dlm):
+    """The device beam (beam_search_device, on the card) against the native
+    host beam (C++, on the same f32 log-probs copied to the host), beam 10,
+    with `lm` (and its device tables `dlm`) or without (both None),
+    top-k 20, max_len T' (every frame may emit). Equal log-probs are common
+    here (bf16 logits), and the two beams break such ties differently:
+    torch's stable sort puts the lower index first, the C++ nth_element and
+    hash map in no fixed order. So where the hypotheses differ, the
+    difference counts as a tie when (a) both beams agree once every
+    log-prob is shifted by its own seeded jitter in [0, 2^-12) (no exact
+    ties left), or (b) the two hypotheses' fused scores through the plain
+    lattice (`fused_score`) lie within TIE_NATS relative of each other.
+    Anything else is a bug and raises. Prints how many differed and how
+    many were ties by (a) and by (b)."""
+    from onebit_asr_tpu_torch.decode import ctc_beam_search_batch
+    from onebit_asr_tpu_torch.decode.beam_device import beam_search_device
+
+    w = SERVE_LM_WEIGHT if lm is not None else 0.0
+    B = lp.shape[0]
+
+    def both(x):
+        ids, n = beam_search_device(x, lens, beam_size=SERVE_BEAM, max_len=x.shape[1], lm=dlm,
+                                    lm_weight=w)
+        ids, n = ids.cpu(), n.cpu()
+        dev = [ids[b, : n[b]].tolist() for b in range(B)]
+        host = ctc_beam_search_batch(x.cpu().numpy(), lens.cpu().numpy(), beam_size=SERVE_BEAM,
+                                     lm=lm, lm_weight=w)
+        return dev, host
+
+    dev, host = both(lp)
+    differ = [b for b in range(B) if dev[b] != host[b]]
+    ties_a, ties_b, gaps = [], [], []
+    if differ:
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        jitter = torch.rand(lp.shape, generator=gen, device=DEVICE) * TIE_JITTER
+        dev_j, host_j = both(lp + jitter)
+        for b in differ:
+            if dev_j[b] == host_j[b]:
+                ties_a.append(b)
+                continue
+            x = lp[b, : int(lens[b])].cpu()
+            s_dev, s_host = fused_score(x, dev[b], lm, w), fused_score(x, host[b], lm, w)
+            if abs(s_dev - s_host) > TIE_NATS * abs(s_host):
+                raise AssertionError(f"serve beam {what}: utterance {b}: device and host "
+                                     f"hypotheses differ past a tie (fused scores {s_dev:.4f} "
+                                     f"vs {s_host:.4f}; with jitter they still differ)")
+            ties_b.append(b)
+            gaps.append(f"{s_dev - s_host:+.4f} of {s_host:.1f}")
+    lengths = [len(h) for h in dev]
+    log(f"serve beam {what}: device vs native host beam (beam {SERVE_BEAM}, lm_weight {w}): "
+        f"{B - len(differ)}/{B} equal, {len(differ)} differed: {len(ties_a)} ties resolved by "
+        f"jitter, {len(ties_b)} ties by fused score (device - host: {', '.join(gaps) or '-'}); "
+        f"hypothesis lengths {lengths}")
+
+
+def _compare_frames(name, lp, lp_ref):
+    """mean/max |d log p| and argmax agreement of two [T, V] log-probs, at
+    step 3's tolerances."""
+    if lp.shape != lp_ref.shape or not bool(torch.isfinite(lp).all()):
+        raise AssertionError(f"{name}: log-probs {tuple(lp.shape)} vs {tuple(lp_ref.shape)}")
+    d = (lp - lp_ref).abs()
+    agree = (lp.argmax(-1) == lp_ref.argmax(-1)).float().mean().item()
+    log(f"serve {name}: frames={lp.shape[0]} logprob max|d|={d.max().item():.4g} "
+        f"mean|d|={d.mean().item():.4g} argmax_agree={agree:.4f}")
+    if d.mean().item() > 0.05 or agree < 0.9:
+        raise AssertionError(f"{name}: kernel path strays from the plain path")
+
+
+def serve_phase(root, kernels, seed):
+    """Step 13: serve and evaluate the runs step 8 trained (Conformer-M at
+    full width, vocabulary 32 of the synthetic backend) through the CLIs a
+    user calls, on the card; see the module docstring. Returns what to
+    count kernel launches of at the end: (label, one batch)."""
+    from onebit_asr_tpu_torch.cli import evaluate as ecli
+    from onebit_asr_tpu_torch.cli import transcribe as cli
+    from onebit_asr_tpu_torch.convert import init_params, jax_tree_from_state_dict
+    from onebit_asr_tpu_torch.decode.lm_device import DeviceLM
+    from onebit_asr_tpu_torch.model.presets import apply_preset
+    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend
+    from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
+    from onebit_asr_tpu_torch.utils.config import ModelConfig, TrainConfig
+
+    t_phase = time.perf_counter()
+    wavs = synthetic_waveforms(seed)
+    batch, lens = pcm_batch(wavs)
+    cmvn = cmvn_of(batch, lens)
+    inputs = os.path.join(root, "serve")
+    paths = {k: os.path.join(inputs, k) for k in ("wavs", "data", "long", "lm.npz")}
+    write_wavs(paths["wavs"], wavs)
+    write_cmvn(paths["data"], cmvn)
+    rng = np.random.default_rng(seed + 13)
+    secs = np.arange(int(LONG_SECONDS * SAMPLE_RATE)) / SAMPLE_RATE
+    long_wav = (0.05 * sum(np.sin(2 * np.pi * f * secs + rng.uniform(0, 6.3))
+                           for f in rng.uniform(100.0, 3000.0, size=4))
+                + 0.01 * rng.standard_normal(secs.shape)).astype(np.float32)
+    write_wavs(paths["long"], [long_wav], ["long"])
+
+    runs = {}
+    for name in ("smoke", "smoke_fs_fa"):
+        run_dir = os.path.join(root, name)
+        cfg = load_config(run_dir)
+        _, sd = restore_params(os.path.join(run_dir, "ckpt"))
+        runs[name] = (run_dir, cfg, jax_tree_from_state_dict(sd, cfg.model))
+    vocab = runs["smoke"][1].model.vocab_size
+    lm = _lm_for(vocab, seed)
+    lm.save(paths["lm.npz"])
+    L = 9 * runs["smoke"][1].model.enc_layers
+    blocks = runs["smoke"][1].model.enc_layers
+    fused = {"fused_subsample": 1, "fused_relpos_attention": blocks}
+
+    def transcribe(label, run, extra, want, wav_dir=paths["wavs"]):
+        out = os.path.join(inputs, f"hyp_{label.replace(' ', '_')}.tsv")
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--checkpoint", runs[run][0], "--wav_dir", wav_dir, "--data_dir",
+                       paths["data"], "--batch_size", str(BATCH), "--out", out,
+                       "--device", DEVICE, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        if rc != 0 or counts != want:
+            raise AssertionError(f"serve {label}: rc={rc} launches {counts}, want {want}")
+        hyps = _hyps(out)
+        log(f"serve cli {label}: transcribe --checkpoint {run} {' '.join(extra)}: rc=0 "
+            f"launches={counts} utterances={len(hyps)} wall_s={wall:.2f}")
+        return hyps
+
+    # the batch as the CLI makes it (length-sorted), so that the Transcriber
+    # sees the same rows in the same order (batch statistics)
+    fe = LogMelFrontend(runs["smoke"][1].frontend)
+    max_samples = fe.frame_len + (runs["smoke"][1].data.max_frames - 1) * fe.frame_shift
+    wb = next(cli._wav_dir_batches(paths["wavs"], BATCH, max_samples))
+
+    def same_ids(label, hyps, t):
+        ids, n = t.transcribe(wb["wavs"], wb["wav_lens"])
+        want = {u: ids[b, : n[b]].tolist() for b, u in enumerate(wb["utt_ids"])}
+        if hyps != want:
+            bad = [u for u in want if hyps.get(u) != want[u]]
+            raise AssertionError(f"serve {label}: CLI ids differ from the Transcriber's on "
+                                 f"{bad}")
+
+    # packed serving: each run's packed kernel 108 times a batch
+    for label, run, extra, precision, int8_act, want in (
+            ("packed p2", "smoke", [], 2, False, {"ternary_matmul_bf16": L}),
+            ("packed p1", "smoke", ["--precision", "1"], 1, False, {"ternary_matmul_bf16": L}),
+            ("packed int8", "smoke", ["--int8_act"], 2, True, {"ternary_matmul_w2a8": L}),
+            ("packed fused", "smoke_fs_fa", [], 2, False, {"ternary_matmul_bf16": L, **fused})):
+        hyps = transcribe(label, run, ["--packed", *extra], want)
+        _, cfg, tree = runs[run]
+        same_ids(label, hyps, cli.Transcriber(cfg, tree, precision, int8_act, cmvn, DEVICE))
+    log("serve packed: the CLI's ids equal Transcriber's on jax_tree_from_state_dict of the "
+        "restored parameters")
+
+    # unpacked serving: the QAT model; under the fused flags their kernels
+    transcribe("unpacked p2 unfused", "smoke", [], {})
+    for precision in (32, 2, 1):
+        label = f"unpacked p{precision}"
+        hyps = transcribe(label, "smoke_fs_fa", ["--precision", str(precision)], fused)
+        _, cfg, tree = runs["smoke_fs_fa"]
+        t = cli.Transcriber(cfg, tree, precision, cmvn=cmvn, device=DEVICE, packed=False)
+        same_ids(label, hyps, t)
+        lp, enc_lens = t.log_probs(wb["wavs"], wb["wav_lens"])
+        _use_plain(t.model, False)
+        lp_ref, _ = t.log_probs(wb["wavs"], wb["wav_lens"])
+        _, dmax, dmean, agree = _compare(label, lp, lp_ref, enc_lens, cfg.model.vocab_size,
+                                         cfg.model.time_pad_multiple)
+        log(f"serve {label}: vs the same QAT model on the plain versions: logprob "
+            f"max|d|={dmax:.4g} mean|d|={dmean:.4g} argmax_agree={agree:.4f}")
+        if dmean > 0.05 or agree < 0.9:
+            raise AssertionError(f"serve {label}: kernel path strays from the plain path")
+        del t
+
+    # the beam: the CLI, then the device beam against the native host beam
+    transcribe("beam", "smoke", ["--packed", "--beam_size", str(SERVE_BEAM)],
+               {"ternary_matmul_bf16": L})
+    transcribe("beam lm", "smoke", ["--packed", "--beam_size", str(SERVE_BEAM), "--lm",
+                                    paths["lm.npz"], "--lm_weight", str(SERVE_LM_WEIGHT)],
+               {"ternary_matmul_bf16": L})
+    _, cfg, tree = runs["smoke"]
+    served = {f"trained run, V={vocab}": (cli.Transcriber(cfg, tree, 2, cmvn=cmvn, device=DEVICE),
+                                          lm)}
+    m_cfg = apply_preset(ModelConfig(), "m")
+    served[f"random Conformer-M, V={m_cfg.vocab_size}"] = (
+        cli.Transcriber(TrainConfig(model=m_cfg), init_params(m_cfg, seed), 2, cmvn=cmvn,
+                       device=DEVICE),
+        _lm_for(m_cfg.vocab_size, seed))
+    counted = []
+    for what, (t, lm_) in served.items():
+        lp, enc_lens = t.log_probs(batch, lens)
+        dlm = DeviceLM.pack(lm_, DEVICE)
+        beam_agreement(what, lp, enc_lens, None, None)
+        beam_agreement(f"{what} + 3-gram LM", lp, enc_lens, lm_, dlm)
+        for mode, beam, fused_lm in (("greedy", 0, None), (f"beam {SERVE_BEAM}", SERVE_BEAM, None),
+                                     (f"beam {SERVE_BEAM} + LM", SERVE_BEAM, dlm)):
+            t.beam_size, t.lm, t.lm_weight = beam, fused_lm, SERVE_LM_WEIGHT
+            ms = cuda_ms(lambda: t.transcribe(batch, lens), iters=2, warmup=1)
+            dec_ms = cuda_ms(lambda: t.decode(lp, enc_lens), iters=2, warmup=0)
+            log(f"serve time {what}, {mode}: B={BATCH} T'={lp.shape[1]} (valid <= "
+                f"{int(enc_lens.max())}) ms_per_batch={ms:.2f} decode_ms={dec_ms:.2f}")
+            counted.append((f"{what}, {mode}", (lambda t=t, b=beam, l=fused_lm: (
+                setattr(t, "beam_size", b), setattr(t, "lm", l), t.transcribe(batch, lens)))))
+
+    # long-form: 75 s in 30 s windows overlapping by 4 s
+    hyps = transcribe("longform", "smoke_fs_fa", [
+        "--packed", "--longform", "--chunk_seconds", "30", "--overlap_seconds", "4"],
+        {"ternary_matmul_bf16": L, **fused}, wav_dir=paths["long"])
+    _, cfg, tree = runs["smoke_fs_fa"]
+    t = cli.Transcriber(cfg, tree, 2, cmvn=cmvn, device=DEVICE)
+    chunk, overlap = t.longform_frames(30.0, 4.0)
+    pcm = pcm16(long_wav).astype(np.float32) / 32768.0
+    frames = 1 + (len(pcm) - t.frontend.frame_len) // t.frontend.frame_shift
+    windows = max(1, -(-max(frames - overlap, 1) // (chunk - overlap)))
+    if windows != 3 or hyps["long"] != t.longform(pcm, chunk, overlap).tolist():
+        raise AssertionError(f"serve longform: {windows} windows, or CLI ids differ")
+    lp = t.longform_log_probs(pcm, chunk, overlap)
+    _use_plain(t.model, False)
+    _compare_frames(f"longform ({LONG_SECONDS:.0f} s, {windows} windows of {chunk} frames, "
+                    f"overlap {overlap}) vs plain", lp, t.longform_log_probs(pcm, chunk, overlap))
+    del t
+
+    # evaluate: loss, WER and CER per precision on the synthetic batches
+    for extra, want in (
+            (["--greedy"], {"ctc_alpha": 3}),
+            (["--beam_size", str(SERVE_BEAM)], {"ctc_alpha": 3}),
+            (["--packed"], {"ctc_alpha": 1, "ternary_matmul_bf16": L})):
+        for fn in kernels.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = ecli.main(["--checkpoint", runs["smoke"][0], "--dummy_data", "--max_batches",
+                            "1", "--device", DEVICE, *extra])
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        for line in out.getvalue().splitlines():
+            log(f"serve eval {' '.join(extra)}: {line}")
+        if rc != 0 or counts != want or "WER" not in out.getvalue():
+            raise AssertionError(f"evaluate {extra}: rc={rc} launches {counts}, want {want}")
+        log(f"serve eval {' '.join(extra)}: rc=0 launches={counts} wall_s={wall:.2f}")
+    log(f"serve: phase wall_s={time.perf_counter() - t_phase:.2f}")
+    return counted
+
+
+def launches_per_batch(label, fn):
+    """Device kernels (and copies) one call of `fn` runs (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
+    log(f"serve launches {label}: device_kernels_per_batch={len(events) - copies} "
+        f"copies_per_batch={copies}")
 
 
 def main(argv=None) -> int:
@@ -1835,18 +2190,27 @@ def main(argv=None) -> int:
     for flag in ("fused_attention", "fused_subsampler"):
         profiles += train_step_phase(dataclasses.replace(cfg, **{flag: True}), args.seed,
                                      rows, kernels)
-    train_cli_phase(kernels)
-    log("train: the QAT step and the train CLI ran on the CTC kernels, under "
-        "fused_attention on the attention kernels and under fused_subsampler on the "
-        "subsampler kernels too")
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as runs:
+        train_cli_phase(kernels, runs)
+        log("train: the QAT step and the train CLI ran on the CTC kernels, under "
+            "fused_attention on the attention kernels and under fused_subsampler on the "
+            "subsampler kernels too")
+        # step 13 times host-bound loops: before any profiler run
+        served = serve_phase(runs, kernels, args.seed)
+    log("serve: the runs the train CLI wrote were served packed and unpacked, greedy, "
+        "with the beam and the LM and long-form, and evaluated, on the kernels")
     kernel_device_phase(cfg, t_pad, args.seed, rows)
     subsample_device_phase(cfg, frames, args.seed, rows)
     attention_device_phase(cfg, t_pad, t_sub, args.seed, rows)
     ctc_device_phase(args.seed, rows)
+    for label, fn in served:
+        launches_per_batch(label, fn)
     for what, fn, top in profiles if args.profile else ():
         log(f"profile of {what}:")
         profile_breakdown(fn, top)
-    del profiles
+    del profiles, served
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -11,7 +11,10 @@ trains the 3-branch QAT model (`python -m onebit_asr_tpu_torch.train`), with
 the CTC alpha and beta lattices (csrc/ctc_lattice.cu) and, under
 `fused_attention`, the fused attention's backward (csrc/attention_bwd.cu);
 all are CUDA C++
-kernels for sm_90a, built with nvcc at first use.
+kernels for sm_90a, built with nvcc at first use. It serves and evaluates
+the runs it trains (`transcribe --checkpoint`, `python -m
+onebit_asr_tpu_torch.eval`), packed or unpacked, greedy or with the prefix
+beam on the device and an n-gram LM, and long recordings in windows.
 """
 
 __version__ = "0.1.0"

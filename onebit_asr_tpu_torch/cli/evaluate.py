@@ -1,0 +1,147 @@
+"""`python -m onebit_asr_tpu_torch.eval` — multi-precision loss, WER and CER.
+
+Counterpart of onebit_asr_tpu/cli/evaluate.py, with its flags: restore a run
+(`--checkpoint <run_dir>`, a run this package trained, or `--params` +
+`--config`, a JAX run's tree as an .npz with its config.json), evaluate it at
+`--precisions` (default 32,2,1) with the prefix beam on the device (beam
+`--beam_size`, default 10; `--lm` fuses an n-gram LM at `--lm_weight` with
+`--length_bonus`) or greedy CTC (`--greedy`), and print a table per split
+and, for more than one split, a summary. `--packed` evaluates planar-packed
+2-bit weights on the packed-ternary kernels (one precision: the first of
+`--precisions` that is not 32, else 2), with `--int8_act` on the W2A8
+kernel; the decoder stays full precision, as in JAX. `--no_fused_kernels`
+clears the run's fused_attention and fused_subsampler flags.
+
+Only the synthetic backend (`--dummy_data`) is ported. Refused with exit
+code 2, naming the ROADMAP queue A item that ports them: real data (item 4),
+`--torch_checkpoint` and `--spm` (item 7), `--streaming` (item 6).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("python -m onebit_asr_tpu_torch.eval", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--checkpoint", default="",
+                   help="run dir written by onebit_asr_tpu_torch.train (config.json + ckpt/)")
+    p.add_argument("--params", default="",
+                   help=".npz of a JAX run's parameter tree, '/'-joined keys (with --config)")
+    p.add_argument("--config", default="", help="the JAX run's config.json (with --params)")
+    p.add_argument("--torch_checkpoint", default="", help="not ported yet")
+    p.add_argument("--spm", default="", help="not ported yet")
+    p.add_argument("--data_dir", default="")
+    p.add_argument("--splits", default="dev")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--beam_size", type=int, default=10)
+    p.add_argument("--greedy", action="store_true", help="greedy decode instead of beam")
+    p.add_argument("--precisions", default="32,2,1")
+    p.add_argument("--max_batches", type=int, default=0)
+    p.add_argument("--dummy_data", action="store_true")
+    p.add_argument("--print_samples", type=int, default=0,
+                   help="print the first N ref/hyp pairs")
+    p.add_argument("--int8_act", action="store_true",
+                   help="with --packed: per-row int8 activations (the W2A8 kernel)")
+    p.add_argument("--packed", action="store_true",
+                   help="evaluate planar-packed 2-bit weights (precisions 2/1 only)")
+    p.add_argument("--lm", default="", help="n-gram LM .npz for shallow fusion in beam search")
+    p.add_argument("--lm_weight", type=float, default=0.3)
+    p.add_argument("--length_bonus", type=float, default=0.0)
+    p.add_argument("--no_fused_kernels", action="store_true",
+                   help="evaluate without the fused attention and subsampler kernels")
+    p.add_argument("--streaming", action="store_true", help="not ported yet")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def refusal(args) -> str:
+    """What of `args` this package does not implement yet, or ""."""
+    later = "not ported yet (ROADMAP queue A, item {})"
+    checks = [
+        (bool(args.torch_checkpoint), f"--torch_checkpoint: {later.format(7)}"),
+        (bool(args.spm), f"--spm: {later.format(7)}"),
+        (args.streaming, f"--streaming: {later.format(6)}"),
+        (not args.dummy_data, "real data (no --dummy_data) needs the LibriSpeech manifests: "
+                              + later.format(4)),
+    ]
+    return next((msg for bad, msg in checks if bad), "")
+
+
+def main(argv=None) -> int:
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    why = refusal(args)
+    if why:
+        print(f"FATAL: {why}", file=sys.stderr)
+        return 2
+    if args.int8_act and not args.packed:
+        print("--int8_act requires --packed (it selects the packed-path matmul kernel)",
+              file=sys.stderr)
+        return 2
+
+    from onebit_asr_tpu_torch.cli.transcribe import load_run
+    from onebit_asr_tpu_torch.convert import packed_model_from_jax, qat_model_from_jax
+    from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+    from onebit_asr_tpu_torch.eval import evaluate_stream
+
+    cfg, tree = load_run(args, parser)
+    model_cfg = cfg.model
+    if args.no_fused_kernels:
+        model_cfg = dataclasses.replace(model_cfg, fused_attention=False, fused_subsampler=False)
+    specials = model_cfg.specials
+    precisions = tuple(int(x) for x in args.precisions.split(","))
+    dm = DummyDataModule(batch_size=args.batch_size)
+    streams = {"dummy": dm.valid_batches}
+
+    if args.packed:
+        # packed weights are projected for ONE precision at export time
+        precisions = (next((q for q in precisions if q != 32), 2),)
+        model = packed_model_from_jax(model_cfg, tree, precisions[0], args.int8_act,
+                                      args.device, decoder=True)
+        params = model.state_dict()
+        print(f"packed serving: 2-bit planar weights, precisions {precisions}"
+              + (", int8 activations (W2A8)" if args.int8_act else ""))
+    else:
+        model = qat_model_from_jax(model_cfg, tree, args.device).requires_grad_(False).eval()
+        params = dict(model.named_parameters())
+
+    lm = None
+    if args.lm:
+        if args.greedy:
+            raise SystemExit("--lm requires beam search (shallow fusion is scored per prefix "
+                             "extension); drop --greedy or drop --lm.")
+        from onebit_asr_tpu_torch.decode.lm import NGramLM
+
+        lm = NGramLM.load(args.lm)
+        print(f"shallow fusion: {args.lm} (order {lm.order}, weight {args.lm_weight})")
+
+    tags = {32: "32bit", 2: "2bit", 1: "1bit"}
+    split_metrics = {}
+    for split, stream in streams.items():
+        m = evaluate_stream(
+            model, params, stream(), cfg.loss, specials, model_cfg.enc_layers,
+            precisions=precisions, use_beam=not args.greedy, beam_size=args.beam_size,
+            max_batches=args.max_batches or None, print_samples=args.print_samples,
+            lm=lm, lm_weight=args.lm_weight, length_bonus=args.length_bonus,
+            device=args.device)
+        split_metrics[split] = m
+        print(f"== {split} ({m['eval_utts']} utts) ==")
+        for prec in precisions:
+            tag = tags[prec]
+            print(f"  {tag:>6}: loss {m[f'loss_{tag}']:.3f}  "
+                  f"WER {m[f'wer_{tag}'] * 100:.2f}%  CER {m[f'cer_{tag}'] * 100:.2f}%")
+    if len(split_metrics) > 1:
+        print("\n=== Summary (WER %) ===")
+        print(f"{'split':<16}" + "".join(f"{tags[q]:>10}" for q in precisions))
+        for split, m in split_metrics.items():
+            print(f"{split:<16}" + "".join(f"{m[f'wer_{tags[q]}'] * 100:>10.2f}"
+                                          for q in precisions))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

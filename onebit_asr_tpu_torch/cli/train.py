@@ -3,8 +3,9 @@
 Counterpart of the dummy-data path of onebit_asr_tpu/cli/train.py, with the
 same flags: it builds the QAT Conformer from random weights drawn from
 `--seed`, trains for `--epochs` (each of at most `--steps_per_epoch` steps)
-on the synthetic backend (`--dummy_data`), evaluates greedily at 32, 2 and
-1 bits after each epoch, logs `metrics.jsonl`, and saves the last and the
+on the synthetic backend (`--dummy_data`), evaluates at 32, 2 and 1 bits
+after each epoch (greedy CTC, or with `--eval_beam` the prefix beam on the
+device at `--beam_size`), logs `metrics.jsonl`, and saves the last and the
 best train state under `<save_dir>/<run_name>/` with its `config.json`;
 `--resume` continues from the last one. A non-finite epoch loss ends the run
 with "FATAL: non-finite train loss" and exit code 1.
@@ -21,13 +22,13 @@ versions.
 Not ported yet, and refused with exit code 2 and a message naming what is
 missing: real data (`--data_dir` without `--dummy_data`), `--grad_accum` >
 1, `--multistep` > 1, `--fp32_control`, `--fsdp`, `--tensor_parallel`,
-`--pipeline_stages`, `--eval_beam`, `--wandb`, `--profile_dir`,
+`--pipeline_stages`, `--wandb`, `--profile_dir`,
 `--quant_per_channel`, `--quant_decoder`, `--reference_decoder` and the
 streaming options (`--conv_norm` other than batch_norm, `--causal_conv`,
 `--attn_chunk_size`). Flags of the JAX CLI that
 have no counterpart here (its memory and compile knobs `--no_remat`,
-`--remat_policy`, `--scan_unroll`; the real-data and beam settings) are
-accepted and change nothing.
+`--remat_policy`, `--scan_unroll`; the real-data settings) are accepted and
+change nothing.
 """
 
 from __future__ import annotations
@@ -124,7 +125,6 @@ def refusal(args) -> str:
         (args.fsdp, f"--fsdp: {later}"),
         (args.tensor_parallel > 1, f"--tensor_parallel: {later}"),
         (args.pipeline_stages > 1, f"--pipeline_stages: {later}"),
-        (args.eval_beam, f"--eval_beam (beam-search evaluation): {later}"),
         (args.wandb, f"--wandb: {later}"),
         (bool(args.profile_dir), f"--profile_dir: {later}"),
     ]
@@ -250,6 +250,7 @@ def main(argv=None) -> int:
             metrics["peak_device_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         eval_metrics = evaluate_stream(
             model, state.params, dm.valid_batches(), loss_cfg, specials, args.enc_layers,
+            use_beam=args.eval_beam, beam_size=args.beam_size,
             max_batches=args.eval_batches or None, eval_steps=eval_steps, device=device)
         metrics.update(eval_metrics)
         logger.log(metrics, step=state.step)

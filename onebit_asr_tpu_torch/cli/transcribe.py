@@ -1,19 +1,34 @@
-"""`python -m onebit_asr_tpu_torch.transcribe` — weights + audio in, text out.
+"""`python -m onebit_asr_tpu_torch.transcribe` — a trained run + audio in, text out.
 
-Counterpart of onebit_asr_tpu/cli/transcribe.py for packed-ternary serving:
-featurize (log-mel + CMVN) -> export the weights to 2-bit planar form at
-`--precision` -> packed encoder + CTC head on the CUDA kernels -> greedy CTC
--> `utt_id\\ttext` lines.
+Counterpart of onebit_asr_tpu/cli/transcribe.py, with its flags: featurize
+(log-mel + CMVN) -> the encoder + CTC head at `--precision` -> greedy CTC,
+or the prefix beam on the device (`--beam_size`) with optional n-gram LM
+shallow fusion (`--lm`, `--lm_weight`, `--length_bonus`) -> `utt_id\ttext`
+lines.
 
-The JAX package writes Orbax checkpoints, which this package does not read.
-Its inputs are instead the run's `config.json` (`--config`) and an .npz of
-the flattened parameter tree with "/"-joined keys (`--params`); README.md
-shows how to write one from a JAX run. With `--data_dir` holding the run's
-`tokenizer.json` (and the `tokenizers` package installed) lines carry text;
-otherwise they carry the model-side ids, space-separated. `cmvn_stats.npz`
-in `--data_dir` supplies CMVN. A config with `fused_subsampler` runs the
-fused subsampler kernel, one with `fused_attention` the fused rel-pos
-attention kernel; `--no_fused_kernels` clears both flags.
+The run is either `--checkpoint <run_dir>`, a run this package trained
+(`config.json` and the newest `ckpt/step_<n>.pt`, whose parameters alone
+are read), or `--params` + `--config`: an .npz of a JAX run's flattened
+parameter tree with "/"-joined keys and its config.json (README.md shows
+how to write one; the JAX package's Orbax checkpoints are not read here).
+Exactly one of the two is given.
+
+Without `--packed` the run is served unpacked, as JAX does by default: the
+QAT model in eval mode, no dropout, at precision 32, 2 or 1. `--packed`
+serves planar-packed 2-bit weights through the packed-ternary kernels, at
+precision 2 or 1, and `--int8_act` (which needs `--packed`) through the
+W2A8 kernel. A config with `fused_subsampler` runs the fused subsampler
+kernel, one with `fused_attention` the fused rel-pos attention kernel, in
+either form; `--no_fused_kernels` clears both flags. `--longform` serves
+recordings of any length through overlapped windows (`--chunk_seconds`,
+`--overlap_seconds`) and stitched CTC, greedy only.
+
+Input is `--wav_dir`, a tree of 16-bit PCM .wav files (the JAX CLI's
+manifest mode needs the real-data pipeline, not ported yet). `--data_dir`
+(default: the run's training data dir) supplies `cmvn_stats.npz` and the
+tokenizer (`tokenizer.json` or `tokenizer.model`). Where no tokenizer is
+found the lines carry the model-side ids, space-separated, after a warning;
+the JAX CLI exits 2 there instead.
 
 `Transcriber` is the same path for waveforms already in memory.
 """
@@ -28,10 +43,18 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from onebit_asr_tpu_torch.convert import load_npz, packed_model_from_jax
+from onebit_asr_tpu_torch.convert import (
+    jax_tree_from_state_dict,
+    load_npz,
+    packed_model_from_jax,
+    qat_model_from_jax,
+)
+from onebit_asr_tpu_torch.decode.beam_device import beam_search_device
 from onebit_asr_tpu_torch.decode.greedy import greedy_ctc_decode
+from onebit_asr_tpu_torch.decode.longform import longform_logits
 from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
 from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn, resample_linear
+from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
 from onebit_asr_tpu_torch.utils.config import TrainConfig, train_config_from_json
 
 
@@ -42,19 +65,36 @@ def build_argparser():
         "python -m onebit_asr_tpu_torch.transcribe", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("--params", required=True,
-                   help=".npz of the JAX run's parameter tree, '/'-joined keys")
-    p.add_argument("--config", required=True, help="the JAX run's config.json")
+    p.add_argument("--checkpoint", default="",
+                   help="run dir written by onebit_asr_tpu_torch.train (config.json + ckpt/)")
+    p.add_argument("--params", default="",
+                   help=".npz of a JAX run's parameter tree, '/'-joined keys (with --config)")
+    p.add_argument("--config", default="", help="the JAX run's config.json (with --params)")
     p.add_argument("--wav_dir", required=True,
                    help="directory tree of 16-bit PCM .wav files")
     p.add_argument("--data_dir", default="",
-                   help="dir with the run's tokenizer.json and cmvn_stats.npz")
-    p.add_argument("--precision", type=int, default=2, choices=(1, 2),
-                   help="weight precision of the packed encoder")
+                   help="dir with the run's tokenizer and cmvn_stats.npz; default: the "
+                        "checkpoint's training data dir")
+    p.add_argument("--precision", type=int, default=2, choices=(32, 2, 1),
+                   help="weight precision of the encoder")
+    p.add_argument("--packed", action="store_true",
+                   help="serve from planar-packed 2-bit weights (precision 1 or 2)")
     p.add_argument("--int8_act", action="store_true",
-                   help="per-row int8 activations (the W2A8 kernel)")
+                   help="with --packed: per-row int8 activations (the W2A8 kernel)")
+    p.add_argument("--beam_size", type=int, default=0,
+                   help="prefix beam width; 0 = greedy (default)")
+    p.add_argument("--lm", default="",
+                   help="n-gram LM .npz for shallow fusion (beam mode only)")
+    p.add_argument("--lm_weight", type=float, default=0.3)
+    p.add_argument("--length_bonus", type=float, default=0.0)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_batches", type=int, default=0, help="0 = all")
+    p.add_argument("--longform", action="store_true",
+                   help="recordings of any length via overlapped fixed windows + stitched "
+                        "CTC (greedy; bypasses the max_frames cap)")
+    p.add_argument("--chunk_seconds", type=float, default=30.0, help="longform window length")
+    p.add_argument("--overlap_seconds", type=float, default=4.0,
+                   help="longform window overlap (margins discarded)")
     p.add_argument("--out", default="", help="output file (default stdout)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--no_fused_kernels", action="store_true",
@@ -109,32 +149,47 @@ def _wav_dir_batches(wav_dir: str, batch_size: int, max_samples: int):
 
 
 class Transcriber:
-    """Packed-ternary offline transcription of in-memory waveforms.
+    """Offline transcription of in-memory waveforms.
 
     t = Transcriber(cfg, params); ids, lens = t.transcribe(wavs, wav_lens)
 
-    `params` is the JAX run's training-form parameter tree (nested dicts of
-    numpy arrays); `cmvn` is (mean, std) per mel bin or None. The model
-    follows `cfg.model` (with `fused_subsampler` the fused subsampler
-    kernel, with `fused_attention` the fused attention kernel). Runs on CUDA
-    unless `device="cpu"`."""
+    `params` is a training-form parameter tree in the JAX layout (nested
+    dicts of numpy arrays or CPU tensors: a JAX run's, or
+    `convert.jax_tree_from_state_dict` of a run this package trained);
+    `cmvn` is (mean, std) per mel bin or None. `packed` serves planar-packed
+    weights at precision 2 or 1 (with `int8_act` the W2A8 kernel); else the
+    QAT model in eval mode serves at precision 32, 2 or 1. The model follows
+    `cfg.model` (with `fused_subsampler` the fused subsampler kernel, with
+    `fused_attention` the fused attention kernel). `beam_size` > 0 decodes
+    with the device beam, `lm` (a DeviceLM) fused at `lm_weight`; 0 greedily.
+    Runs on CUDA unless `device="cpu"`."""
 
     def __init__(self, cfg: TrainConfig, params: Mapping, precision: int = 2,
                  int8_act: bool = False, cmvn: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", packed: bool = True, beam_size: int = 0, lm=None,
+                 lm_weight: float = 0.0, length_bonus: float = 0.0):
         self.device = torch.device(device)
         self.cfg = cfg
-        self.model = packed_model_from_jax(
-            cfg.model, params, precision, int8_act, self.device
-        )
+        if packed:
+            self.model = packed_model_from_jax(cfg.model, params, precision, int8_act, self.device)
+        elif int8_act:
+            raise ValueError("int8_act needs the packed weights (packed=True)")
+        else:
+            self.model = qat_model_from_jax(cfg.model, params, self.device, decoder=False)
+            self.model.requires_grad_(False).eval()
         self.frontend = LogMelFrontend(cfg.frontend)
         self.cmvn = None
         if cmvn is not None:
             self.cmvn = tuple(
                 torch.as_tensor(np.asarray(a, np.float32), device=self.device) for a in cmvn
             )
-        self.binary_mask = precision_to_binary_mask(precision, cfg.model.enc_layers).to(self.device)
+        mask = precision_to_binary_mask(precision, cfg.model.enc_layers)
+        self.binary_mask = None if mask is None else mask.to(self.device)
         self.blank_id = cfg.model.specials.blank_id
+        self.beam_size = beam_size
+        self.lm = lm
+        self.lm_weight = lm_weight
+        self.length_bonus = length_bonus
 
     @property
     def max_samples(self) -> int:
@@ -143,28 +198,77 @@ class Transcriber:
         return fe.frame_len + (self.cfg.data.max_frames - 1) * fe.frame_shift
 
     @torch.inference_mode()
-    def log_probs(self, wavs, wav_lens) -> Tuple[torch.Tensor, torch.Tensor]:
-        """wavs [B, N] f32, wav_lens [B] -> (CTC log-probs [B, T', V] f32,
-        valid frames [B]); frames past a length are padding."""
+    def featurize(self, wavs, wav_lens) -> Tuple[torch.Tensor, torch.Tensor]:
+        """wavs [B, N] f32, wav_lens [B] -> (features [B, T, F], lengths [B])
+        on the device, CMVN applied."""
         wavs = torch.as_tensor(np.asarray(wavs, np.float32), device=self.device)
         wav_lens = torch.as_tensor(np.asarray(wav_lens), device=self.device)
         feats, feat_lens = self.frontend(wavs, wav_lens)
         if self.cmvn is not None:
             feats = apply_cmvn(feats, *self.cmvn)
+        return feats, feat_lens
+
+    @torch.inference_mode()
+    def log_probs(self, wavs, wav_lens) -> Tuple[torch.Tensor, torch.Tensor]:
+        """wavs [B, N] f32, wav_lens [B] -> (CTC log-probs [B, T', V] f32,
+        valid frames [B]); frames past a length are padding."""
+        feats, feat_lens = self.featurize(wavs, wav_lens)
         _, enc_mask, logits = self.model(feats, feat_lens, self.binary_mask)
         return torch.log_softmax(logits.to(torch.float32), dim=-1), enc_mask.sum(dim=-1)
 
     @torch.inference_mode()
-    def transcribe(self, wavs, wav_lens) -> Tuple[np.ndarray, np.ndarray]:
-        """Greedy CTC ids [B, T'] (padded with -1) and lengths [B], on the host."""
-        lp, lens = self.log_probs(wavs, wav_lens)
-        ids, n = greedy_ctc_decode(lp, lens, self.blank_id)
+    def decode(self, lp: torch.Tensor, lens: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """CTC ids [B, *] (padded with -1) and lengths [B] on the host:
+        greedy, or the device beam with `beam_size` > 0."""
+        if self.beam_size:
+            fuse = self.lm is not None
+            ids, n = beam_search_device(
+                lp, lens, blank_id=self.blank_id, beam_size=self.beam_size,
+                lm=self.lm, lm_weight=self.lm_weight if fuse else 0.0,
+                length_bonus=self.length_bonus)
+        else:
+            ids, n = greedy_ctc_decode(lp, lens, self.blank_id)
         return ids.cpu().numpy(), n.cpu().numpy()
+
+    def transcribe(self, wavs, wav_lens) -> Tuple[np.ndarray, np.ndarray]:
+        """CTC ids [B, *] (padded with -1) and lengths [B], on the host."""
+        return self.decode(*self.log_probs(wavs, wav_lens))
+
+    def longform_frames(self, chunk_seconds: float, overlap_seconds: float) -> Tuple[int, int]:
+        """(window, overlap) in feature frames."""
+        shift, sr = self.frontend.frame_shift, self.cfg.frontend.sample_rate
+        return (max(1, int(chunk_seconds * sr) // shift),
+                max(0, int(overlap_seconds * sr) // shift))
+
+    @torch.inference_mode()
+    def longform_log_probs(self, wav: np.ndarray, chunk_frames: int,
+                           overlap_frames: int) -> torch.Tensor:
+        """Stitched CTC log-probs [T', V] f32 of one recording of any length.
+        The waveform is padded to a whole number of windows' samples before
+        featurizing (the features of the real samples do not change)."""
+        fe = self.frontend
+        chunk_samples = fe.frame_len + (chunk_frames - 1) * fe.frame_shift
+        n = len(wav)
+        padded = np.zeros((1, chunk_samples * max(1, -(-n // chunk_samples))), np.float32)
+        padded[0, :n] = wav
+        feats, feat_lens = self.featurize(padded, np.asarray([n], np.int32))
+        fv = feats[0, : int(feat_lens[0])].cpu().numpy()
+        logits = longform_logits(self.model, fv, self.binary_mask, chunk_frames,
+                                 overlap_frames, self.device)
+        return torch.log_softmax(logits.to(torch.float32), dim=-1)
+
+    def longform(self, wav: np.ndarray, chunk_frames: int, overlap_frames: int) -> np.ndarray:
+        """Greedy CTC ids of one recording of any length."""
+        lp = self.longform_log_probs(wav, chunk_frames, overlap_frames)
+        ids, n = greedy_ctc_decode(lp[None], torch.tensor([lp.shape[0]], device=lp.device),
+                                   self.blank_id)
+        return ids[0, : int(n[0])].cpu().numpy()
 
 
 def _load_tokenizer(data_dir: str, specials):
     """The run's tokenizer, or None (then lines carry ids)."""
     if not data_dir:
+        print("warning: writing ids, not text (no --data_dir)", file=sys.stderr)
         return None
     try:
         from onebit_asr_tpu_torch.data.text import AsrTokenizer
@@ -175,37 +279,89 @@ def _load_tokenizer(data_dir: str, specials):
         return None
 
 
-def main(argv=None) -> int:
-    args = build_argparser().parse_args(argv)
+def load_run(args, parser) -> Tuple[TrainConfig, Mapping]:
+    """(config, JAX-layout parameter tree) of `--checkpoint` or of
+    `--params` + `--config`; exactly one of the two (else the parser exits
+    2)."""
+    if bool(args.checkpoint) == bool(args.params or args.config):
+        parser.error("give exactly one of --checkpoint or --params with --config")
+    if args.checkpoint:
+        cfg = load_config(args.checkpoint)
+        if cfg is None:
+            parser.error(f"no config.json in {args.checkpoint}")
+        step, sd = restore_params(os.path.join(args.checkpoint, "ckpt"))
+        print(f"restored step {step} from {args.checkpoint}", file=sys.stderr)
+        # the run's own config: its fused_subsampler sets the projection's rows
+        return cfg, jax_tree_from_state_dict(sd, cfg.model)
+    if not (args.params and args.config):
+        parser.error("--params and --config go together")
     with open(args.config) as f:
-        cfg = train_config_from_json(f.read())
+        return train_config_from_json(f.read()), load_npz(args.params)
+
+
+def main(argv=None) -> int:
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    if args.packed and args.precision not in (1, 2):
+        print("--packed requires --precision 1 or 2", file=sys.stderr)
+        return 2
+    if args.int8_act and not args.packed:
+        print("--int8_act requires --packed (it selects the packed-path matmul kernel)",
+              file=sys.stderr)
+        return 2
+    if args.longform and (args.beam_size or args.lm):
+        print("--longform is greedy-only (stitched CTC)", file=sys.stderr)
+        return 2
+    if args.lm and not args.beam_size:
+        print("--lm needs --beam_size > 0 (shallow fusion is a beam-prefix extension); "
+              "drop --lm or set --beam_size", file=sys.stderr)
+        return 2
+    cfg, params = load_run(args, parser)
     if args.no_fused_kernels:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, fused_attention=False, fused_subsampler=False))
+    data_dir = args.data_dir or (cfg.data.data_dir if args.checkpoint else "")
     cmvn = None
-    cmvn_path = os.path.join(args.data_dir, "cmvn_stats.npz")
-    if args.data_dir and os.path.exists(cmvn_path):
+    cmvn_path = os.path.join(data_dir, "cmvn_stats.npz")
+    if data_dir and os.path.exists(cmvn_path):
         with np.load(cmvn_path) as stats:
             cmvn = (stats["mean"], stats["std"])
     else:
-        print("warning: no cmvn_stats.npz in --data_dir; features will "
+        print(f"warning: no cmvn_stats.npz in {data_dir!r}; features will "
               "mismatch training", file=sys.stderr)
-    tokenizer = _load_tokenizer(args.data_dir, cfg.model.specials)
-    t = Transcriber(cfg, load_npz(args.params), args.precision, args.int8_act,
-                    cmvn, args.device)
+    tokenizer = _load_tokenizer(data_dir, cfg.model.specials)
+    lm = None
+    if args.lm:
+        from onebit_asr_tpu_torch.decode.lm import NGramLM
+        from onebit_asr_tpu_torch.decode.lm_device import DeviceLM
+
+        lm = DeviceLM.pack(NGramLM.load(args.lm), args.device)
+    t = Transcriber(cfg, params, args.precision, args.int8_act, cmvn, args.device,
+                    packed=args.packed, beam_size=args.beam_size, lm=lm,
+                    lm_weight=args.lm_weight, length_bonus=args.length_bonus)
+
+    def text(seq):
+        return (tokenizer.ids_to_text(seq) if tokenizer is not None
+                else " ".join(str(int(x)) for x in seq))
 
     out_f = open(args.out, "w") if args.out else sys.stdout
     n_done = 0
     try:
+        if args.longform:
+            chunk, overlap = t.longform_frames(args.chunk_seconds, args.overlap_seconds)
+            for uid, wav in _iter_wavs(args.wav_dir):
+                out_f.write(f"{uid}\t{text(t.longform(wav, chunk, overlap))}\n")
+                n_done += 1
+                if args.max_batches and n_done >= args.max_batches:
+                    break
+            print(f"transcribed {n_done} recordings (longform)", file=sys.stderr)
+            return 0
         for i, wb in enumerate(_wav_dir_batches(args.wav_dir, args.batch_size, t.max_samples)):
             if args.max_batches and i >= args.max_batches:
                 break
             ids, lens = t.transcribe(wb["wavs"], wb["wav_lens"])
             for b, uid in enumerate(wb["utt_ids"]):
-                seq = ids[b, : int(lens[b])]
-                text = (tokenizer.ids_to_text(seq) if tokenizer is not None
-                        else " ".join(str(int(x)) for x in seq))
-                out_f.write(f"{uid}\t{text}\n")
+                out_f.write(f"{uid}\t{text(ids[b, : int(lens[b])])}\n")
                 n_done += 1
         print(f"transcribed {n_done} utterances", file=sys.stderr)
     finally:

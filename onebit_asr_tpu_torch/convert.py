@@ -23,9 +23,12 @@ handled:
 - the decoder's layers "layer{i}" are the ModuleList "layers.{i}", its
   embedding [V, D] keeps its layout.
 
-The serving form ignores the decoder subtree. The same mapping carries any
-tree of the parameters' shape (the gradients of a JAX step, say) onto the
-state dict's names.
+The serving form ignores the decoder subtree unless asked to carry it (the
+evaluation of packed weights takes the decoder's loss). The same mapping
+carries any tree of the parameters' shape (the gradients of a JAX step, say)
+onto the state dict's names, and `jax_tree_from_state_dict` is its exact
+inverse: a run this package trained becomes a JAX-layout tree, which the
+serving and evaluation paths take like a JAX run's.
 """
 
 from __future__ import annotations
@@ -217,27 +220,82 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
     return {k: v.contiguous() for k, v in sd.items()}
 
 
+def _unleaf(name: str, v: torch.Tensor):
+    """Inverse of `_leaf`: (JAX leaf name, value) for one state-dict leaf."""
+    if name == "weight" and v.dim() == 1:  # LayerNorm / BatchNorm
+        return "scale", v
+    if name == "weight":  # Dense [out, in] -> [in, out]
+        return "kernel", v.transpose(0, 1)
+    if name == "dw_kernel":  # [D, 1, k] -> [k, 1, D]
+        return "dw_kernel", v.permute(2, 1, 0)
+    return name, v  # bias, kernel/packed_kernel of a quantized dense, alpha, ...
+
+
+def jax_tree_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Tree:
+    """ConformerASR's state dict (serving or training form, with or without
+    its decoder) -> the JAX tree it came from, torch leaves on the CPU: the
+    exact inverse of `state_dict_from_jax`. The per-layer leaves are stacked
+    back into [L, ...], Dense weights turned back to [in, out], OIHW convs to
+    HWIO, the depthwise kernel to [k, 1, D], the unfused projection's rows
+    back to f*C+c, and "layers.{i}" to "layer{i}"."""
+    flat: Dict[str, torch.Tensor] = {}
+    blocks: Dict[str, Dict[int, torch.Tensor]] = {}
+    C, f2 = cfg.enc_d_model, subsampled_frames(cfg.input_dim)
+    for key, v in sd.items():
+        *path, name = key.split(".")
+        v = v.detach().cpu()
+        if path[:2] == ["encoder", "blocks"]:
+            leaf, value = _unleaf(name, v)
+            blocks.setdefault("/".join([*path[3:], leaf]), {})[int(path[2])] = value
+            continue
+        if path[:2] == ["encoder", "subsample"] and name == "weight":
+            if path[2] == "proj":
+                value = v.transpose(0, 1)  # rows c*F'+f unfused, f*C+c fused
+                if not cfg.fused_subsampler:
+                    value = value.reshape(C, f2, -1).transpose(0, 1).reshape(f2 * C, -1)
+            else:
+                value = v.permute(2, 3, 1, 0)  # OIHW -> HWIO
+            flat["/".join([*path, "kernel"])] = value
+            continue
+        if path[:2] == ["decoder", "layers"]:
+            path = ["decoder", f"layer{path[2]}", *path[3:]]
+        leaf, value = _unleaf(name, v)
+        flat["/".join([*path, leaf])] = value
+    for key, per_layer in blocks.items():
+        if sorted(per_layer) != list(range(cfg.enc_layers)):
+            raise ValueError(f"encoder/blocks/{key}: layers {sorted(per_layer)}, "
+                             f"config has {cfg.enc_layers}")
+        flat[f"encoder/blocks/{key}"] = torch.stack([per_layer[i] for i in sorted(per_layer)])
+    return unflatten({k: v.contiguous() for k, v in flat.items()})
+
+
 def packed_model_from_jax(
     cfg: ModelConfig,
     params: Mapping,
     precision: int = 2,
     int8_act: bool = False,
     device: str = "cuda",
+    decoder: bool = False,
 ) -> ConformerASR:
     """Training-form JAX tree (numpy or torch leaves) -> packed ConformerASR
     on `device`, in eval mode: the weights are projected to `precision`
-    (2 = ternary, 1 = binary) and planar-packed (model/packed.py)."""
-    tree = to_torch({k: v for k, v in params.items() if k != "decoder"})
+    (2 = ternary, 1 = binary) and planar-packed (model/packed.py). With
+    `decoder` the model also carries the tree's full-precision decoder, as
+    the JAX package's packed model does, for `forward_with_decoder`."""
+    tree = to_torch({k: v for k, v in params.items() if decoder or k != "decoder"})
     packed = export_packed_params(tree, precision)
-    model = ConformerASR(cfg, int8_act=int8_act)
+    model = ConformerASR(cfg, int8_act=int8_act, decoder=decoder)
     model.load_state_dict(state_dict_from_jax(packed, cfg), strict=True)
     return model.requires_grad_(False).to(device).eval()
 
 
-def qat_model_from_jax(cfg: ModelConfig, params: Mapping, device: str = "cuda") -> ConformerASR:
-    """Training-form JAX tree (numpy or torch leaves, decoder included) ->
-    the QAT ConformerASR on `device`, its parameters f32 and trainable."""
-    model = ConformerASR(cfg, qat=True)
-    sd = state_dict_from_jax(to_torch(params), cfg)
+def qat_model_from_jax(cfg: ModelConfig, params: Mapping, device: str = "cuda",
+                       decoder: bool = True) -> ConformerASR:
+    """Training-form JAX tree (numpy or torch leaves) -> the QAT ConformerASR
+    on `device`, its parameters f32 and trainable; without `decoder` the
+    tree's decoder is left out, for serving."""
+    model = ConformerASR(cfg, qat=True, decoder=decoder)
+    tree = to_torch({k: v for k, v in params.items() if decoder or k != "decoder"})
+    sd = state_dict_from_jax(tree, cfg)
     model.load_state_dict({k: v.to(torch.float32) for k, v in sd.items()}, strict=True)
     return model.to(device)

@@ -1,11 +1,12 @@
-"""Model-side ids -> text (own copy of onebit_asr_tpu/data/text.py's
-decoding half). Model ids [0, offset) are specials; subword id = model id -
-offset. Needs the `tokenizers` package and an HF `tokenizer.json`."""
+"""Model-side ids <-> text (own copy of onebit_asr_tpu/data/text.py without
+its trainer). Model ids [0, offset) are specials; subword id = model id -
+offset. An HF `tokenizer.json` needs the `tokenizers` package; a
+SentencePiece `tokenizer.model` is read by data/spm.py."""
 
 from __future__ import annotations
 
 import os
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 from onebit_asr_tpu_torch.utils.config import SpecialTokens
 
@@ -17,6 +18,11 @@ class AsrTokenizer:
 
     @classmethod
     def load(cls, path: str, specials: Optional[SpecialTokens] = None) -> "AsrTokenizer":
+        """An HF `tokenizer.json` or a SentencePiece `tokenizer.model`."""
+        if path.endswith(".model"):
+            from onebit_asr_tpu_torch.data.spm import SpmBackend, SpmBpeModel
+
+            return cls(SpmBackend(SpmBpeModel.load(path)), specials)
         from tokenizers import Tokenizer
 
         return cls(Tokenizer.from_file(path), specials)
@@ -25,12 +31,23 @@ class AsrTokenizer:
     def find_and_load(
         cls, data_dir: str, specials: Optional[SpecialTokens] = None
     ) -> "AsrTokenizer":
-        """`tokenizer.json` in `data_dir` (a SentencePiece `tokenizer.model`
-        is not read by this package yet)."""
-        p = os.path.join(data_dir, "tokenizer.json")
-        if not os.path.exists(p):
-            raise FileNotFoundError(f"no tokenizer.json in {data_dir}")
-        return cls.load(p, specials)
+        """`tokenizer.json` in `data_dir`, else `tokenizer.model` (the two id
+        spaces differ: a checkpoint goes with the artifact it was trained
+        against)."""
+        for name in ("tokenizer.json", "tokenizer.model"):
+            p = os.path.join(data_dir, name)
+            if os.path.exists(p):
+                return cls.load(p, specials)
+        raise FileNotFoundError(f"no tokenizer.json / tokenizer.model in {data_dir}")
+
+    @property
+    def vocab_size(self) -> int:
+        """Model vocabulary: subwords + the reserved specials."""
+        return self._tok.get_vocab_size() + self.specials.offset
+
+    def encode(self, text: str) -> List[int]:
+        """Text -> model-side ids (offset-shifted)."""
+        return [i + self.specials.offset for i in self._tok.encode(text.upper()).ids]
 
     def ids_to_text(self, ids: Iterable[int]) -> str:
         """Drop specials, subtract the offset, decode."""

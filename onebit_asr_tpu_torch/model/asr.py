@@ -4,10 +4,14 @@ AED decoder.
 Counterpart of onebit_asr_tpu/model/asr.py. Two forms share the encoder's
 code (model/conformer.py::Parts):
 
-- serving (`qat=False`): packed-ternary projections, no decoder;
+- serving (`qat=False`): packed-ternary projections, no dropout, and no
+  decoder unless built with `decoder=True` (the JAX packed model keeps its
+  full-precision decoder; evaluating packed weights takes its loss);
 - QAT (`qat=True`): straight-through quantized projections whose precision
-  each call sets per layer, dropout at every site of the JAX model, the
-  decoder, and `forward_with_decoder`.
+  each call sets per layer, dropout at every site of the JAX model, and the
+  decoder unless built with `decoder=False` (unpacked serving needs none).
+
+`forward_with_decoder` runs in either form when the model has a decoder.
 """
 
 from __future__ import annotations
@@ -50,27 +54,32 @@ def _check_supported(cfg: ModelConfig) -> None:
     }, "this package serves")
 
 
+def _check_decoder(cfg: ModelConfig, what: str) -> None:
+    _refuse({
+        "quant_decoder": (cfg.quant_decoder, False, "later slice"),
+        "reference_decoder": (cfg.reference_decoder, False, "later slice"),
+    }, what)
+
+
 def check_trainable(cfg: ModelConfig) -> None:
     """Refuse what the QAT form does not implement yet, naming the piece.
     Both fused kernels' flags train (`fused_attention`, `fused_subsampler`):
     their backward kernels are ported."""
     _check_supported(cfg)
-    _refuse({
-        "quant_decoder": (cfg.quant_decoder, False, "later slice"),
-        "reference_decoder": (cfg.reference_decoder, False, "later slice"),
-    }, "this package trains")
+    _check_decoder(cfg, "this package trains")
 
 
 class ConformerASR(nn.Module):
     """enc_out, enc_mask, logits_ctc = model(feats, feat_lens, binary_mask);
-    in the QAT form also forward_with_decoder."""
+    with a decoder also forward_with_decoder."""
 
-    def __init__(self, cfg: ModelConfig, int8_act: bool = False, qat: bool = False):
+    def __init__(self, cfg: ModelConfig, int8_act: bool = False, qat: bool = False,
+                 decoder: Optional[bool] = None):
         super().__init__()
-        if qat:
-            check_trainable(cfg)
-        else:
-            _check_supported(cfg)
+        with_decoder = qat if decoder is None else decoder
+        _check_supported(cfg)
+        if with_decoder:
+            _check_decoder(cfg, "this package trains" if qat else "this package evaluates")
         self.cfg = cfg
         self.qat = qat
         compute_dtype = getattr(torch, cfg.compute_dtype)
@@ -89,10 +98,10 @@ class ConformerASR(nn.Module):
             fused_attention=cfg.fused_attention,
         )
         self.ctc_head = Dense(cfg.enc_d_model, cfg.vocab_size, compute_dtype)
-        if qat:
+        if with_decoder:
             self.decoder = TransformerDecoder(
                 cfg.vocab_size, cfg.enc_d_model, cfg.dec_layers, cfg.dec_heads, cfg.dec_d_ff,
-                compute_dtype, cfg.dropout, self.parts.rng)
+                compute_dtype, self.parts.dropout, self.parts.rng)
 
     def forward(
         self,
@@ -103,8 +112,8 @@ class ConformerASR(nn.Module):
         tgt_valid_mask: Optional[torch.Tensor] = None,
         draws=None,
     ):
-        """(enc_out, enc_mask, logits_ctc); with `tgt_inp` (the QAT form)
-        also the decoder's logits, as `forward_with_decoder`."""
+        """(enc_out, enc_mask, logits_ctc); with `tgt_inp` (a model with a
+        decoder) also the decoder's logits, as `forward_with_decoder`."""
         if tgt_inp is not None:
             return self.forward_with_decoder(feats, feat_lens, tgt_inp, tgt_valid_mask,
                                              binary_mask, draws)
@@ -118,8 +127,9 @@ class ConformerASR(nn.Module):
         (enc_out, enc_mask, logits_ctc, dec_logits). `draws` (see
         layers.DropoutRng) feeds every dropout site for this call; None
         runs without dropout."""
-        if not self.qat:
-            raise RuntimeError("forward_with_decoder needs the QAT form (qat=True)")
+        if not hasattr(self, "decoder"):
+            raise RuntimeError("forward_with_decoder needs a decoder: the QAT form (qat=True) "
+                               "or the serving form built with decoder=True")
         self.parts.rng.draws = draws
         try:
             enc_out, enc_mask, logits_ctc = self(feats, feat_lens, binary_mask)

@@ -1,5 +1,5 @@
-"""`python -m onebit_asr_tpu_torch.transcribe` — packed-ternary serving:
-weights + audio -> text (see cli/transcribe.py)."""
+"""`python -m onebit_asr_tpu_torch.transcribe` — serving: a trained run +
+audio -> text (see cli/transcribe.py)."""
 
 from onebit_asr_tpu_torch.cli.transcribe import main
 

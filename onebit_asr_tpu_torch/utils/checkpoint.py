@@ -4,19 +4,21 @@ Counterpart of onebit_asr_tpu/utils/checkpoint.py (Orbax there): the whole
 TrainState (parameters, moments, count, step, the generator's state) goes
 into one `torch.save` file per saved step, `<directory>/step_<n>.pt`, so a
 run resumes where it stopped. `save_config` writes the config.json that the
-JAX package's `train_config_from_json` reads too.
+JAX package's `train_config_from_json` reads too; `load_config` reads it
+back, and `restore_params` reads the parameters alone of a saved step (no
+optimizer, no model), which is what serving and evaluation need.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from onebit_asr_tpu_torch.train.state import TrainState
-from onebit_asr_tpu_torch.utils.config import TrainConfig, config_to_json
+from onebit_asr_tpu_torch.utils.config import TrainConfig, config_to_json, train_config_from_json
 
 _STEP = re.compile(r"step_(\d+)\.pt$")
 
@@ -77,3 +79,27 @@ def save_config(directory: str, cfg: TrainConfig) -> None:
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, "config.json"), "w") as f:
         f.write(config_to_json(cfg))
+
+
+def load_config(run_dir: str) -> Optional[TrainConfig]:
+    """The run's config.json as a TrainConfig, or None when there is none."""
+    path = os.path.join(run_dir, "config.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return train_config_from_json(f.read())
+
+
+def restore_params(ckpt_dir: str, step: Optional[int] = None
+                   ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """(step, {state-dict name: CPU tensor}) of the parameters saved at `step`
+    under `ckpt_dir` (the newest by default); the moments and the generator
+    are not read."""
+    if step is None:
+        files = os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else []
+        step = max((int(m.group(1)) for f in files if (m := _STEP.match(f))), default=None)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    saved = torch.load(os.path.join(ckpt_dir, f"step_{step}.pt"), map_location="cpu",
+                       weights_only=True)
+    return int(saved["step"]), saved["params"]

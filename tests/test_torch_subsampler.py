@@ -211,7 +211,7 @@ def test_no_fused_kernels_clears_both_flags(jax_params, tmp_path, monkeypatch):
         w.writeframes(pcm.tobytes())
     argv = ["--params", str(tmp_path / "params.npz"), "--config", str(tmp_path / "config.json"),
             "--wav_dir", str(tmp_path / "wavs"), "--out", str(tmp_path / "hyp.tsv"),
-            "--device", "cpu"]
+            "--device", "cpu", "--packed"]
     built = []
 
     class Recording(cli.Transcriber):

@@ -454,7 +454,7 @@ REFUSED_FLAGS = [
     ([], "real data"), (["--grad_accum", "2"], "--grad_accum"),
     (["--multistep", "2"], "--multistep"), (["--fp32_control"], "--fp32_control"),
     (["--fsdp"], "--fsdp"), (["--tensor_parallel", "2"], "--tensor_parallel"),
-    (["--pipeline_stages", "2"], "--pipeline_stages"), (["--eval_beam"], "--eval_beam"),
+    (["--pipeline_stages", "2"], "--pipeline_stages"),
     (["--wandb"], "--wandb"), (["--profile_dir", "x"], "--profile_dir"),
     (["--quant_per_channel"], "quant_per_channel"), (["--quant_decoder"], "quant_decoder"),
     (["--reference_decoder"], "reference_decoder"),
@@ -472,6 +472,22 @@ def test_cli_refuses_what_is_not_ported(flags, names, tmp_path, capsys):
     assert not os.listdir(tmp_path)  # refused before anything is written
 
 
+def test_cli_eval_beam_trains_and_reports_beam_wer(tmp_path, capsys):
+    """--eval_beam: one tiny epoch on the CPU, evaluated with the device
+    beam at --beam_size; the logged WERs are the beam's."""
+    argv = ["--device", "cpu", "--dummy_data", "--epochs", "1", "--steps_per_epoch", "1",
+            "--batch_size", "4", "--eval_batches", "1", "--dummy_frames", "64",
+            "--save_dir", str(tmp_path), "--run_name", "b", "--eval_beam", "--beam_size", "3",
+            *TINY_CLI]
+    assert cli.main(argv) == 0
+    assert "wer" in capsys.readouterr().out
+    with open(tmp_path / "b" / "metrics.jsonl") as f:
+        logged = json.loads(f.readline())
+    assert logged["eval_utts"] == 4
+    for tag in ("32bit", "2bit", "1bit"):
+        assert np.isfinite(logged[f"wer_{tag}"]) and logged[f"wer_{tag}"] > 0
+
+
 def test_library_refusals():
     _, cfg = _configs()
     for change in (dict(fused_attention=True), dict(fused_subsampler=True),
@@ -484,8 +500,9 @@ def test_library_refusals():
     with pytest.raises(NotImplementedError, match="grad_accum"):
         make_train_step(model, AdamW(OptimConfig(), 10), LossConfig(), SpecialTokens(), 2,
                         grad_accum=2)
-    with pytest.raises(NotImplementedError, match="beam"):
-        evaluate_stream(model, None, [], LossConfig(), SpecialTokens(), 2, use_beam=True)
+    # beam evaluation is ported: no batches, no refusal
+    assert evaluate_stream(model, None, [], LossConfig(), SpecialTokens(), 2,
+                           use_beam=True)["eval_batches"] == 0
     with pytest.raises(RuntimeError, match="QAT form"):
         ConformerASR(cfg).forward_with_decoder(None, None, None, None)
 

@@ -285,10 +285,10 @@ def _write_wav(path, wav, sr=16000):
 
 
 def test_transcribe_cli_end_to_end(jax_params, tmp_path):
-    """The CLI on CPU: .npz params + config.json + a wav dir -> one line per
-    utterance, text through a tokenizer.json. Its ids equal the Transcriber
-    API's on the same waveforms, and its log-probs match the JAX pipeline
-    (JAX frontend + CMVN + packed model)."""
+    """The CLI on CPU, packed serving: .npz params + config.json + a wav dir
+    -> one line per utterance, text through a tokenizer.json. Its ids equal
+    the Transcriber API's on the same waveforms, and its log-probs match the
+    JAX pipeline (JAX frontend + CMVN + packed model)."""
     jcfg, cfg = _configs()
     wavs, lens = _waves(1)
     (tmp_path / "wavs" / "sub").mkdir(parents=True)
@@ -309,7 +309,7 @@ def test_transcribe_cli_end_to_end(jax_params, tmp_path):
     out = tmp_path / "hyp.tsv"
     argv = ["--params", str(tmp_path / "params.npz"), "--config", str(tmp_path / "config.json"),
             "--wav_dir", str(tmp_path / "wavs"), "--data_dir", str(data),
-            "--batch_size", "2", "--out", str(out), "--device", "cpu"]
+            "--batch_size", "2", "--out", str(out), "--device", "cpu", "--packed"]
     assert cli.main(argv) == 0
     rows = [line.rstrip("\n").split("\t") for line in out.read_text().splitlines()]
     assert sorted(r[0] for r in rows) == sorted(names + ["e"])
@@ -339,8 +339,10 @@ def test_port_runs_without_jax_or_the_jax_package():
     """The port and chip_smoke.py import neither jax nor onebit_asr_tpu: with
     both blocked, every module imports, a tiny packed forward runs on CPU
     unfused, with the fused subsampler and with the fused attention, a tiny
-    QAT model takes one 3-branch train step, and chip_smoke exits 1 without
-    its result line when there is no card."""
+    QAT model takes one 3-branch train step, its checkpoint is served back
+    (the inverse converter, the device beam with a packed LM, the host beam,
+    long-form windows) and evaluated, and chip_smoke exits 1 without its
+    result line when there is no card."""
     code = r"""
 import importlib, io, contextlib, pkgutil, sys, dataclasses
 sys.modules["jax"] = None
@@ -372,6 +374,29 @@ step = make_train_step(qat, AdamW(OptimConfig(), 10), LossConfig(), SpecialToken
 dm = DummyDataModule(batch_size=2, max_frames=48, max_tokens=4)
 state, aux = step(state, batch_to_device(next(iter(dm.train_batches(0))), "cpu"))
 assert state.step == 1 and torch.isfinite(aux["loss"]) and torch.isfinite(aux["grad_norm"])
+import numpy as np
+from onebit_asr_tpu_torch.convert import jax_tree_from_state_dict
+from onebit_asr_tpu_torch.decode import ctc_beam_search_batch
+from onebit_asr_tpu_torch.decode.beam_device import beam_search_device
+from onebit_asr_tpu_torch.decode.lm import NGramLM
+from onebit_asr_tpu_torch.decode.lm_device import DeviceLM
+from onebit_asr_tpu_torch.decode.longform import longform_greedy_decode
+from onebit_asr_tpu_torch.eval import evaluate_stream
+tree = jax_tree_from_state_dict(state.params, c)
+served = packed_model_from_jax(c, tree, device="cpu")
+_, mask, logits = served(torch.randn(2, 48, 80), torch.tensor([48, 30]))
+lp = torch.log_softmax(logits.float(), -1)
+lm = NGramLM(3).fit([[5, 6, 7, 5], [6, 7, 8]])
+ids, n = beam_search_device(lp, mask.sum(-1), beam_size=4, lm=DeviceLM.pack(lm), lm_weight=0.3)
+host = ctc_beam_search_batch(lp.numpy(), mask.sum(-1).numpy(), beam_size=4, lm=lm,
+                             lm_weight=0.3, prefer_native=False)
+assert host == [ids[b, : n[b]].tolist() for b in range(2)]
+k = longform_greedy_decode(served, np.random.randn(90, 80).astype(np.float32), None, 3,
+                           chunk_frames=40, overlap_frames=8)[1]
+assert k >= 0
+m = evaluate_stream(qat, state.params, [next(iter(dm.valid_batches()))], LossConfig(),
+                    SpecialTokens(), 1, use_beam=True, beam_size=3, device="cpu")
+assert m["eval_utts"] == 2 and np.isfinite(m["loss_2bit"])
 import chip_smoke
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
