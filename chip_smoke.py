@@ -7,7 +7,8 @@ Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
 3-branch QAT train step of the same model and the train CLI, then serves and
-evaluates the runs the train CLI wrote:
+evaluates the runs the train CLI wrote, then trains, evaluates and serves on
+a seeded data dir through the real-data path:
 
 1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
    started together, then one link) and prints the time and each kernel's
@@ -153,12 +154,15 @@ evaluates the runs the train CLI wrote:
    slows): the runs step 8 wrote (Conformer-M at full width, the synthetic
    backend's vocabulary of 32; "smoke" unfused, "smoke_fs_fa" with both
    fused flags) are restored from their checkpoints and served on step 3's
-   8 waveforms through `transcribe --checkpoint`: packed at precision 2 and
-   1, with --int8_act and under the fused flags, each launching its packed
-   kernel 108 times a batch (and the fused kernels once and 12 times), its
-   ids equal to `Transcriber`'s on `jax_tree_from_state_dict` of the
-   restored parameters; unpacked (the QAT model) at precision 32, 2 and 1
-   under the fused flags, its CTC log-probs held against the same model on
+   8 waveforms through `transcribe --checkpoint` (with a character-level
+   tokenizer over their vocabulary: a run without one exits 2): packed at
+   precision 2 and 1, with --int8_act and under the fused flags, each
+   launching its packed kernel 108 times a batch (and the fused kernels once
+   and 12 times), the ids it decodes (`decoded_ids`) equal to
+   `Transcriber`'s on `jax_tree_from_state_dict` of the restored
+   parameters, and its text to theirs decoded by the tokenizer; unpacked
+   (the QAT model) at precision 32, 2 and 1 under the fused flags, the
+   same, and its CTC log-probs held against the same model on
    the plain versions at step 3's tolerances (mean |d| <= 0.05, argmax
    agreement >= 0.9); with --beam_size 10, with and without a 3-gram LM.
    The device beam is held against the native host beam on the same f32
@@ -173,7 +177,33 @@ evaluates the runs the train CLI wrote:
    the beam and --packed, printing loss, WER and CER per precision, with
    the CTC alpha kernel once per batch and precision. The device kernels
    and copies of one batch of each decode mode are counted with
-   torch.profiler at the end.
+   torch.profiler at the end;
+14. real data (run after step 13, before the device steps 9-12: it times
+   steps): a seeded data dir written with the port's own `write_manifest`
+   (train 48, dev 8, test 8 synthetic waveforms of 2-10 s in npz shards, a
+   character-level tokenizer.model, CMVN statistics by the port's frontend,
+   token ids in every other manifest row) and a copy with a float16
+   feature cache. SpecAugment on the card must equal the CPU bit for bit on
+   the same starts (f32 and f16). `python -m onebit_asr_tpu_torch.train
+   --data_dir` (in process) trains Conformer-M under both fused flags with
+   SpecAugment and prefetch depth 4, B=16 in 3 length buckets, 3 steps an
+   epoch for 2 epochs: finite losses, `input_wait_frac` logged, rows 3-8
+   launched as step 8 counts them, at least two bucket lengths T; ms per
+   step (CUDA events) by T beside step 7's, peak memory. At each of the
+   run's bucket lengths T (first training batch of each bucket), one step's
+   loss and gradients on the kernels are held against the same step with
+   the plain attention, the plain subsampler and the plain lattices in turn
+   (step 7's tolerances), and the forward alone against all plain versions
+   (aux within 1e-2). A second run of 2 steps on the feature cache must
+   never call the frontend. `eval --data_dir --splits dev,test` launches
+   row 7 once per batch and precision; `transcribe --split test --packed`
+   (precision 2, and with --int8_act) launches rows 1-2 108 times a batch,
+   writes the manifest's utt_ids in the data module's order, and the ids it
+   decodes equal `Transcriber`'s; with an empty --data_dir it exits 2.
+   `--no_real_data` skips this step.
+
+`device_ms` retakes a profile that lost launches (up to 5 profiles) and the
+script prints how many profiles each call took.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -188,6 +218,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -204,6 +235,8 @@ SAMPLE_RATE = 16000
 TRAIN_STEPS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # where the training phases run
+STEP_MS = {}  # step 7's ms per step by label, printed beside step 14's
+PROFILES = []  # profiles device_ms took per call (tries + 1: none complete)
 
 
 def log(msg: str) -> None:
@@ -336,7 +369,7 @@ def kernel_phase(cfg, t_pad, seed):
     return rows
 
 
-def device_ms(fn, iters: int = 20, tries: int = 3, per_kernel: bool = False):
+def device_ms(fn, iters: int = 20, tries: int = 5, per_kernel: bool = False):
     """(device ms per call, kernel names) of `fn` under torch.profiler: each
     kernel's mean duration times its launches per call, without launch gaps.
     A profile in which a kernel ran on fewer calls than were made (a
@@ -346,7 +379,7 @@ def device_ms(fn, iters: int = 20, tries: int = 3, per_kernel: bool = False):
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
-    for _ in range(tries):
+    for n in range(1, tries + 1):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -362,7 +395,11 @@ def device_ms(fn, iters: int = 20, tries: int = 3, per_kernel: bool = False):
             # each kernel's mean duration times its launches per call (a call
             # of a library op may launch one kernel several times)
             per = {k: sum(v) / len(v) * (len(v) // iters) for k, v in by_name.items()}
+            PROFILES.append(n)
             return sum(per.values()), per if per_kernel else sorted(by_name)
+        log(f"device_ms: profile {n} of {tries} lost launches (events per kernel: {counts}); "
+            f"taking it again")
+    PROFILES.append(tries + 1)
     raise AssertionError(f"the profiler recorded no complete profile of {iters} calls in "
                          f"{tries} tries (events per kernel in the last: {counts})")
 
@@ -1187,6 +1224,104 @@ def cmvn_of(batch, lens):
     return v.mean(0).cpu().numpy(), v.std(0).clamp(min=1e-8).cpu().numpy()
 
 
+DATA_ALPHABET = "ABCDEFGHIJKLMNOPQRSTUVW"  # with the word marker, 24 pieces:
+# the 4 reserved ones make a subword vocabulary of 28, a model vocabulary of 32
+
+
+def write_char_tokenizer(directory):
+    """A character-level SentencePiece tokenizer.model in `directory`: the
+    4 reserved pieces, the word marker and DATA_ALPHABET (model vocabulary
+    32, the synthetic backend's). No piece merges, so a text encodes to one
+    piece per character. Decoding is lossy: model ids 0-3 are dropped, and
+    4, 6 and 7 (the control pieces) decode to nothing, so a comparison of
+    what a CLI served holds its ids (`decoded_ids`), not only its text."""
+    from onebit_asr_tpu_torch.data import spm
+
+    pieces = [("<blank>", 0.0, spm.CONTROL), ("<unk>", 0.0, spm.UNKNOWN),
+              ("<sos>", 0.0, spm.CONTROL), ("<eos>", 0.0, spm.CONTROL),
+              (spm.SPACE, 0.0, spm.NORMAL)]
+    pieces += [(c, 0.0, spm.NORMAL) for c in DATA_ALPHABET]
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "tokenizer.model")
+    with open(path, "wb") as f:
+        f.write(spm.write_model_proto(pieces))
+    return path
+
+
+DATA_SPLITS = (("train", 48), ("dev", 8), ("test", 8))
+
+
+def write_data_dir(root, seed, splits=DATA_SPLITS, seconds=(2.0, 10.0), device=None,
+                   cached=True):
+    """A seeded data dir `root/data` in the layout the data module reads:
+    per split a manifest (the port's `write_manifest`) and one npz shard of
+    waveforms keyed by utt_id, durations spread evenly over `seconds` (tone
+    mixtures + noise), texts of words over DATA_ALPHABET (~3 characters a
+    second), token ids in the manifest for every other row (the data module
+    encodes the rest), a character-level tokenizer.model, and
+    cmvn_stats.npz over the train split by the port's frontend on `device`
+    (default DEVICE). With `cached`, `root/cached` is a copy whose manifests
+    carry a float16 feature cache (one `{split}_feats.npy` per split, CMVN
+    applied), as a prepare-time cache does. Returns (data dir, cached dir or
+    None)."""
+    from onebit_asr_tpu_torch.data import Utterance, write_manifest
+    from onebit_asr_tpu_torch.data.text import AsrTokenizer
+    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn
+
+    device = device or DEVICE
+    rng = np.random.default_rng(seed + 14)
+    data = os.path.join(root, "data")
+    tok = AsrTokenizer.load(write_char_tokenizer(data))
+    fe = LogMelFrontend()
+    manifests, wavs = {}, {}
+    for split, n in splits:
+        secs = rng.permutation(np.linspace(seconds[0], seconds[1], n))
+        shard = f"{split}_shard00000.npz"
+        utts = []
+        for i, sec in enumerate(secs):
+            uid = f"{split}-{i:06d}"
+            t = np.arange(int(sec * SAMPLE_RATE) + int(rng.integers(0, 160))) / SAMPLE_RATE
+            w = sum(np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3))
+                    for f in rng.uniform(100.0, 3000.0, size=3))
+            wavs[uid] = (0.05 * w + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
+            words, chars = [], int(3 * sec)
+            while sum(map(len, words)) < chars:
+                words.append("".join(rng.choice(list(DATA_ALPHABET), rng.integers(2, 7))))
+            text = " ".join(words)
+            utts.append(Utterance(utt_id=uid, shard=shard, index=i,
+                                  num_samples=len(wavs[uid]), text=text,
+                                  tokens=tok.encode(text) if i % 2 == 0 else []))
+        np.savez(os.path.join(data, shard), **{u.utt_id: wavs[u.utt_id] for u in utts})
+        write_manifest(os.path.join(data, f"{split}_manifest.jsonl"), utts)
+        manifests[split] = utts
+
+    feats = {}
+    for uid, w in wavs.items():
+        w = torch.from_numpy(w)[None].to(device)
+        feats[uid] = fe(w, torch.tensor([w.shape[1]], device=device))[0][0]
+    v = torch.cat([feats[u.utt_id] for u in manifests["train"]]).double()
+    cmvn = (v.mean(0).float(), v.std(0, correction=0).clamp(min=1e-8).float())
+    np.savez(os.path.join(data, "cmvn_stats.npz"), mean=cmvn[0].cpu().numpy(),
+             std=cmvn[1].cpu().numpy())
+    if not cached:
+        return data, None
+
+    cache = os.path.join(root, "cached")
+    os.makedirs(cache)
+    for name in os.listdir(data):
+        if not name.endswith("_manifest.jsonl"):
+            shutil.copy(os.path.join(data, name), cache)
+    for split, utts in manifests.items():
+        fs = [apply_cmvn(feats[u.utt_id], *cmvn).half().cpu().numpy() for u in utts]
+        offsets = np.cumsum([0] + [len(f) for f in fs])
+        np.save(os.path.join(cache, f"{split}_feats.npy"), np.concatenate(fs))
+        write_manifest(os.path.join(cache, f"{split}_manifest.jsonl"), [
+            dataclasses.replace(u, feat_shard=f"{split}_feats.npy", feat_index=int(o),
+                                num_frames=len(f))
+            for u, f, o in zip(utts, fs, offsets)])
+    return data, cache
+
+
 def _use_plain(model, int8_act):
     """Point every kernel wrapper of `model` at its plain version."""
     from onebit_asr_tpu_torch.model.conformer import RelPosMHSA
@@ -1691,6 +1826,7 @@ def train_step_phase(cfg, seed, rows, kernels):
               ("fused_subsample_bwd",) if cfg.fused_subsampler else ("ctc_alpha", "ctc_beta")):
         rows[k]["launches"] = counts[k]
     ms = start.elapsed_time(end) / TRAIN_STEPS
+    STEP_MS[label] = ms
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     losses = [{k: float(v) for k, v in a.items()} for a in auxes]
     if not all(np.isfinite(list(l.values())).all() for l in losses):
@@ -1840,10 +1976,38 @@ LONG_SECONDS = 75.0
 
 
 def _hyps(path):
-    """{utt_id: [ids]} of a transcribe output written without a tokenizer."""
+    """{utt_id: text} of a transcribe output."""
     with open(path) as f:
-        rows = [line.rstrip("\n").split("\t") for line in f]
-    return {u: [int(x) for x in text.split()] for u, text in rows}
+        return dict(line.rstrip("\n").split("\t") for line in f)
+
+
+@contextlib.contextmanager
+def decoded_ids():
+    """Records the ids of every AsrTokenizer.ids_to_text call (any
+    instance) for the duration, in call order: yields the list. A
+    transcribe CLI decodes once a line, in the order of its lines."""
+    from onebit_asr_tpu_torch.data.text import AsrTokenizer
+
+    record, real = [], AsrTokenizer.ids_to_text
+
+    def recording(self, ids):
+        record.append([int(i) for i in ids])
+        return real(self, ids)
+
+    AsrTokenizer.ids_to_text = recording
+    try:
+        yield record
+    finally:
+        AsrTokenizer.ids_to_text = real
+
+
+def _lines_ids(path, record):
+    """{utt_id: the ids the CLI decoded into that line}."""
+    with open(path) as f:
+        uids = [line.split("\t")[0] for line in f]
+    if len(uids) != len(record):
+        raise AssertionError(f"{path}: {len(uids)} lines, {len(record)} decodes")
+    return dict(zip(uids, record))
 
 
 def _lm_for(vocab, seed):
@@ -1958,6 +2122,10 @@ def serve_phase(root, kernels, seed):
     paths = {k: os.path.join(inputs, k) for k in ("wavs", "data", "long", "lm.npz")}
     write_wavs(paths["wavs"], wavs)
     write_cmvn(paths["data"], cmvn)
+    # a `--checkpoint` run needs its tokenizer: one over the runs' vocabulary
+    from onebit_asr_tpu_torch.data.text import AsrTokenizer
+
+    tok = AsrTokenizer.load(write_char_tokenizer(paths["data"]))
     rng = np.random.default_rng(seed + 13)
     secs = np.arange(int(LONG_SECONDS * SAMPLE_RATE)) / SAMPLE_RATE
     long_wav = (0.05 * sum(np.sin(2 * np.pi * f * secs + rng.uniform(0, 6.3))
@@ -1983,9 +2151,10 @@ def serve_phase(root, kernels, seed):
         for fn in kernels.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        rc = cli.main(["--checkpoint", runs[run][0], "--wav_dir", wav_dir, "--data_dir",
-                       paths["data"], "--batch_size", str(BATCH), "--out", out,
-                       "--device", DEVICE, *extra])
+        with decoded_ids() as record:
+            rc = cli.main(["--checkpoint", runs[run][0], "--wav_dir", wav_dir, "--data_dir",
+                           paths["data"], "--batch_size", str(BATCH), "--out", out,
+                           "--device", DEVICE, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
@@ -1994,7 +2163,7 @@ def serve_phase(root, kernels, seed):
         hyps = _hyps(out)
         log(f"serve cli {label}: transcribe --checkpoint {run} {' '.join(extra)}: rc=0 "
             f"launches={counts} utterances={len(hyps)} wall_s={wall:.2f}")
-        return hyps
+        return hyps, _lines_ids(out, record)
 
     # the batch as the CLI makes it (length-sorted), so that the Transcriber
     # sees the same rows in the same order (batch statistics)
@@ -2002,13 +2171,15 @@ def serve_phase(root, kernels, seed):
     max_samples = fe.frame_len + (runs["smoke"][1].data.max_frames - 1) * fe.frame_shift
     wb = next(cli._wav_dir_batches(paths["wavs"], BATCH, max_samples))
 
-    def same_ids(label, hyps, t):
+    def same_ids(label, served, t):
+        hyps, got = served
         ids, n = t.transcribe(wb["wavs"], wb["wav_lens"])
-        want = {u: ids[b, : n[b]].tolist() for b, u in enumerate(wb["utt_ids"])}
-        if hyps != want:
-            bad = [u for u in want if hyps.get(u) != want[u]]
-            raise AssertionError(f"serve {label}: CLI ids differ from the Transcriber's on "
-                                 f"{bad}")
+        want = {u: [int(i) for i in ids[b, : n[b]]] for b, u in enumerate(wb["utt_ids"])}
+        text = {u: tok.ids_to_text(v) for u, v in want.items()}
+        if got != want or hyps != text:
+            bad = [u for u in want if got.get(u) != want[u] or hyps.get(u) != text[u]]
+            raise AssertionError(f"serve {label}: the CLI's ids or text differ from the "
+                                 f"Transcriber's on {bad}")
 
     # packed serving: each run's packed kernel 108 times a batch
     for label, run, extra, precision, int8_act, want in (
@@ -2016,20 +2187,20 @@ def serve_phase(root, kernels, seed):
             ("packed p1", "smoke", ["--precision", "1"], 1, False, {"ternary_matmul_bf16": L}),
             ("packed int8", "smoke", ["--int8_act"], 2, True, {"ternary_matmul_w2a8": L}),
             ("packed fused", "smoke_fs_fa", [], 2, False, {"ternary_matmul_bf16": L, **fused})):
-        hyps = transcribe(label, run, ["--packed", *extra], want)
+        served = transcribe(label, run, ["--packed", *extra], want)
         _, cfg, tree = runs[run]
-        same_ids(label, hyps, cli.Transcriber(cfg, tree, precision, int8_act, cmvn, DEVICE))
-    log("serve packed: the CLI's ids equal Transcriber's on jax_tree_from_state_dict of the "
-        "restored parameters")
+        same_ids(label, served, cli.Transcriber(cfg, tree, precision, int8_act, cmvn, DEVICE))
+    log("serve packed: the ids the CLI decoded equal Transcriber's on jax_tree_from_state_dict "
+        "of the restored parameters exactly, and its text equals theirs decoded")
 
     # unpacked serving: the QAT model; under the fused flags their kernels
     transcribe("unpacked p2 unfused", "smoke", [], {})
     for precision in (32, 2, 1):
         label = f"unpacked p{precision}"
-        hyps = transcribe(label, "smoke_fs_fa", ["--precision", str(precision)], fused)
+        served = transcribe(label, "smoke_fs_fa", ["--precision", str(precision)], fused)
         _, cfg, tree = runs["smoke_fs_fa"]
         t = cli.Transcriber(cfg, tree, precision, cmvn=cmvn, device=DEVICE, packed=False)
-        same_ids(label, hyps, t)
+        same_ids(label, served, t)
         lp, enc_lens = t.log_probs(wb["wavs"], wb["wav_lens"])
         _use_plain(t.model, False)
         lp_ref, _ = t.log_probs(wb["wavs"], wb["wav_lens"])
@@ -2072,7 +2243,7 @@ def serve_phase(root, kernels, seed):
                 setattr(t, "beam_size", b), setattr(t, "lm", l), t.transcribe(batch, lens)))))
 
     # long-form: 75 s in 30 s windows overlapping by 4 s
-    hyps = transcribe("longform", "smoke_fs_fa", [
+    hyps, got = transcribe("longform", "smoke_fs_fa", [
         "--packed", "--longform", "--chunk_seconds", "30", "--overlap_seconds", "4"],
         {"ternary_matmul_bf16": L, **fused}, wav_dir=paths["long"])
     _, cfg, tree = runs["smoke_fs_fa"]
@@ -2081,8 +2252,10 @@ def serve_phase(root, kernels, seed):
     pcm = pcm16(long_wav).astype(np.float32) / 32768.0
     frames = 1 + (len(pcm) - t.frontend.frame_len) // t.frontend.frame_shift
     windows = max(1, -(-max(frames - overlap, 1) // (chunk - overlap)))
-    if windows != 3 or hyps["long"] != t.longform(pcm, chunk, overlap).tolist():
-        raise AssertionError(f"serve longform: {windows} windows, or CLI ids differ")
+    ids = [int(i) for i in t.longform(pcm, chunk, overlap)]
+    if windows != 3 or got["long"] != ids or hyps["long"] != tok.ids_to_text(ids):
+        raise AssertionError(f"serve longform: {windows} windows, or the CLI's ids or text "
+                             f"differ")
     lp = t.longform_log_probs(pcm, chunk, overlap)
     _use_plain(t.model, False)
     _compare_frames(f"longform ({LONG_SECONDS:.0f} s, {windows} windows of {chunk} frames, "
@@ -2112,6 +2285,335 @@ def serve_phase(root, kernels, seed):
     return counted
 
 
+@contextlib.contextmanager
+def counted_frontend():
+    """Counts LogMelFrontend calls (any instance, any thread) for the
+    duration: yields a one-element list."""
+    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend
+
+    calls, real = [0], LogMelFrontend.__call__
+
+    def counting(self, *a, **k):
+        calls[0] += 1
+        return real(self, *a, **k)
+
+    LogMelFrontend.__call__ = counting
+    try:
+        yield calls
+    finally:
+        LogMelFrontend.__call__ = real
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Every train step made by train.make_train_step for the duration,
+    recorded as (T of its feats, CUDA start event, end event) in the
+    yielded list."""
+    import onebit_asr_tpu_torch.train as train_pkg
+
+    record, real = [], train_pkg.make_train_step
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def timed(state, batch):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(state, batch)
+            end.record()
+            record.append((int(batch["feats"].shape[1]), start, end))
+            return out
+        return timed
+
+    train_pkg.make_train_step = make
+    try:
+        yield record
+    finally:
+        train_pkg.make_train_step = real
+
+
+def bucket_kernel_check(kernels, run, dm, seed):
+    """Rows 3-8 at the shapes the real-data run gave them. For the first
+    training batch of each length bucket (SpecAugment on), one step's loss
+    and gradients on the kernels against the same step, from the same
+    parameters, mask and dropout seeds, with each kernel pair on its plain
+    version in turn (step 7's tolerances); then the forward without a
+    gradient (rows 3 and 5 in their serving form, row 7 without row 8)
+    against every plain version at once. The run's config; random weights
+    from `seed`."""
+    from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+    from onebit_asr_tpu_torch.train import create_train_state
+    from onebit_asr_tpu_torch.train.step import (batch_to_device, make_batch_loss,
+                                                 sample_sp_mask, value_and_grad)
+    from onebit_asr_tpu_torch.utils.checkpoint import load_config
+    from onebit_asr_tpu_torch.utils.config import LossConfig
+
+    cfg = load_config(run).model
+    L = cfg.enc_layers
+    model = qat_model_from_jax(cfg, init_params(cfg, seed), device=DEVICE)
+    params = create_train_state(model, seed).params
+    batch_loss = make_batch_loss(model, LossConfig(), cfg.specials, L)
+    sp = sample_sp_mask(torch.Generator().manual_seed(seed + 1), L)
+    batches = {}
+    for b in dm.featurized_batches("train", 0, augment=True):
+        batches.setdefault(int(b["feats"].shape[1]), batch_to_device(b, DEVICE))
+
+    def run_(batch, grad=True):
+        gens = [torch.Generator(device=DEVICE).manual_seed(seed + i) for i in range(3)]
+        for fn in kernels.values():
+            fn.launches = 0
+        if grad:
+            (_, aux), grads = value_and_grad(batch_loss, params, batch, sp, gens)
+        else:
+            with torch.no_grad():
+                _, aux = batch_loss(params, batch, sp, gens)
+            grads = None
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        return {k: float(v) for k, v in aux.items()}, grads, counts
+
+    def aux_err(a, ref):
+        return max(abs(a[k] - ref[k]) / abs(ref[k]) for k in ref)
+
+    pairs = (("plain attention", lambda: swapped_attention(model, fa.fused_relpos_attention_plain),
+              1e-2, 0.1, ("fused_relpos_attention", "fused_relpos_attention_bwd")),
+             ("plain subsampler", lambda: swapped_subsample(model, ss.fused_subsample_plain),
+              1e-2, 0.1, ("fused_subsample", "fused_subsample_bwd")),
+             ("plain CTC", plain_ctc, 1e-4, 1e-2, ("ctc_alpha", "ctc_beta")))
+    want = {"ctc_alpha": 1, "ctc_beta": 1, "fused_relpos_attention": 3 * L,
+            "fused_relpos_attention_bwd": 3 * L, "fused_subsample": 3, "fused_subsample_bwd": 3}
+    want_fwd = {"ctc_alpha": 1, "fused_relpos_attention": 3 * L, "fused_subsample": 3}
+    for T, batch in sorted(batches.items()):
+        what = (f"real data kernels at B={batch['feats'].shape[0]} T={T} "
+                f"(T'={padded_frames(T, cfg)})")
+        aux_k, grads_k, counts = run_(batch)
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}, want {want}")
+        for plain, swap, aux_tol, grad_tol, rows in pairs:
+            with swap():
+                aux_p, grads_p, counts = run_(batch)
+            err, (grad_err, _) = aux_err(aux_k, aux_p), _grads_cmp(grads_k, grads_p)
+            log(f"{what} vs {plain}: aux max relative |d|={err:.3g} (tolerance {aux_tol}) "
+                f"grads |d|/|g|={grad_err:.3g} (tolerance {grad_tol}) loss_ctc_2bit="
+                f"{aux_k['loss_ctc_2bit']:.6g}/{aux_p['loss_ctc_2bit']:.6g}")
+            if any(counts.get(k) for k in rows) or err > aux_tol or grad_err > grad_tol:
+                raise AssertionError(f"{what}: the kernels stray from the {plain} (or the "
+                                     f"plain run launched them: {counts})")
+            del grads_p
+        del grads_k
+        aux_k, _, counts = run_(batch, grad=False)
+        with contextlib.ExitStack() as stack:
+            for _, swap, *_ in pairs:
+                stack.enter_context(swap())
+            aux_p, _, counts_p = run_(batch, grad=False)
+        err = aux_err(aux_k, aux_p)
+        log(f"{what}, forward alone vs every plain version: aux max relative |d|={err:.3g} "
+            f"(tolerance 1e-2) launches={counts}")
+        if counts != want_fwd or counts_p or err > 1e-2:
+            raise AssertionError(f"{what}, forward alone: launches {counts}, want {want_fwd}, "
+                                 f"plain {counts_p}; aux |d| {err:.3g}")
+    return sorted(batches)
+
+
+def padded_frames(T, cfg):
+    """T' of T frames: subsampled, padded to the model's multiple."""
+    from onebit_asr_tpu_torch.model.conformer import subsampled_frames
+
+    return -(-subsampled_frames(T) // cfg.time_pad_multiple) * cfg.time_pad_multiple
+
+
+REAL_EPOCHS, REAL_STEPS = 2, 3  # steps per epoch: one batch of each of the 3 buckets
+
+
+def real_data_phase(kernels, seed, smi):
+    """Step 14: the real-data path at Conformer-M full width through the
+    CLIs a user calls, on a seeded data dir; see the module docstring."""
+    from onebit_asr_tpu_torch.cli import evaluate as ecli
+    from onebit_asr_tpu_torch.cli import train as tcli
+    from onebit_asr_tpu_torch.cli import transcribe as cli
+    from onebit_asr_tpu_torch.convert import jax_tree_from_state_dict
+    from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
+    from onebit_asr_tpu_torch.data.text import AsrTokenizer
+    from onebit_asr_tpu_torch.ops.specaugment import draw_starts, spec_augment_from_config
+    from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
+    from onebit_asr_tpu_torch.utils.config import DataConfig, ModelConfig
+
+    t_phase = time.perf_counter()
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        t0 = time.perf_counter()
+        data, cached = write_data_dir(root, seed)
+        n_utts = {split: n for split, n in DATA_SPLITS}
+        log(f"real data: wrote {n_utts} utterances of 2-10 s (+ the float16 feature cache) "
+            f"in {time.perf_counter() - t0:.2f} s")
+        tok = AsrTokenizer.find_and_load(data)
+
+        # SpecAugment on the card against the CPU on the same starts
+        dm = LibriSpeechDataModule(data, tok, DataConfig(data_dir=data, batch_size=16,
+                                                         num_buckets=3), device=DEVICE)
+        b = next(dm.featurized_batches("train", 0))
+        lens = b["feat_lens"].cpu()
+        starts = torch.from_numpy(draw_starts(np.random.default_rng(seed), lens.numpy(),
+                                              b["feats"].shape[-1], dm.frontend.cfg))
+        for dtype in (torch.float32, torch.float16):
+            x = b["feats"].to(dtype)
+            got = spec_augment_from_config(x, b["feat_lens"], starts.to(DEVICE),
+                                           dm.frontend.cfg).cpu()
+            want = spec_augment_from_config(x.cpu(), lens, starts, dm.frontend.cfg)
+            if not torch.equal(got, want):
+                raise AssertionError(f"real data: SpecAugment on the card differs from the CPU "
+                                     f"({dtype})")
+            log(f"real data: SpecAugment {dtype} B={x.shape[0]} T={x.shape[1]} on the card "
+                f"equals the CPU bit for bit on the same starts ({int((got == 0).sum())} "
+                f"zeros)")
+
+        # train: Conformer-M under both fused flags, SpecAugment on, prefetch 4
+        L = ModelConfig().enc_layers
+        argv = ["--preset", "m", "--batch_size", "16", "--num_buckets", "3",
+                "--eval_batches", "1", "--fused_attention", "--fused_subsampler",
+                "--prefetch_depth", "4", "--save_dir", root, "--device", DEVICE]
+
+        def want_train(steps, evals):
+            return {"ctc_alpha": steps + 3 * evals, "ctc_beta": steps,
+                    "fused_relpos_attention": 3 * L * (steps + evals),
+                    "fused_relpos_attention_bwd": 3 * L * steps,
+                    "fused_subsample": 3 * (steps + evals), "fused_subsample_bwd": 3 * steps}
+
+        def train(label, data_dir, epochs, steps):
+            for fn in kernels.values():
+                fn.launches = 0
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with counted_frontend() as fe_calls, timed_steps() as record, \
+                    contextlib.redirect_stdout(out):
+                rc = tcli.main(["--data_dir", data_dir, "--epochs", str(epochs),
+                                "--steps_per_epoch", str(steps), "--run_name", label, *argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+            for line in out.getvalue().splitlines():
+                log(f"real data train {label}: {line}")
+            want = want_train(epochs * steps, epochs)
+            if rc != 0 or counts != want:
+                raise AssertionError(f"real data train {label}: rc={rc} launches {counts}, "
+                                     f"want {want}")
+            with open(os.path.join(root, label, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+            if len(metrics) != epochs or not all(
+                    np.isfinite(m["train_loss"]) and 0.0 <= m["input_wait_frac"] <= 1.0
+                    for m in metrics):
+                raise AssertionError(f"real data train {label}: metrics {metrics}")
+            step_ms = [(T, s.elapsed_time(e)) for T, s, e in record]
+            per_T = {T: [round(ms, 2) for t, ms in step_ms if t == T]
+                     for T in sorted({T for T, _ in step_ms})}
+            log(f"real data train {label}: rc=0 wall_s={wall:.2f} steps={len(step_ms)} "
+                f"launches={counts} (per step: 1 + 1 lattice, 3 + 3 subsampler, {3 * L} + "
+                f"{3 * L} attention; per evaluation 3 x (1 lattice, 1 subsampler, {L} "
+                f"attention)) frontend_calls={fe_calls[0]}")
+            log(f"real data train {label}: ms_per_step by T {per_T} (CUDA events around the "
+                f"step, the producer's work queued between them included; first of each T "
+                f"a warm-up) median_ms={float(np.median([ms for _, ms in step_ms])):.2f} "
+                f"input_wait_frac={[round(m['input_wait_frac'], 4) for m in metrics]} "
+                f"train_loss={[round(m['train_loss'], 4) for m in metrics]} "
+                f"peak_mem_gb={peak_gb:.3f} [{smi}]")
+            return per_T, fe_calls[0]
+
+        per_T, fe_calls = train("real", data, REAL_EPOCHS, REAL_STEPS)
+        if len(per_T) < 2 or fe_calls == 0:
+            raise AssertionError(f"real data train: bucket lengths {sorted(per_T)}, "
+                                 f"frontend calls {fe_calls}")
+        checked = bucket_kernel_check(kernels, os.path.join(root, "real"), dm, seed)
+        dm.close()
+        if checked != sorted(per_T):
+            raise AssertionError(f"real data: kernels checked at T {checked}, the run's T "
+                                 f"{sorted(per_T)}")
+        log(f"real data train: beside step 7's synthetic step (B=16, T=1024) ms_per_step "
+            f"{ {k: round(v, 2) for k, v in STEP_MS.items()} } [{smi}]")
+        _, fe_calls = train("real_cached", cached, 1, 2)
+        if fe_calls:
+            raise AssertionError(f"real data train on the feature cache called the frontend "
+                                 f"{fe_calls} times")
+
+        # evaluate dev and test: per batch and precision one lattice launch
+        run = os.path.join(root, "real")
+        for fn in kernels.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = ecli.main(["--checkpoint", run, "--data_dir", data, "--splits", "dev,test",
+                            "--greedy", "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        for line in out.getvalue().splitlines():
+            log(f"real data eval: {line}")
+        want = {"ctc_alpha": 6, "fused_relpos_attention": 6 * L, "fused_subsample": 6}
+        if rc != 0 or counts != want or out.getvalue().count("CER") != 6:
+            raise AssertionError(f"real data eval: rc={rc} launches {counts}, want {want}")
+        log(f"real data eval: rc=0 dev,test (1 batch each) x 32/2/1 bits launches={counts} "
+            f"wall_s={wall:.2f}")
+
+        # transcribe the test split packed: 108 packed launches a batch
+        cfg = load_config(run)
+        _, sd = restore_params(os.path.join(run, "ckpt"))
+        tree = jax_tree_from_state_dict(sd, cfg.model)
+        dm = LibriSpeechDataModule(data, tok, DataConfig(data_dir=data, batch_size=BATCH),
+                                   splits=("test",), frontend_cfg=cfg.frontend, device=DEVICE)
+        with np.load(os.path.join(data, "cmvn_stats.npz")) as stats:
+            cmvn = (stats["mean"], stats["std"])
+        fused = {"fused_subsample": 1, "fused_relpos_attention": L}
+        for extra, int8_act, want in (
+                ([], False, {"ternary_matmul_bf16": 9 * L, **fused}),
+                (["--int8_act"], True, {"ternary_matmul_w2a8": 9 * L, **fused})):
+            path = os.path.join(root, f"hyp{len(extra)}.tsv")
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with decoded_ids() as record:
+                rc = cli.main(["--checkpoint", run, "--split", "test", "--packed", "--out",
+                               path, "--device", DEVICE, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+            with open(path) as f:
+                rows = [line.rstrip("\n").split("\t") for line in f]
+            t = cli.Transcriber(cfg, tree, 2, int8_act, cmvn, DEVICE)
+            expect, expect_ids = [], []
+            for wb in dm.wav_batches("test", shuffle=False, batch_size=BATCH):
+                ids, n = t.transcribe(wb["wavs"], wb["wav_lens"])
+                expect_ids += [[int(x) for x in ids[i, : n[i]]] for i in range(len(n))]
+                expect += [[u, tok.ids_to_text(ids[i, : n[i]])]
+                           for i, u in enumerate(wb["utt_ids"])]
+            if rc != 0 or counts != want or rows != expect or record != expect_ids:
+                raise AssertionError(f"real data transcribe --split test {extra}: rc={rc} "
+                                     f"launches {counts}, want {want}; rows equal to the "
+                                     f"data module's order and Transcriber's text: "
+                                     f"{rows == expect}, decoded ids equal to Transcriber's: "
+                                     f"{record == expect_ids}")
+            log(f"real data transcribe --split test --packed {' '.join(extra)}: rc=0 "
+                f"launches={counts} utterances={len(rows)} (the manifest's utt_ids in the "
+                f"data module's order, the decoded ids equal to Transcriber's, and so the "
+                f"text) wall_s={wall:.2f}")
+            del t
+        dm.close()
+        empty = os.path.join(root, "empty")
+        os.makedirs(empty)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["--checkpoint", run, "--split", "test", "--data_dir", empty,
+                           "--device", DEVICE])
+        if rc != 2 or "no tokenizer artifact" not in err.getvalue():
+            raise AssertionError(f"transcribe without a tokenizer: rc={rc}, want 2")
+        log("real data transcribe --data_dir <empty>: rc=2 (no tokenizer artifact)")
+    log(f"real data: phase wall_s={time.perf_counter() - t_phase:.2f} [{smi}]")
+
+
 def launches_per_batch(label, fn):
     """Device kernels (and copies) one call of `fn` runs (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -2134,12 +2636,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also print where one batch's device time goes")
+    ap.add_argument("--no_real_data", action="store_true",
+                    help="skip step 14 (to tell its effect on the later device steps)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
     from onebit_asr_tpu_torch.convert import init_params
     from onebit_asr_tpu_torch.model.conformer import subsampled_frames
@@ -2201,6 +2710,11 @@ def main(argv=None) -> int:
         served = serve_phase(runs, kernels, args.seed)
     log("serve: the runs the train CLI wrote were served packed and unpacked, greedy, "
         "with the beam and the LM and long-form, and evaluated, on the kernels")
+    if not args.no_real_data:  # times steps: before any profiler run too
+        real_data_phase(kernels, args.seed, smi)
+        log("real data: trained over three bucket lengths on the wav and the feature-cache "
+            "paths, held rows 3-8 against their plain versions at each bucket's shapes, "
+            "evaluated and transcribed through the CLIs, on the kernels")
     kernel_device_phase(cfg, t_pad, args.seed, rows)
     subsample_device_phase(cfg, frames, args.seed, rows)
     attention_device_phase(cfg, t_pad, t_sub, args.seed, rows)
@@ -2212,10 +2726,11 @@ def main(argv=None) -> int:
         profile_breakdown(fn, top)
     del profiles, served
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    log(f"device_ms: {len(PROFILES)} calls, profiles taken per call "
+        f"{ {n: PROFILES.count(n) for n in sorted(set(PROFILES))} } (step 14 "
+        f"{'skipped' if args.no_real_data else 'run'} before them)")
+    log(f"chip_smoke: wall_s={time.perf_counter() - t_start:.2f} (the build included) "
+        f"[{smi}]")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,13 @@ and, for more than one split, a summary. `--packed` evaluates planar-packed
 kernel; the decoder stays full precision, as in JAX. `--no_fused_kernels`
 clears the run's fused_attention and fused_subsampler flags.
 
-Only the synthetic backend (`--dummy_data`) is ported. Refused with exit
-code 2, naming the ROADMAP queue A item that ports them: real data (item 4),
-`--torch_checkpoint` and `--spm` (item 7), `--streaming` (item 6).
+The data is the synthetic backend (`--dummy_data`) or the `--splits`
+(comma-separated, default `dev`) of a prepared `--data_dir` (default: the
+run's training data dir), featurized without augmentation on the device
+through `LibriSpeechDataModule.featurized_batches` and scored against the
+manifest's transcripts through the data dir's tokenizer. Refused with exit
+code 2, naming the ROADMAP queue A item that ports them: `--torch_checkpoint`
+and `--spm` (item 7), `--streaming` (item 6).
 """
 
 from __future__ import annotations
@@ -65,8 +69,6 @@ def refusal(args) -> str:
         (bool(args.torch_checkpoint), f"--torch_checkpoint: {later.format(7)}"),
         (bool(args.spm), f"--spm: {later.format(7)}"),
         (args.streaming, f"--streaming: {later.format(6)}"),
-        (not args.dummy_data, "real data (no --dummy_data) needs the LibriSpeech manifests: "
-                              + later.format(4)),
     ]
     return next((msg for bad, msg in checks if bad), "")
 
@@ -94,8 +96,35 @@ def main(argv=None) -> int:
         model_cfg = dataclasses.replace(model_cfg, fused_attention=False, fused_subsampler=False)
     specials = model_cfg.specials
     precisions = tuple(int(x) for x in args.precisions.split(","))
-    dm = DummyDataModule(batch_size=args.batch_size)
-    streams = {"dummy": dm.valid_batches}
+    tokenizer = None
+    if args.dummy_data:
+        dm = DummyDataModule(batch_size=args.batch_size)
+        streams = {"dummy": dm.valid_batches}
+    else:
+        from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
+        from onebit_asr_tpu_torch.data.text import AsrTokenizer
+        from onebit_asr_tpu_torch.utils.config import DataConfig
+
+        data_dir = args.data_dir or cfg.data.data_dir
+        try:
+            tokenizer = AsrTokenizer.find_and_load(data_dir, specials)
+        except FileNotFoundError as e:
+            print(e, file=sys.stderr)
+            return 2
+        if tokenizer.vocab_size != model_cfg.vocab_size:
+            print(f"warning: tokenizer vocab {tokenizer.vocab_size} != model "
+                  f"vocab {model_cfg.vocab_size}", file=sys.stderr)
+        splits = args.splits.split(",")
+        dm = LibriSpeechDataModule(data_dir, tokenizer,
+                                   DataConfig(data_dir=data_dir, batch_size=args.batch_size),
+                                   splits=tuple(splits), device=args.device)
+        missing = [s for s in splits if s not in dm.splits()]
+        if missing:
+            print(f"split(s) {missing} have no manifest in {data_dir}", file=sys.stderr)
+            return 2
+        streams = {s: (lambda s=s: dm.featurized_batches(s, augment=False,
+                                                         batch_size=args.batch_size))
+                   for s in splits}
 
     if args.packed:
         # packed weights are projected for ONE precision at export time
@@ -124,7 +153,8 @@ def main(argv=None) -> int:
     for split, stream in streams.items():
         m = evaluate_stream(
             model, params, stream(), cfg.loss, specials, model_cfg.enc_layers,
-            precisions=precisions, use_beam=not args.greedy, beam_size=args.beam_size,
+            precisions=precisions, tokenizer=tokenizer, use_beam=not args.greedy,
+            beam_size=args.beam_size,
             max_batches=args.max_batches or None, print_samples=args.print_samples,
             lm=lm, lm_weight=args.lm_weight, length_bonus=args.length_bonus,
             device=args.device)
@@ -140,6 +170,8 @@ def main(argv=None) -> int:
         for split, m in split_metrics.items():
             print(f"{split:<16}" + "".join(f"{m[f'wer_{tags[q]}'] * 100:>10.2f}"
                                           for q in precisions))
+    if not args.dummy_data:
+        dm.close()
     return 0
 
 

@@ -1,14 +1,24 @@
 """`python -m onebit_asr_tpu_torch.train` — 3-branch QAT training.
 
-Counterpart of the dummy-data path of onebit_asr_tpu/cli/train.py, with the
-same flags: it builds the QAT Conformer from random weights drawn from
-`--seed`, trains for `--epochs` (each of at most `--steps_per_epoch` steps)
-on the synthetic backend (`--dummy_data`), evaluates at 32, 2 and 1 bits
-after each epoch (greedy CTC, or with `--eval_beam` the prefix beam on the
-device at `--beam_size`), logs `metrics.jsonl`, and saves the last and the
-best train state under `<save_dir>/<run_name>/` with its `config.json`;
-`--resume` continues from the last one. A non-finite epoch loss ends the run
-with "FATAL: non-finite train loss" and exit code 1.
+Counterpart of onebit_asr_tpu/cli/train.py on one device, with the same
+flags: it builds the QAT Conformer from random weights drawn from `--seed`,
+trains for `--epochs` (each of at most `--steps_per_epoch` steps), evaluates
+at 32, 2 and 1 bits after each epoch (greedy CTC, or with `--eval_beam` the
+prefix beam on the device at `--beam_size`), logs `metrics.jsonl`, and
+saves the last and the best train state under `<save_dir>/<run_name>/` with
+its `config.json`; `--resume` continues from the last one. A non-finite
+epoch loss ends the run with "FATAL: non-finite train loss" and exit code 1.
+
+The data is the synthetic backend (`--dummy_data`) or a prepared
+`--data_dir` (manifests, npz shards, a tokenizer, optionally CMVN
+statistics and a feature cache; the JAX package's `prepare` writes one):
+`train` in `--num_buckets` length buckets up to `--max_frames`, featurized
+on the device with SpecAugment (`--no_spec_augment` turns it off,
+`--time_mask_ratio` caps its time masks), and evaluation on `dev` through
+the tokenizer. An epoch has num_utts(train) // batch_size steps. Batches are
+made and moved to the device on a producer thread `--prefetch_depth`
+batches ahead; each epoch logs `input_wait_frac`, the share of its wall
+time the step waited for them.
 
 The step runs on the card (`--device cuda`, the default); the CTC loss
 there goes through the lattice kernels of csrc/ctc_lattice.cu, with
@@ -20,20 +30,19 @@ csrc/subsampler.cu. `--device cpu` runs the same step on the kernels' plain
 versions.
 
 Not ported yet, and refused with exit code 2 and a message naming what is
-missing: real data (`--data_dir` without `--dummy_data`), `--grad_accum` >
-1, `--multistep` > 1, `--fp32_control`, `--fsdp`, `--tensor_parallel`,
-`--pipeline_stages`, `--wandb`, `--profile_dir`,
+missing: `--grad_accum` > 1, `--multistep` > 1, `--fp32_control`, `--fsdp`,
+`--tensor_parallel`, `--pipeline_stages`, `--wandb`, `--profile_dir`,
 `--quant_per_channel`, `--quant_decoder`, `--reference_decoder` and the
 streaming options (`--conv_norm` other than batch_norm, `--causal_conv`,
-`--attn_chunk_size`). Flags of the JAX CLI that
-have no counterpart here (its memory and compile knobs `--no_remat`,
-`--remat_policy`, `--scan_unroll`; the real-data settings) are accepted and
-change nothing.
+`--attn_chunk_size`). Flags of the JAX CLI that have no counterpart here
+(its memory and compile knobs `--no_remat`, `--remat_policy`,
+`--scan_unroll`) are accepted and change nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 import time
@@ -116,9 +125,6 @@ def refusal(args) -> str:
     """What of `args` this package does not implement yet, or ""."""
     later = "not ported yet (later slice)"
     checks = [
-        (not args.dummy_data, "real data (--data_dir without --dummy_data) needs the "
-                              "LibriSpeech manifests, SpecAugment and the SentencePiece "
-                              f"tokenizer: {later}"),
         (args.grad_accum > 1, f"--grad_accum > 1: {later}"),
         (args.multistep > 1, f"--multistep: {later}"),
         (args.fp32_control, f"--fp32_control: {later}"),
@@ -141,7 +147,7 @@ def main(argv=None) -> int:
         torch.autograd.set_detect_anomaly(True)
 
     from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
-    from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+    from onebit_asr_tpu_torch.data import DummyDataModule, prefetch
     from onebit_asr_tpu_torch.eval import build_eval_steps, evaluate_stream
     from onebit_asr_tpu_torch.model.asr import check_trainable
     from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
@@ -150,6 +156,7 @@ def main(argv=None) -> int:
     from onebit_asr_tpu_torch.utils.checkpoint import CheckpointManager, save_config
     from onebit_asr_tpu_torch.utils.config import (
         DataConfig,
+        FrontendConfig,
         LossConfig,
         ModelConfig,
         OptimConfig,
@@ -159,7 +166,34 @@ def main(argv=None) -> int:
     from onebit_asr_tpu_torch.utils.metrics_logger import MetricsLogger
 
     specials = SpecialTokens()
-    dm = DummyDataModule(batch_size=args.batch_size, max_frames=args.dummy_frames)
+    tokenizer = None
+    if args.dummy_data:
+        dm = DummyDataModule(batch_size=args.batch_size, max_frames=args.dummy_frames)
+        # every epoch of the synthetic backend trains on the batches of
+        # epoch 0, as in the JAX CLI
+        first_epoch = list(dm.train_batches(0))
+        get_train = lambda epoch: first_epoch  # noqa: E731
+        get_valid = dm.valid_batches
+    else:
+        from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
+        from onebit_asr_tpu_torch.data.text import AsrTokenizer
+
+        try:
+            tokenizer = AsrTokenizer.find_and_load(args.data_dir, specials)
+        except FileNotFoundError:
+            print(f"no tokenizer artifact in {args.data_dir}; run "
+                  "`python -m onebit_asr_tpu.cli.prepare` first", file=sys.stderr)
+            return 2
+        dm = LibriSpeechDataModule(
+            args.data_dir, tokenizer,
+            DataConfig(data_dir=args.data_dir, batch_size=args.batch_size,
+                       num_buckets=args.num_buckets, max_frames=args.max_frames),
+            seed=args.seed,
+            frontend_cfg=FrontendConfig(time_mask_ratio=args.time_mask_ratio,
+                                        spec_augment=not args.no_spec_augment),
+            device=args.device)
+        get_train = lambda epoch: dm.featurized_batches("train", epoch, augment=True)  # noqa: E731
+        get_valid = lambda: dm.featurized_batches("dev", augment=False)  # noqa: E731
     vocab_size = dm.vocab_size()
     if args.preset:
         from onebit_asr_tpu_torch.model.presets import PRESETS
@@ -185,10 +219,11 @@ def main(argv=None) -> int:
     loss_cfg = LossConfig(gamma_ctc=args.gamma_ctc, lambda1=args.lambda1, lambda2=args.lambda2)
     optim_cfg = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps)
 
-    # the schedule's length: epochs * steps per epoch; every epoch of the
-    # synthetic backend trains on the batches of epoch 0, as in the JAX CLI
-    first_epoch = list(dm.train_batches(0))
-    steps_per_epoch = len(first_epoch)
+    # the schedule's length: epochs * steps per epoch
+    if args.dummy_data:
+        steps_per_epoch = len(first_epoch)
+    else:
+        steps_per_epoch = max(1, dm.num_utts("train") // args.batch_size)
     if args.steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.steps_per_epoch)
     total_steps = args.epochs * steps_per_epoch
@@ -196,6 +231,7 @@ def main(argv=None) -> int:
         model=model_cfg, loss=loss_cfg,
         data=DataConfig(data_dir=args.data_dir, batch_size=args.batch_size),
         optim=optim_cfg, epochs=args.epochs, seed=args.seed, save_dir=args.save_dir,
+        beam_size=args.beam_size,
     )
     run_name = args.run_name or f"run-{int(time.time())}"
     run_dir = os.path.join(args.save_dir, run_name)
@@ -209,6 +245,9 @@ def main(argv=None) -> int:
     state = create_train_state(model, args.seed)
     print(f"model: {param_count(state.params) / 1e6:.2f}M params, vocab {vocab_size}, "
           f"init {time.time() - t0:.1f}s, device {device}")
+    if not args.dummy_data and args.time_mask_ratio != 1.0:
+        print(f"SpecAugment time masks capped at {args.time_mask_ratio}x utterance length "
+              "(reference parity needs --time_mask_ratio 1.0)")
     if args.summary:
         for name, module in model.named_children():
             n = sum(p.numel() for p in module.parameters())
@@ -230,8 +269,11 @@ def main(argv=None) -> int:
     for epoch in range(start_epoch, args.epochs):
         t_ep = time.time()
         losses, n_utts = [], 0
-        for batch in first_epoch[:steps_per_epoch]:
-            state, aux = step_fn(state, batch_to_device(batch, device))
+        pf_stats: dict = {}
+        batches = itertools.islice(get_train(epoch), args.steps_per_epoch or None)
+        for batch in prefetch(batches, transfer=lambda b: batch_to_device(b, device),
+                              depth=args.prefetch_depth, stats=pf_stats):
+            state, aux = step_fn(state, batch)
             losses.append(aux["loss"])
             n_utts += len(batch["tokens"])
         train_loss = float(np.mean([float(l) for l in losses]))
@@ -244,13 +286,15 @@ def main(argv=None) -> int:
             "train_loss": train_loss,
             "epoch_seconds": dt,
             "utt_per_sec": n_utts / dt,
+            # the share of the epoch's wall time the step waited for its batch
+            "input_wait_frac": pf_stats.get("wait_s", 0.0) / max(dt, 1e-9),
             "lr": float(optimizer.schedule(state.step)),
         }
         if device.type == "cuda":
             metrics["peak_device_mem_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
         eval_metrics = evaluate_stream(
-            model, state.params, dm.valid_batches(), loss_cfg, specials, args.enc_layers,
-            use_beam=args.eval_beam, beam_size=args.beam_size,
+            model, state.params, get_valid(), loss_cfg, specials, args.enc_layers,
+            tokenizer=tokenizer, use_beam=args.eval_beam, beam_size=args.beam_size,
             max_batches=args.eval_batches or None, eval_steps=eval_steps, device=device)
         metrics.update(eval_metrics)
         logger.log(metrics, step=state.step)
@@ -262,6 +306,8 @@ def main(argv=None) -> int:
             best_val = eval_metrics["loss_2bit"]
             ckpt_best.save(state, metrics={"val_loss": best_val})
     logger.close()
+    if not args.dummy_data:
+        dm.close()
     return 0
 
 

@@ -23,12 +23,15 @@ either form; `--no_fused_kernels` clears both flags. `--longform` serves
 recordings of any length through overlapped windows (`--chunk_seconds`,
 `--overlap_seconds`) and stitched CTC, greedy only.
 
-Input is `--wav_dir`, a tree of 16-bit PCM .wav files (the JAX CLI's
-manifest mode needs the real-data pipeline, not ported yet). `--data_dir`
-(default: the run's training data dir) supplies `cmvn_stats.npz` and the
-tokenizer (`tokenizer.json` or `tokenizer.model`). Where no tokenizer is
-found the lines carry the model-side ids, space-separated, after a warning;
-the JAX CLI exits 2 there instead.
+Input is `--wav_dir`, a tree of 16-bit PCM .wav files, or else the
+`--split` manifest (default `test`) of `--data_dir`, read through
+`LibriSpeechDataModule.wav_batches` unshuffled: the lines then carry the
+manifest's `utt_id`s in the data module's order. `--data_dir` (default: the
+run's training data dir) also supplies `cmvn_stats.npz` and the tokenizer
+(`tokenizer.json` or `tokenizer.model`). A `--checkpoint` run without a
+tokenizer exits 2, as the JAX CLI does; with `--params` + `--config`, which
+JAX does not have, the lines then carry the model-side ids, space-separated,
+after a warning (a `--split` needs the tokenizer there too).
 
 `Transcriber` is the same path for waveforms already in memory.
 """
@@ -70,11 +73,13 @@ def build_argparser():
     p.add_argument("--params", default="",
                    help=".npz of a JAX run's parameter tree, '/'-joined keys (with --config)")
     p.add_argument("--config", default="", help="the JAX run's config.json (with --params)")
-    p.add_argument("--wav_dir", required=True,
-                   help="directory tree of 16-bit PCM .wav files")
+    p.add_argument("--wav_dir", default="",
+                   help="directory tree of 16-bit PCM .wav files (overrides manifest input)")
     p.add_argument("--data_dir", default="",
-                   help="dir with the run's tokenizer and cmvn_stats.npz; default: the "
-                        "checkpoint's training data dir")
+                   help="prepared data dir: the tokenizer and cmvn_stats.npz, and (without "
+                        "--wav_dir) the manifest to transcribe; default: the checkpoint's "
+                        "training data dir")
+    p.add_argument("--split", default="test", help="manifest split to transcribe (data-dir mode)")
     p.add_argument("--precision", type=int, default=2, choices=(32, 2, 1),
                    help="weight precision of the encoder")
     p.add_argument("--packed", action="store_true",
@@ -266,17 +271,15 @@ class Transcriber:
 
 
 def _load_tokenizer(data_dir: str, specials):
-    """The run's tokenizer, or None (then lines carry ids)."""
+    """(the run's tokenizer, "") or (None, why there is none)."""
     if not data_dir:
-        print("warning: writing ids, not text (no --data_dir)", file=sys.stderr)
-        return None
+        return None, "no --data_dir"
     try:
         from onebit_asr_tpu_torch.data.text import AsrTokenizer
 
-        return AsrTokenizer.find_and_load(data_dir, specials)
+        return AsrTokenizer.find_and_load(data_dir, specials), ""
     except (FileNotFoundError, ImportError) as e:
-        print(f"warning: writing ids, not text ({e})", file=sys.stderr)
-        return None
+        return None, str(e)
 
 
 def load_run(args, parser) -> Tuple[TrainConfig, Mapping]:
@@ -316,11 +319,22 @@ def main(argv=None) -> int:
         print("--lm needs --beam_size > 0 (shallow fusion is a beam-prefix extension); "
               "drop --lm or set --beam_size", file=sys.stderr)
         return 2
+    if args.longform and not args.wav_dir:
+        print("--longform needs --wav_dir (manifest utterances are already capped at ingest)",
+              file=sys.stderr)
+        return 2
     cfg, params = load_run(args, parser)
     if args.no_fused_kernels:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, fused_attention=False, fused_subsampler=False))
     data_dir = args.data_dir or (cfg.data.data_dir if args.checkpoint else "")
+    tokenizer, why = _load_tokenizer(data_dir, cfg.model.specials)
+    if tokenizer is None and (args.checkpoint or not args.wav_dir):
+        print(f"no tokenizer artifact in {data_dir} — pass --data_dir pointing at the dir "
+              "the checkpoint was trained against", file=sys.stderr)
+        return 2
+    if tokenizer is None:
+        print(f"warning: writing ids, not text ({why})", file=sys.stderr)
     cmvn = None
     cmvn_path = os.path.join(data_dir, "cmvn_stats.npz")
     if data_dir and os.path.exists(cmvn_path):
@@ -329,7 +343,18 @@ def main(argv=None) -> int:
     else:
         print(f"warning: no cmvn_stats.npz in {data_dir!r}; features will "
               "mismatch training", file=sys.stderr)
-    tokenizer = _load_tokenizer(data_dir, cfg.model.specials)
+    dm = None
+    if not args.wav_dir:
+        from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
+        from onebit_asr_tpu_torch.utils.config import DataConfig
+
+        dm = LibriSpeechDataModule(data_dir, tokenizer,
+                                   DataConfig(data_dir=data_dir, batch_size=args.batch_size),
+                                   splits=(args.split,), frontend_cfg=cfg.frontend,
+                                   device=args.device)
+        if args.split not in dm.splits():
+            print(f"split {args.split!r} has no manifest in {data_dir}", file=sys.stderr)
+            return 2
     lm = None
     if args.lm:
         from onebit_asr_tpu_torch.decode.lm import NGramLM
@@ -339,6 +364,9 @@ def main(argv=None) -> int:
     t = Transcriber(cfg, params, args.precision, args.int8_act, cmvn, args.device,
                     packed=args.packed, beam_size=args.beam_size, lm=lm,
                     lm_weight=args.lm_weight, length_bonus=args.length_bonus)
+    batches = (dm.wav_batches(args.split, shuffle=False, batch_size=args.batch_size)
+               if dm is not None
+               else _wav_dir_batches(args.wav_dir, args.batch_size, t.max_samples))
 
     def text(seq):
         return (tokenizer.ids_to_text(seq) if tokenizer is not None
@@ -356,7 +384,7 @@ def main(argv=None) -> int:
                     break
             print(f"transcribed {n_done} recordings (longform)", file=sys.stderr)
             return 0
-        for i, wb in enumerate(_wav_dir_batches(args.wav_dir, args.batch_size, t.max_samples)):
+        for i, wb in enumerate(batches):
             if args.max_batches and i >= args.max_batches:
                 break
             ids, lens = t.transcribe(wb["wavs"], wb["wav_lens"])
@@ -367,6 +395,8 @@ def main(argv=None) -> int:
     finally:
         if args.out:
             out_f.close()
+        if dm is not None:
+            dm.close()
     return 0
 
 

@@ -1,10 +1,10 @@
 """Kaldi-compatible log-mel filterbank + global CMVN, batched, in f32.
 
-Counterpart of onebit_asr_tpu/ops/frontend.py: framing (snip edges) -> DC
-removal -> preemphasis -> povey window -> rFFT power spectrum (torch.fft,
-f32) -> mel filterbank -> log(max(e, eps)) -> optional CMVN. Frames past an
-utterance's length are computed from the zero padding and must be masked
-downstream with the returned lengths.
+Counterpart of onebit_asr_tpu/ops/frontend.py: framing (snip edges) ->
+optional dither -> DC removal -> preemphasis -> povey window -> rFFT power
+spectrum (torch.fft, f32) -> mel filterbank -> log(max(e, eps)) -> optional
+CMVN. Frames past an utterance's length are computed from the zero padding
+and must be masked downstream with the returned lengths.
 """
 
 from __future__ import annotations
@@ -80,15 +80,27 @@ class LogMelFrontend:
     def max_frames(self, max_samples: int) -> int:
         return max(0, 1 + (max_samples - self.frame_len) // self.frame_shift)
 
-    def __call__(self, wavs: torch.Tensor, wav_lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def __call__(self, wavs: torch.Tensor, wav_lens: torch.Tensor,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """wavs [B, N] f32 padded waveforms, wav_lens [B] sample counts ->
-        (fbank [B, T, num_mel_bins] f32, feat_lens [B] int32)."""
+        (fbank [B, T, num_mel_bins] f32, feat_lens [B] int32).
+
+        Dither (Kaldi's, before DC removal) adds `cfg.dither` times N(0, 1)
+        noise to every frame sample when `cfg.dither` > 0 and the caller
+        gives the noise: `noise` [B, T, frame_len] f32, or a `generator` on
+        the waveforms' device to draw it from. Without either it never
+        dithers, so serving stays deterministic."""
         c = self.cfg
         B, N = wavs.shape
         T = self.max_frames(N)
         if T <= 0:
             raise ValueError(f"waveform too short: {N} samples < {self.frame_len}")
         frames = wavs.to(torch.float32).unfold(-1, self.frame_len, self.frame_shift)
+        if c.dither > 0.0 and (noise is not None or generator is not None):
+            if noise is None:
+                noise = torch.randn(frames.shape, generator=generator, device=frames.device)
+            frames = frames + c.dither * noise.to(frames.device)
         if c.remove_dc:
             frames = frames - frames.mean(dim=-1, keepdim=True)
         if c.preemphasis > 0.0:

@@ -55,11 +55,15 @@ def sample_sp_mask(generator: torch.Generator, num_layers: int, low: float = 0.2
 
 def batch_to_device(batch, device) -> Batch:
     """A batch of numpy arrays or tensors -> tensors on `device` (lengths
-    and tokens as int64)."""
+    and tokens as int64, feats as float32). Feats cross in their own dtype
+    and are upcast on `device`: a float16 batch crosses as float16."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
-        out[k] = t.to(device, torch.int64 if k != "feats" else torch.float32, non_blocking=True)
+        if k == "feats":
+            out[k] = t.to(device, non_blocking=True).to(torch.float32)
+        else:
+            out[k] = t.to(device, torch.int64, non_blocking=True)
     return out
 
 

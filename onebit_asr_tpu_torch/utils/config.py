@@ -3,8 +3,10 @@
 under the same names and defaults, so that a `config.json` written by either
 package is read by the other.
 
-`train_config_from_json` keeps the fields known here; every other field is
-ignored, and a missing one takes its default (as the JAX reader does).
+`FrontendConfig` and `DataConfig` hold every field of JAX's, with its names
+and defaults. `train_config_from_json` keeps the fields known here; every
+other field (the JAX model's compile and parallelism knobs) is ignored, and
+a missing one takes its default (as the JAX reader does).
 """
 
 from __future__ import annotations
@@ -41,7 +43,16 @@ class FrontendConfig:
     preemphasis: float = 0.97
     low_freq: float = 20.0
     high_freq: float = 0.0  # 0 -> nyquist
+    dither: float = 0.0  # amplitude of N(0, 1) noise per frame, training only
     remove_dc: bool = True
+    window: str = "povey"  # read by neither package: the window is povey
+    # SpecAugment (ops/specaugment.py), training only
+    spec_augment: bool = True
+    freq_mask_param: int = 27
+    num_freq_masks: int = 2
+    time_mask_param: int = 100
+    num_time_masks: int = 2
+    time_mask_ratio: float = 0.3  # cap each time mask at ratio * true length
 
 
 @dataclass(frozen=True)
@@ -92,8 +103,15 @@ class LossConfig:
 @dataclass(frozen=True)
 class DataConfig:
     data_dir: str = "data"
+    tokenizer_path: str = "src/data/tokenizer.json"
+    cmvn_stats_path: str = "src/data/cmvn_stats.npz"
+    vocab_size: int = 5000  # subwords, before the 4 specials
     batch_size: int = 64
-    max_frames: int = 1600  # longest utterance in frames (16 s at 10 ms)
+    max_frames: int = 1600  # static pad ceiling per bucket (16 s at 10 ms)
+    max_tokens: int = 228
+    num_buckets: int = 8
+    num_workers: int = 2
+    cmvn_num_utts: int = 1000
 
 
 @dataclass(frozen=True)
@@ -118,6 +136,7 @@ class TrainConfig:
     epochs: int = 40
     seed: int = 0
     save_dir: str = "./checkpoints"
+    beam_size: int = 10
 
 
 _NESTED = {

@@ -9,9 +9,10 @@ tolerances:
 - the inverse converter: JAX tree -> state dict -> tree gives back every
   leaf bit for bit (torch.equal), for fused_subsampler False and True, with
   the decoder, in the training and the packed form;
-- `transcribe --checkpoint`, packed and unpacked: its ids equal
-  `Transcriber`'s on the inverted tree (the same computation), and its
-  refusals exit 2;
+- `transcribe --checkpoint`, packed and unpacked: the ids it decodes equal
+  `Transcriber`'s on the inverted tree (the same computation) exactly, its
+  text equals theirs decoded by the data dir's tokenizer, and its refusals
+  exit 2;
 - the unpacked forward at precision 32, 2 and 1 (f32 compute) against JAX
   `model.apply` on the same tree, on valid frames: the f32 bounds of
   tests/test_torch_transcribe.py's FORWARD_CASES (max 2e-2, mean 4e-3);
@@ -38,7 +39,9 @@ from onebit_asr_tpu.utils import config as jc
 from onebit_asr_tpu_torch import convert
 from onebit_asr_tpu_torch.cli import train as train_cli
 from onebit_asr_tpu_torch.cli import transcribe as cli
+from onebit_asr_tpu_torch.data import spm
 from onebit_asr_tpu_torch.data.dummy import DummyDataModule
+from onebit_asr_tpu_torch.data.text import AsrTokenizer
 from onebit_asr_tpu_torch.eval.evaluate import evaluate_stream
 from onebit_asr_tpu_torch.model.packed import export_packed_params
 from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
@@ -109,26 +112,46 @@ def _write_inputs(root):
     (root / "data").mkdir()
     cmvn = (np.full(80, -3.0, np.float32), np.full(80, 2.0, np.float32))
     np.savez(root / "data" / "cmvn_stats.npz", mean=cmvn[0], std=cmvn[1])
+    # a character-level tokenizer over the run's 32 ids: 4 reserved pieces,
+    # the word marker and 23 letters
+    pieces = [("<blank>", 0.0, spm.CONTROL), ("<unk>", 0.0, spm.UNKNOWN),
+              ("<sos>", 0.0, spm.CONTROL), ("<eos>", 0.0, spm.CONTROL), (spm.SPACE, 0.0, spm.NORMAL)]
+    pieces += [(chr(ord("A") + i), 0.0, spm.NORMAL) for i in range(23)]
+    (root / "data" / "tokenizer.model").write_bytes(spm.write_model_proto(pieces))
     return cmvn
 
 
 @pytest.mark.parametrize("packed", [True, False])
-def test_transcribe_checkpoint_matches_transcriber(run, tmp_path, packed):
+def test_transcribe_checkpoint_matches_transcriber(run, tmp_path, packed, monkeypatch):
     run_dir, cfg, tree = run
     cmvn = _write_inputs(tmp_path)
     out = tmp_path / "hyp.tsv"
     argv = ["--checkpoint", run_dir, "--wav_dir", str(tmp_path / "wavs"),
             "--data_dir", str(tmp_path / "data"), "--batch_size", "2", "--out", str(out),
             "--device", "cpu", "--precision", "1"] + (["--packed"] if packed else [])
+    # the text is lossy (ids 0-3 dropped, control pieces decode to nothing):
+    # record the ids the CLI decodes, one call a line, to compare them exactly
+    decoded, ids_to_text = [], AsrTokenizer.ids_to_text
+
+    def recording(self, ids):
+        decoded.append([int(i) for i in ids])
+        return ids_to_text(self, ids)
+
+    monkeypatch.setattr(AsrTokenizer, "ids_to_text", recording)
     assert cli.main(argv) == 0
-    got = dict(line.split("\t") for line in out.read_text().splitlines())
+    monkeypatch.undo()
+    lines = [line.split("\t") for line in out.read_text().splitlines()]
+    got = dict(lines)
+    got_ids = {uid: ids for (uid, _), ids in zip(lines, decoded, strict=True)}
     t = cli.Transcriber(cfg, tree, 1, cmvn=cmvn, device="cpu", packed=packed)
-    want = {}
+    tok = AsrTokenizer.load(str(tmp_path / "data" / "tokenizer.model"))
+    want, want_ids = {}, {}
     for wb in cli._wav_dir_batches(str(tmp_path / "wavs"), 2, t.max_samples):
         ids, n = t.transcribe(wb["wavs"], wb["wav_lens"])
         for b, uid in enumerate(wb["utt_ids"]):
-            want[uid] = " ".join(str(int(x)) for x in ids[b, : n[b]])
-    assert got == want and len(got) == 3
+            want[uid] = tok.ids_to_text(ids[b, : n[b]])
+            want_ids[uid] = [int(i) for i in ids[b, : n[b]]]
+    assert got_ids == want_ids and got == want and len(got) == 3
 
 
 @pytest.mark.parametrize("flags,message", [

@@ -465,10 +465,14 @@ REFUSED_FLAGS = [
 
 @pytest.mark.parametrize("flags,names", REFUSED_FLAGS)
 def test_cli_refuses_what_is_not_ported(flags, names, tmp_path, capsys):
-    dummy = [] if names == "real data" else ["--dummy_data"]
-    rc = cli.main(["--device", "cpu", "--save_dir", str(tmp_path), *dummy, *flags, *TINY_CLI])
+    # real data is ported: what it refuses is a data dir without a tokenizer
+    data = (["--data_dir", str(tmp_path / "no_data")] if names == "real data"
+            else ["--dummy_data"])
+    rc = cli.main(["--device", "cpu", "--save_dir", str(tmp_path), *data, *flags, *TINY_CLI])
     assert rc == 2
-    assert names in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert (f"no tokenizer artifact in {tmp_path / 'no_data'}" if names == "real data"
+            else names) in err
     assert not os.listdir(tmp_path)  # refused before anything is written
 
 

@@ -273,7 +273,8 @@ def test_config_json_of_a_jax_run_is_read():
     got = train_config_from_json(jax_config.config_to_json(jtrain))
     assert got.model == cfg
     assert got.data.max_frames == 900
-    assert dataclasses.asdict(got.frontend).items() <= dataclasses.asdict(jtrain.frontend).items()
+    assert dataclasses.asdict(got.frontend) == dataclasses.asdict(jtrain.frontend)
+    assert dataclasses.asdict(got.data) == dataclasses.asdict(jtrain.data)
 
 
 def _write_wav(path, wav, sr=16000):
@@ -341,8 +342,11 @@ def test_port_runs_without_jax_or_the_jax_package():
     unfused, with the fused subsampler and with the fused attention, a tiny
     QAT model takes one 3-branch train step, its checkpoint is served back
     (the inverse converter, the device beam with a packed LM, the host beam,
-    long-form windows) and evaluated, and chip_smoke exits 1 without its
-    result line when there is no card."""
+    long-form windows) and evaluated, chip_smoke exits 1 without its result
+    line when there is no card, and on a 12-utterance data dir that
+    chip_smoke's writer makes (the port's `write_manifest`, a character-level
+    tokenizer.model) the train CLI takes one real-data step through prefetch
+    and the transcribe CLI serves one batch of `--split test`."""
     code = r"""
 import importlib, io, contextlib, pkgutil, sys, dataclasses
 sys.modules["jax"] = None
@@ -402,6 +406,24 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     rc = chip_smoke.main([])
 assert rc == 1 and '"ok"' not in buf.getvalue(), (rc, buf.getvalue())
+import json, os, tempfile
+from onebit_asr_tpu_torch.cli import train as tcli, transcribe as tr
+with tempfile.TemporaryDirectory() as root:
+    data, _ = chip_smoke.write_data_dir(root, 0, (("train", 6), ("dev", 3), ("test", 3)),
+                                        (1.0, 2.0), "cpu", cached=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tcli.main(["--device", "cpu", "--data_dir", data, "--epochs", "1",
+                          "--steps_per_epoch", "1", "--batch_size", "2", "--eval_batches", "1",
+                          "--save_dir", root, "--run_name", "r", "--enc_layers", "1",
+                          "--enc_d_model", "32", "--enc_heads", "2", "--enc_d_ff", "64",
+                          "--enc_conv_kernel", "3", "--dec_layers", "1", "--dec_d_ff", "32"]) == 0
+    m = json.loads(open(os.path.join(root, "r", "metrics.jsonl")).read())
+    assert m["step"] == 1 and "input_wait_frac" in m
+    out = os.path.join(root, "hyp.tsv")
+    assert tr.main(["--checkpoint", os.path.join(root, "r"), "--split", "test", "--batch_size",
+                    "3", "--max_batches", "1", "--out", out, "--device", "cpu"]) == 0
+    ids = [l.split("\t")[0] for l in open(out).read().splitlines()]
+    assert sorted(ids) == [f"test-{i:06d}" for i in range(3)], ids
 assert not any(k == "jax" or k.startswith(("jax.", "onebit_asr_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("clean")
