@@ -201,6 +201,26 @@ a seeded data dir through the real-data path:
    writes the manifest's utt_ids in the data module's order, and the ids it
    decodes equal `Transcriber`'s; with an empty --data_dir it exits 2.
    `--no_real_data` skips this step.
+15. prepare and the step options (run after step 14, before the device
+   steps 9-12): `python -m onebit_asr_tpu_torch.prepare` (in process)
+   ingests `--synthetic 64 --hard` (64/8/8 utterances of up to 8 s), a
+   character-level tokenizer.model over its words' characters is written
+   (the card's machine has no `tokenizers`), then `tokenize`, `cmvn`,
+   `features` and `lm` run; `cmvn` and `features` run on the card and again
+   with `--device cpu` into a copy (the CPU's features on the card's
+   statistics), and the two are held at the CPU tests' tolerances (CMVN
+   within 1e-5 |x| + 1e-5 max |x|; manifests equal; features within 2e-4
+   + 1e-4 |x| + one f16 ulp). `train --data_dir` then trains Conformer-M
+   under both fused flags with `--grad_accum 2 --multistep 2` for 4
+   optimizer steps at B=16 in 2 buckets: each micro-batch of 8 launches
+   rows 3-8 as step 8 counts them, at least one call goes through the
+   K-step form, losses are finite; ms per optimizer step (CUDA events) and
+   peak memory are printed beside step 14's at B=16. One grad_accum=2 QAT
+   step and one grad_accum=2 fp32-control step on the kernels are held
+   against the same step with each kernel pair on its plain version in
+   turn (step 7's tolerances). `train --fp32_control --profile_dir` runs
+   one step: only 32-bit evaluation is logged, and its Chrome trace must
+   name row 7's kernel.
 
 `device_ms` retakes a profile that lost launches (up to 5 profiles) and the
 script prints how many profiles each call took.
@@ -236,6 +256,7 @@ TRAIN_STEPS = 3
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # where the training phases run
 STEP_MS = {}  # step 7's ms per step by label, printed beside step 14's
+REAL_TRAIN = {}  # step 14's ms per step by T and peak memory, printed beside step 15's
 PROFILES = []  # profiles device_ms took per call (tries + 1: none complete)
 
 
@@ -1228,10 +1249,10 @@ DATA_ALPHABET = "ABCDEFGHIJKLMNOPQRSTUVW"  # with the word marker, 24 pieces:
 # the 4 reserved ones make a subword vocabulary of 28, a model vocabulary of 32
 
 
-def write_char_tokenizer(directory):
+def write_char_tokenizer(directory, alphabet=DATA_ALPHABET):
     """A character-level SentencePiece tokenizer.model in `directory`: the
-    4 reserved pieces, the word marker and DATA_ALPHABET (model vocabulary
-    32, the synthetic backend's). No piece merges, so a text encodes to one
+    4 reserved pieces, the word marker and `alphabet` (DATA_ALPHABET: model
+    vocabulary 32, the synthetic backend's). No piece merges, so a text encodes to one
     piece per character. Decoding is lossy: model ids 0-3 are dropped, and
     4, 6 and 7 (the control pieces) decode to nothing, so a comparison of
     what a CLI served holds its ids (`decoded_ids`), not only its text."""
@@ -1240,7 +1261,7 @@ def write_char_tokenizer(directory):
     pieces = [("<blank>", 0.0, spm.CONTROL), ("<unk>", 0.0, spm.UNKNOWN),
               ("<sos>", 0.0, spm.CONTROL), ("<eos>", 0.0, spm.CONTROL),
               (spm.SPACE, 0.0, spm.NORMAL)]
-    pieces += [(c, 0.0, spm.NORMAL) for c in DATA_ALPHABET]
+    pieces += [(c, 0.0, spm.NORMAL) for c in alphabet]
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, "tokenizer.model")
     with open(path, "wb") as f:
@@ -2306,12 +2327,13 @@ def counted_frontend():
 
 @contextlib.contextmanager
 def timed_steps():
-    """Every train step made by train.make_train_step for the duration,
-    recorded as (T of its feats, CUDA start event, end event) in the
-    yielded list."""
+    """Every train step made by train.make_train_step for the duration (also
+    the K steps of make_multi_train_step), recorded as (T of its feats,
+    CUDA start event, end event) in the yielded list."""
     import onebit_asr_tpu_torch.train as train_pkg
+    from onebit_asr_tpu_torch.train import step as step_mod
 
-    record, real = [], train_pkg.make_train_step
+    record, real = [], step_mod.make_train_step
 
     def make(*a, **k):
         step = real(*a, **k)
@@ -2325,11 +2347,30 @@ def timed_steps():
             return out
         return timed
 
-    train_pkg.make_train_step = make
+    train_pkg.make_train_step = step_mod.make_train_step = make
     try:
         yield record
     finally:
-        train_pkg.make_train_step = real
+        train_pkg.make_train_step = step_mod.make_train_step = real
+
+
+def aux_err(a, ref):
+    """The largest relative difference of the aux terms of `a` from `ref`."""
+    return max(abs(a[k] - ref[k]) / abs(ref[k]) for k in ref)
+
+
+def plain_pairs(model):
+    """(what, swap to it, aux tolerance, gradient tolerance, the kernel rows
+    it replaces) for each kernel pair of a train step under both fused
+    flags: step 7's tolerances."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+
+    return (("plain attention", lambda: swapped_attention(model, fa.fused_relpos_attention_plain),
+             1e-2, 0.1, ("fused_relpos_attention", "fused_relpos_attention_bwd")),
+            ("plain subsampler", lambda: swapped_subsample(model, ss.fused_subsample_plain),
+             1e-2, 0.1, ("fused_subsample", "fused_subsample_bwd")),
+            ("plain CTC", plain_ctc, 1e-4, 1e-2, ("ctc_alpha", "ctc_beta")))
 
 
 def bucket_kernel_check(kernels, run, dm, seed):
@@ -2342,8 +2383,6 @@ def bucket_kernel_check(kernels, run, dm, seed):
     against every plain version at once. The run's config; random weights
     from `seed`."""
     from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
-    from onebit_asr_tpu_torch.ops import attention as fa
-    from onebit_asr_tpu_torch.ops import subsampler as ss
     from onebit_asr_tpu_torch.train import create_train_state
     from onebit_asr_tpu_torch.train.step import (batch_to_device, make_batch_loss,
                                                  sample_sp_mask, value_and_grad)
@@ -2374,14 +2413,7 @@ def bucket_kernel_check(kernels, run, dm, seed):
         counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
         return {k: float(v) for k, v in aux.items()}, grads, counts
 
-    def aux_err(a, ref):
-        return max(abs(a[k] - ref[k]) / abs(ref[k]) for k in ref)
-
-    pairs = (("plain attention", lambda: swapped_attention(model, fa.fused_relpos_attention_plain),
-              1e-2, 0.1, ("fused_relpos_attention", "fused_relpos_attention_bwd")),
-             ("plain subsampler", lambda: swapped_subsample(model, ss.fused_subsample_plain),
-              1e-2, 0.1, ("fused_subsample", "fused_subsample_bwd")),
-             ("plain CTC", plain_ctc, 1e-4, 1e-2, ("ctc_alpha", "ctc_beta")))
+    pairs = plain_pairs(model)
     want = {"ctc_alpha": 1, "ctc_beta": 1, "fused_relpos_attention": 3 * L,
             "fused_relpos_attention_bwd": 3 * L, "fused_subsample": 3, "fused_subsample_bwd": 3}
     want_fwd = {"ctc_alpha": 1, "fused_relpos_attention": 3 * L, "fused_subsample": 3}
@@ -2522,6 +2554,7 @@ def real_data_phase(kernels, seed, smi):
                 f"input_wait_frac={[round(m['input_wait_frac'], 4) for m in metrics]} "
                 f"train_loss={[round(m['train_loss'], 4) for m in metrics]} "
                 f"peak_mem_gb={peak_gb:.3f} [{smi}]")
+            REAL_TRAIN[label] = {"ms_per_step_by_T": per_T, "peak_mem_gb": round(peak_gb, 3)}
             return per_T, fe_calls[0]
 
         per_T, fe_calls = train("real", data, REAL_EPOCHS, REAL_STEPS)
@@ -2612,6 +2645,241 @@ def real_data_phase(kernels, seed, smi):
             raise AssertionError(f"transcribe without a tokenizer: rc={rc}, want 2")
         log("real data transcribe --data_dir <empty>: rc=2 (no tokenizer artifact)")
     log(f"real data: phase wall_s={time.perf_counter() - t_phase:.2f} [{smi}]")
+
+
+HARD_ALPHABET = "W0123456789"  # the characters of `prepare ingest --hard`'s words
+PREP_UTTS, PREP_STEPS = 64, 4  # train utterances; optimizer steps of the options run
+
+
+@contextlib.contextmanager
+def counted_multi_steps():
+    """Counts the calls of every step made by train.make_multi_train_step
+    for the duration: yields a one-element list."""
+    import onebit_asr_tpu_torch.train as train_pkg
+
+    calls, real = [0], train_pkg.make_multi_train_step
+
+    def make(*a, **k):
+        multi = real(*a, **k)
+
+        def counting(state, stacked):
+            calls[0] += 1
+            return multi(state, stacked)
+        return counting
+
+    train_pkg.make_multi_train_step = make
+    try:
+        yield calls
+    finally:
+        train_pkg.make_multi_train_step = real
+
+
+def _assert_features_close(what, got, ref):
+    """The CPU tests' tolerance of the port's frontend against JAX's (rtol
+    1e-4, atol 2e-4) plus one f16 ulp."""
+    ref32, got32 = ref.astype(np.float32), got.astype(np.float32)
+    err = np.abs(got32 - ref32) - (1e-4 * np.abs(ref32) + np.spacing(np.abs(ref)).astype(
+        np.float32))
+    log(f"{what}: max |d|={float(np.abs(got32 - ref32).max()):.3g} (tolerance 2e-4 + 1e-4 |x| "
+        f"+ 1 f16 ulp; beyond the relative part {float(err.max()):.3g})")
+    if got.shape != ref.shape or not (err <= 2e-4).all():
+        raise AssertionError(f"{what}: the card's features differ from the CPU's")
+
+
+def prepare_options_phase(kernels, seed, smi):
+    """Step 15: prepare a corpus on the card with the port's `prepare`, and
+    train it with the step options; see the module docstring."""
+    from onebit_asr_tpu_torch.cli import prepare as pcli
+    from onebit_asr_tpu_torch.cli import train as tcli
+    from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
+    from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
+    from onebit_asr_tpu_torch.data.text import AsrTokenizer
+    from onebit_asr_tpu_torch.train import create_train_state
+    from onebit_asr_tpu_torch.train.step import (accumulated_value_and_grad, batch_to_device,
+                                                 make_batch_loss, make_fp32_batch_loss,
+                                                 sample_sp_mask)
+    from onebit_asr_tpu_torch.utils.checkpoint import load_config
+    from onebit_asr_tpu_torch.utils.config import DataConfig, LossConfig
+
+    t_phase = time.perf_counter()
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        data, cpu = os.path.join(root, "data"), os.path.join(root, "cpu")
+
+        def prepare(*argv, device=DEVICE):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = pcli.main([*argv, "--device", device])
+            lines = "; ".join(out.getvalue().splitlines())
+            log(f"prepare {argv[0]} --device {device}: rc={rc} "
+                f"{time.perf_counter() - t0:.2f} s: {lines}")
+            if rc != 0:
+                raise AssertionError(f"prepare {' '.join(argv)} --device {device}: rc={rc}")
+
+        # prepare on the card: the hard corpus, a character tokenizer (the
+        # card's machine has no `tokenizers`), token ids, CMVN, the feature
+        # cache and the LM; CMVN and features again on the CPU
+        prepare("ingest", "--out_dir", data, "--synthetic", str(PREP_UTTS), "--hard",
+                "--seed", str(seed))
+        write_char_tokenizer(data, HARD_ALPHABET)
+        prepare("tokenize", "--out_dir", data)
+        shutil.copytree(data, cpu)
+        for d, device in ((data, DEVICE), (cpu, "cpu")):
+            prepare("cmvn", "--out_dir", d, device=device)
+        with np.load(os.path.join(data, "cmvn_stats.npz")) as a, \
+                np.load(os.path.join(cpu, "cmvn_stats.npz")) as b:
+            for k in ("mean", "std"):
+                d = float(np.abs(a[k] - b[k]).max())
+                tol = 1e-5 * float(np.abs(b[k]).max())
+                log(f"prepare cmvn {k}: card vs CPU max |d|={d:.3g} (tolerance 1e-5 |x| + "
+                    f"{tol:.3g})")
+                if not (np.abs(a[k] - b[k]) <= 1e-5 * np.abs(b[k]) + tol).all():
+                    raise AssertionError(f"prepare cmvn {k}: the card's differs from the CPU's")
+        # the CPU's features on the card's statistics: the frontend alone compared
+        shutil.copy(os.path.join(data, "cmvn_stats.npz"), cpu)
+        for d, device in ((data, DEVICE), (cpu, "cpu")):
+            prepare("features", "--out_dir", d, device=device)
+        for split in ("train", "dev", "test"):
+            name = f"{split}_manifest.jsonl"
+            with open(os.path.join(data, name)) as f, open(os.path.join(cpu, name)) as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"prepare features: {name} differs card vs CPU")
+            _assert_features_close(f"prepare features {split} card vs CPU",
+                                   np.load(os.path.join(data, f"{split}_feats.npy")),
+                                   np.load(os.path.join(cpu, f"{split}_feats.npy")))
+        prepare("lm", "--out_dir", data)
+        tok = AsrTokenizer.find_and_load(data)
+
+        # train on the prepared dir: Conformer-M under both fused flags,
+        # --grad_accum 2 --multistep 2
+        L = 12
+        argv = ["--data_dir", data, "--preset", "m", "--batch_size", "16", "--num_buckets",
+                "2", "--eval_batches", "1", "--fused_attention", "--fused_subsampler",
+                "--save_dir", root, "--device", DEVICE, "--epochs", "1"]
+
+        def launches(steps, evals, branches=3, micro=1, precisions=3):
+            """Rows 3-8 of `steps` optimizer steps of `micro` micro-batches
+            and `evals` evaluation batches at `precisions` precisions."""
+            n = steps * micro
+            return {"ctc_alpha": n + precisions * evals, "ctc_beta": n,
+                    "fused_relpos_attention": branches * L * n + precisions * L * evals,
+                    "fused_relpos_attention_bwd": branches * L * n,
+                    "fused_subsample": branches * n + precisions * evals,
+                    "fused_subsample_bwd": branches * n}
+
+        def train(label, extra, want):
+            for fn in kernels.values():
+                fn.launches = 0
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with timed_steps() as record, counted_multi_steps() as multi, \
+                    contextlib.redirect_stdout(out):
+                rc = tcli.main([*argv, "--run_name", label, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+            for line in out.getvalue().splitlines():
+                log(f"options train {label}: {line}")
+            with open(os.path.join(root, label, "metrics.jsonl")) as f:
+                metrics = [json.loads(line) for line in f]
+            if rc != 0 or counts != want or not all(np.isfinite(m["train_loss"])
+                                                    for m in metrics):
+                raise AssertionError(f"options train {label}: rc={rc} launches {counts}, want "
+                                     f"{want}; metrics {metrics}")
+            step_ms = [(T, s.elapsed_time(e)) for T, s, e in record]
+            log(f"options train {label} {' '.join(extra)}: rc=0 wall_s={wall:.2f} "
+                f"multi_step_calls={multi[0]} launches={counts} train_loss="
+                f"{[round(m['train_loss'], 4) for m in metrics]} host_rss_gb="
+                f"{[round(m['host_rss_gb'], 3) for m in metrics]} peak_mem_gb={peak_gb:.3f} "
+                f"[{smi}]")
+            return metrics, step_ms, multi[0], peak_gb
+
+        metrics, step_ms, n_multi, peak_gb = train(
+            "options", ["--grad_accum", "2", "--multistep", "2", "--steps_per_epoch",
+                        str(PREP_STEPS)], launches(PREP_STEPS, 1, micro=2))
+        if len(step_ms) != PREP_STEPS or n_multi < 1:
+            raise AssertionError(f"options train: {len(step_ms)} timed steps, "
+                                 f"{n_multi} K-step calls")
+        per_T = {T: [round(ms, 2) for t, ms in step_ms if t == T]
+                 for T in sorted({T for T, _ in step_ms})}
+        log(f"options train: ms_per_optimizer_step by T {per_T} (2 micro-batches of 8; CUDA "
+            f"events around each step, the first of each T a warm-up) peak_mem_gb="
+            f"{peak_gb:.3f}; beside step 14 at B=16 in one batch: "
+            f"{REAL_TRAIN.get('real', 'not run (--no_real_data)')} [{smi}]")
+
+        # one grad_accum=2 step and one fp32-control step on the kernels
+        # against the same step with each kernel pair on its plain version
+        run = os.path.join(root, "options")
+        cfg = load_config(run).model
+        model = qat_model_from_jax(cfg, init_params(cfg, seed), device=DEVICE)
+        params = create_train_state(model, seed).params
+        dm = LibriSpeechDataModule(data, tok, DataConfig(data_dir=data, batch_size=16,
+                                                         num_buckets=2), device=DEVICE)
+        batch = batch_to_device(next(dm.featurized_batches("train", 0, augment=True)), DEVICE)
+        dm.close()
+        sp = sample_sp_mask(torch.Generator().manual_seed(seed + 1), L)
+        seeds = [seed + 10 + i for i in range(3)]
+        T = batch["feats"].shape[1]
+        what_T = f"B=16 T={T} (T'={padded_frames(T, cfg)})"
+        for kind, batch_loss, want in (
+                ("grad_accum=2 QAT step", make_batch_loss(model, LossConfig(), cfg.specials, L),
+                 launches(1, 0, micro=2)),
+                ("grad_accum=2 fp32-control step",
+                 make_fp32_batch_loss(model, LossConfig(), cfg.specials),
+                 launches(1, 0, branches=1, micro=2))):
+
+            def step_():
+                for fn in kernels.values():
+                    fn.launches = 0
+                (_, aux), grads = accumulated_value_and_grad(batch_loss, params, batch, sp, seeds,
+                                                             True, grad_accum=2)
+                torch.cuda.synchronize()
+                counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+                return {k: float(v) for k, v in aux.items()}, grads, counts
+
+            aux_k, grads_k, counts = step_()
+            if counts != want:
+                raise AssertionError(f"{kind}: launches {counts}, want {want}")
+            for plain, swap, aux_tol, grad_tol, rows in plain_pairs(model):
+                with swap():
+                    aux_p, grads_p, counts_p = step_()
+                err, (grad_err, _) = aux_err(aux_k, aux_p), _grads_cmp(grads_k, grads_p)
+                log(f"options {kind} at {what_T} vs {plain}: aux max relative |d|={err:.3g} "
+                    f"(tolerance {aux_tol}) grads |d|/|g|={grad_err:.3g} (tolerance {grad_tol}) "
+                    f"launches={counts}")
+                if any(counts_p.get(k) for k in rows) or err > aux_tol or grad_err > grad_tol:
+                    raise AssertionError(f"options {kind}: the kernels stray from the {plain} "
+                                         f"(or the plain run launched them: {counts_p})")
+                del grads_p
+            del grads_k
+        del model, params
+
+        # the no-QAT control for one short epoch, its first epoch profiled
+        prof = os.path.join(root, "profile")
+        metrics, _, _, _ = train("fp32", ["--fp32_control", "--steps_per_epoch", "1",
+                                          "--profile_dir", prof],
+                                 launches(1, 1, branches=1, precisions=1))
+        tags = {k for k in metrics[0] if k.startswith(("loss_", "wer_", "cer_"))}
+        if tags != {"loss_32bit", "wer_32bit", "cer_32bit"}:
+            raise AssertionError(f"fp32 control logged {sorted(tags)}")
+        trace_path = os.path.join(prof, "trace.json")
+        t0 = time.perf_counter()
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_names = {e["name"] for e in events if e.get("cat") == "kernel"}
+        alpha = sorted(n for n in kernel_names if "ctc_alpha" in n)
+        log(f"options profile: {trace_path} {os.path.getsize(trace_path) / 1e6:.1f} MB, "
+            f"{len(events)} events, {len(kernel_names)} kernel names, row 7 as {alpha} "
+            f"(read in {time.perf_counter() - t0:.2f} s)")
+        if not alpha:
+            raise AssertionError("the --profile_dir trace does not name the CTC alpha kernel")
+    wall = time.perf_counter() - t_phase
+    log(f"prepare and options: phase wall_s={wall:.2f} (target <= 60) [{smi}]")
 
 
 def launches_per_batch(label, fn):
@@ -2715,6 +2983,10 @@ def main(argv=None) -> int:
         log("real data: trained over three bucket lengths on the wav and the feature-cache "
             "paths, held rows 3-8 against their plain versions at each bucket's shapes, "
             "evaluated and transcribed through the CLIs, on the kernels")
+    prepare_options_phase(kernels, args.seed, smi)  # times steps: before any profiler run too
+    log("prepare and options: prepared a corpus on the card (CMVN and features equal to the "
+        "CPU's), trained it with --grad_accum 2 --multistep 2 and --fp32_control, held rows 3-8 "
+        "of both steps against their plain versions, and profiled an epoch")
     kernel_device_phase(cfg, t_pad, args.seed, rows)
     subsample_device_phase(cfg, frames, args.seed, rows)
     attention_device_phase(cfg, t_pad, t_sub, args.seed, rows)

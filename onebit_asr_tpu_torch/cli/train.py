@@ -9,11 +9,11 @@ saves the last and the best train state under `<save_dir>/<run_name>/` with
 its `config.json`; `--resume` continues from the last one. A non-finite
 epoch loss ends the run with "FATAL: non-finite train loss" and exit code 1.
 
-The data is the synthetic backend (`--dummy_data`) or a prepared
-`--data_dir` (manifests, npz shards, a tokenizer, optionally CMVN
-statistics and a feature cache; the JAX package's `prepare` writes one):
-`train` in `--num_buckets` length buckets up to `--max_frames`, featurized
-on the device with SpecAugment (`--no_spec_augment` turns it off,
+The data is the synthetic backend (`--dummy_data`) or a `--data_dir` as
+`python -m onebit_asr_tpu_torch.prepare` writes it (manifests, npz shards,
+a tokenizer, optionally CMVN statistics and a feature cache): `train` in
+`--num_buckets` length buckets up to `--max_frames`, featurized on the
+device with SpecAugment (`--no_spec_augment` turns it off,
 `--time_mask_ratio` caps its time masks), and evaluation on `dev` through
 the tokenizer. An epoch has num_utts(train) // batch_size steps. Batches are
 made and moved to the device on a producer thread `--prefetch_depth`
@@ -29,9 +29,18 @@ branch through the fused forward and backward kernels of
 csrc/subsampler.cu. `--device cpu` runs the same step on the kernels' plain
 versions.
 
+The step options are JAX's: `--grad_accum N` splits each batch into N
+micro-batches along B and averages their gradients before the one update;
+`--fp32_control` trains the no-QAT control (one full-precision branch),
+evaluates at 32 bits only and keeps the best checkpoint by `loss_32bit`;
+`--multistep K` groups K batches of one shape into a stacked batch that
+`make_multi_train_step` runs as K steps (odd leftovers go through the
+single step; not with `--fp32_control`: exit 1); `--profile_dir` writes a
+torch.profiler Chrome trace of this run's first epoch. Each epoch logs
+`host_rss_gb` after giving glibc's retained heap pages back.
+
 Not ported yet, and refused with exit code 2 and a message naming what is
-missing: `--grad_accum` > 1, `--multistep` > 1, `--fp32_control`, `--fsdp`,
-`--tensor_parallel`, `--pipeline_stages`, `--wandb`, `--profile_dir`,
+missing: `--fsdp`, `--tensor_parallel`, `--pipeline_stages`, `--wandb`,
 `--quant_per_channel`, `--quant_decoder`, `--reference_decoder` and the
 streaming options (`--conv_norm` other than batch_norm, `--causal_conv`,
 `--attn_chunk_size`). Flags of the JAX CLI that have no counterpart here
@@ -42,6 +51,7 @@ streaming options (`--conv_norm` other than batch_norm, `--causal_conv`,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import os
 import sys
@@ -125,14 +135,10 @@ def refusal(args) -> str:
     """What of `args` this package does not implement yet, or ""."""
     later = "not ported yet (later slice)"
     checks = [
-        (args.grad_accum > 1, f"--grad_accum > 1: {later}"),
-        (args.multistep > 1, f"--multistep: {later}"),
-        (args.fp32_control, f"--fp32_control: {later}"),
         (args.fsdp, f"--fsdp: {later}"),
         (args.tensor_parallel > 1, f"--tensor_parallel: {later}"),
         (args.pipeline_stages > 1, f"--pipeline_stages: {later}"),
         (args.wandb, f"--wandb: {later}"),
-        (bool(args.profile_dir), f"--profile_dir: {later}"),
     ]
     return next((msg for bad, msg in checks if bad), "")
 
@@ -143,14 +149,27 @@ def main(argv=None) -> int:
     if why:
         print(f"FATAL: {why}", file=sys.stderr)
         return 2
+    if args.multistep > 1 and args.fp32_control:
+        print("FATAL: --multistep composes only with the plain QAT path "
+              "(not fsdp/tp/pp/fp32_control)")
+        return 1
+    from onebit_asr_tpu_torch.utils.profiling import debug_nans, host_rss_gb, malloc_trim, trace
+
     if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+        debug_nans(True)
 
     from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
     from onebit_asr_tpu_torch.data import DummyDataModule, prefetch
     from onebit_asr_tpu_torch.eval import build_eval_steps, evaluate_stream
     from onebit_asr_tpu_torch.model.asr import check_trainable
-    from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
+    from onebit_asr_tpu_torch.train import (
+        AdamW,
+        create_train_state,
+        make_fp32_train_step,
+        make_multi_train_step,
+        make_train_step,
+        stack_batches,
+    )
     from onebit_asr_tpu_torch.train.state import param_count
     from onebit_asr_tpu_torch.train.step import batch_to_device
     from onebit_asr_tpu_torch.utils.checkpoint import CheckpointManager, save_config
@@ -182,7 +201,7 @@ def main(argv=None) -> int:
             tokenizer = AsrTokenizer.find_and_load(args.data_dir, specials)
         except FileNotFoundError:
             print(f"no tokenizer artifact in {args.data_dir}; run "
-                  "`python -m onebit_asr_tpu.cli.prepare` first", file=sys.stderr)
+                  "`python -m onebit_asr_tpu_torch.prepare` first", file=sys.stderr)
             return 2
         dm = LibriSpeechDataModule(
             args.data_dir, tokenizer,
@@ -262,30 +281,66 @@ def main(argv=None) -> int:
         print(f"resumed at step {state.step} (epoch {start_epoch})")
 
     optimizer = AdamW(optim_cfg, total_steps)
-    step_fn = make_train_step(model, optimizer, loss_cfg, specials, args.enc_layers,
-                              grad_accum=args.grad_accum)
-    eval_steps = build_eval_steps(model, loss_cfg, specials, args.enc_layers)
+    make_step = make_fp32_train_step if args.fp32_control else make_train_step
+    step_fn = make_step(model, optimizer, loss_cfg, specials, args.enc_layers,
+                        grad_accum=args.grad_accum)
+    if args.fp32_control:
+        print("fp32 control: single full-precision branch, no QAT")
+    multi_step_fn = None
+    if args.multistep > 1:
+        multi_step_fn = make_multi_train_step(model, optimizer, loss_cfg, specials,
+                                              args.enc_layers, grad_accum=args.grad_accum)
+    eval_precisions = (32,) if args.fp32_control else (32, 2, 1)
+    val_tag = "32bit" if args.fp32_control else "2bit"
+    eval_steps = build_eval_steps(model, loss_cfg, specials, args.enc_layers,
+                                  precisions=eval_precisions)
+
+    def group_multistep(it, K):
+        """Stacked [K, B, ...] batches of K same-shaped (same-bucket) batches;
+        the leftovers of each shape go through the single step."""
+        buf: dict = {}
+        for b in it:
+            k = tuple(b["feats"].shape)
+            buf.setdefault(k, []).append(b)
+            if len(buf[k]) == K:
+                yield stack_batches(buf.pop(k))
+        for bs in buf.values():
+            yield from bs
+
     best_val = float("inf")
     for epoch in range(start_epoch, args.epochs):
         t_ep = time.time()
         losses, n_utts = [], 0
         pf_stats: dict = {}
         batches = itertools.islice(get_train(epoch), args.steps_per_epoch or None)
-        for batch in prefetch(batches, transfer=lambda b: batch_to_device(b, device),
-                              depth=args.prefetch_depth, stats=pf_stats):
-            state, aux = step_fn(state, batch)
-            losses.append(aux["loss"])
-            n_utts += len(batch["tokens"])
+        if multi_step_fn is not None:
+            batches = group_multistep(batches, args.multistep)
+        profiling = (trace(args.profile_dir) if args.profile_dir and epoch == start_epoch
+                     else contextlib.nullcontext())
+        with profiling:
+            for batch in prefetch(batches, transfer=lambda b: batch_to_device(b, device),
+                                  depth=args.prefetch_depth, stats=pf_stats):
+                if batch["feats"].ndim == 4:  # [K, B, T, F]
+                    state, aux = multi_step_fn(state, batch)
+                else:
+                    state, aux = step_fn(state, batch)
+                losses.append(aux["loss"])
+                n_utts += int(np.prod(batch["tokens"].shape[:-1]))
+        if args.profile_dir and epoch == start_epoch:
+            print(f"profile of epoch {epoch}: {os.path.join(args.profile_dir, 'trace.json')}")
         train_loss = float(np.mean([float(l) for l in losses]))
         dt = time.time() - t_ep
         if not np.isfinite(train_loss):
             print(f"FATAL: non-finite train loss at epoch {epoch}")
             return 1
+        # give retained heap pages back, so that host_rss_gb reads the live set
+        malloc_trim()
         metrics = {
             "epoch": epoch,
             "train_loss": train_loss,
             "epoch_seconds": dt,
             "utt_per_sec": n_utts / dt,
+            "host_rss_gb": host_rss_gb(),
             # the share of the epoch's wall time the step waited for its batch
             "input_wait_frac": pf_stats.get("wait_s", 0.0) / max(dt, 1e-9),
             "lr": float(optimizer.schedule(state.step)),
@@ -295,15 +350,18 @@ def main(argv=None) -> int:
         eval_metrics = evaluate_stream(
             model, state.params, get_valid(), loss_cfg, specials, args.enc_layers,
             tokenizer=tokenizer, use_beam=args.eval_beam, beam_size=args.beam_size,
-            max_batches=args.eval_batches or None, eval_steps=eval_steps, device=device)
+            max_batches=args.eval_batches or None, eval_steps=eval_steps, device=device,
+            precisions=eval_precisions)
         metrics.update(eval_metrics)
         logger.log(metrics, step=state.step)
-        wers = "/".join(f"{eval_metrics[f'wer_{t}']:.3f}" for t in ("32bit", "2bit", "1bit"))
-        print(f"epoch {epoch}: train {train_loss:.3f} val(2bit) {eval_metrics['loss_2bit']:.3f} "
+        wers = "/".join(f"{eval_metrics[f'wer_{t}']:.3f}" for t in ("32bit", "2bit", "1bit")
+                        if f"wer_{t}" in eval_metrics)
+        val_loss = eval_metrics[f"loss_{val_tag}"]
+        print(f"epoch {epoch}: train {train_loss:.3f} val({val_tag}) {val_loss:.3f} "
               f"wer {wers} ({n_utts / dt:.1f} utt/s)")
-        ckpt.save(state, metrics={"val_loss": eval_metrics["loss_2bit"]})
-        if eval_metrics["loss_2bit"] < best_val:
-            best_val = eval_metrics["loss_2bit"]
+        ckpt.save(state, metrics={"val_loss": val_loss})
+        if val_loss < best_val:
+            best_val = val_loss
             ckpt_best.save(state, metrics={"val_loss": best_val})
     logger.close()
     if not args.dummy_data:

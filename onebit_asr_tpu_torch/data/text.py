@@ -1,7 +1,7 @@
-"""Model-side ids <-> text (own copy of onebit_asr_tpu/data/text.py without
-its trainer). Model ids [0, offset) are specials; subword id = model id -
-offset. An HF `tokenizer.json` needs the `tokenizers` package; a
-SentencePiece `tokenizer.model` is read by data/spm.py."""
+"""Model-side ids <-> text (own copy of onebit_asr_tpu/data/text.py, its BPE
+trainer included). Model ids [0, offset) are specials; subword id = model
+id - offset. Training and an HF `tokenizer.json` need the `tokenizers`
+package; a SentencePiece `tokenizer.model` is read by data/spm.py."""
 
 from __future__ import annotations
 
@@ -15,6 +15,23 @@ class AsrTokenizer:
     def __init__(self, hf_tokenizer, specials: Optional[SpecialTokens] = None):
         self._tok = hf_tokenizer
         self.specials = specials or SpecialTokens()
+
+    @classmethod
+    def train(cls, texts: Iterable[str], vocab_size: int = 5000,
+              specials: Optional[SpecialTokens] = None) -> "AsrTokenizer":
+        """A BPE of `vocab_size` subwords (Metaspace pre-tokenizer and
+        decoder, `<unk>` its one special) on the upper-cased texts."""
+        from tokenizers import Tokenizer, decoders, models, pre_tokenizers, trainers
+
+        tok = Tokenizer(models.BPE(unk_token="<unk>"))
+        tok.pre_tokenizer = pre_tokenizers.Metaspace()
+        tok.decoder = decoders.Metaspace()
+        trainer = trainers.BpeTrainer(vocab_size=vocab_size, special_tokens=["<unk>"])
+        tok.train_from_iterator((t.upper() for t in texts), trainer)
+        return cls(tok, specials)
+
+    def save(self, path: str) -> None:
+        self._tok.save(path)
 
     @classmethod
     def load(cls, path: str, specials: Optional[SpecialTokens] = None) -> "AsrTokenizer":
@@ -41,9 +58,13 @@ class AsrTokenizer:
         raise FileNotFoundError(f"no tokenizer.json / tokenizer.model in {data_dir}")
 
     @property
+    def subword_vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+    @property
     def vocab_size(self) -> int:
         """Model vocabulary: subwords + the reserved specials."""
-        return self._tok.get_vocab_size() + self.specials.offset
+        return self.subword_vocab_size + self.specials.offset
 
     def encode(self, text: str) -> List[int]:
         """Text -> model-side ids (offset-shifted)."""

@@ -4,7 +4,9 @@ Counterpart of onebit_asr_tpu/ops/frontend.py: framing (snip edges) ->
 optional dither -> DC removal -> preemphasis -> povey window -> rFFT power
 spectrum (torch.fft, f32) -> mel filterbank -> log(max(e, eps)) -> optional
 CMVN. Frames past an utterance's length are computed from the zero padding
-and must be masked downstream with the returned lengths.
+and must be masked downstream with the returned lengths. The CMVN statistics
+are accumulated over the valid frames of padded batches
+(`accumulate_cmvn`, `finalize_cmvn`), as `prepare cmvn` does.
 """
 
 from __future__ import annotations
@@ -128,3 +130,30 @@ def resample_linear(wav: np.ndarray, orig_sr: int, new_sr: int = 16000) -> np.nd
     x_old = np.linspace(0.0, 1.0, num=len(wav), endpoint=False)
     x_new = np.linspace(0.0, 1.0, num=n_out, endpoint=False)
     return np.interp(x_new, x_old, wav).astype(np.float32)
+
+
+def accumulate_cmvn(feats: torch.Tensor, feat_lens: torch.Tensor,
+                    acc: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Add the valid frames of a padded batch (feats [B, T, F] f32, lens [B])
+    to the running (sum [F], sum of squares [F], count []) on the batch's
+    device."""
+    s, sq, n = acc
+    T = feats.shape[1]
+    mask = (torch.arange(T, device=feats.device)[None, :]
+            < feat_lens.to(feats.device)[:, None]).to(torch.float32)
+    m = mask[..., None]
+    s = s + torch.sum(feats * m, dim=(0, 1))
+    sq = sq + torch.sum(feats.square() * m, dim=(0, 1))
+    return s, sq, n + mask.sum()
+
+
+def finalize_cmvn(acc: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                  std_floor: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum, sum of squares, count) -> (mean, std): mean = s / max(n, 1),
+    std = max(sqrt(max(sq / n - mean^2, 0)), std_floor), in f32."""
+    s, sq, n = acc
+    n = torch.clamp(n, min=1.0)
+    mean = s / n
+    var = torch.clamp(sq / n - mean.square(), min=0.0)
+    return mean, torch.clamp(torch.sqrt(var), min=std_floor)

@@ -20,6 +20,12 @@ each encoder block's attention runs its forward and backward kernels
 `fused_subsampler` each branch's subsampler runs its forward and backward
 kernels (ops/subsampler.py): 3 launches of each per step. Everything else in
 the backward is autograd over plain tensor code.
+
+With grad_accum > 1 each of those counts holds per micro-batch. Beside the
+QAT step: the no-QAT control (`make_fp32_train_step`: one full-precision
+branch, its own lattice launch per micro-batch and the 1 x L attention and
+1 subsampler launches of one branch) and K steps on a stacked batch
+(`make_multi_train_step`, `stack_batches`).
 """
 
 from __future__ import annotations
@@ -120,32 +126,147 @@ def value_and_grad(batch_loss, params, *args):
     return (total.detach(), {k: v.detach() for k, v in aux.items()}), grads
 
 
-def make_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: SpecialTokens,
-                    num_enc_layers: int,
-                    grad_accum: int = 1) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
-    """train_step(state, batch) -> (state, aux): one optimizer step on a batch
-    {feats [B, T, F], feat_lens [B], tokens [B, U], token_lens [B]} of
-    tensors on the model's device. The state is updated in place and
-    returned; aux holds the loss terms and `grad_norm` as device scalars."""
-    if grad_accum != 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet (later slice)")
-    batch_loss = make_batch_loss(model, loss_cfg, specials, num_enc_layers)
+def micro_seed(seed: int, i: int) -> int:
+    """The dropout seed of micro-batch `i` of a step whose branch seed is
+    `seed` (the counterpart of JAX's `fold_in(key, i)`)."""
+    return int(np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0] >> np.uint64(2))
+
+
+def _split_batch(batch: Batch, grad_accum: int):
+    """`grad_accum` contiguous micro-batches along B, each with the whole
+    batch's T and U."""
+    B = batch["feats"].shape[0]
+    if B % grad_accum:
+        raise ValueError(f"batch {B} not divisible by grad_accum {grad_accum}")
+    m = B // grad_accum
+    return [{k: v[i * m : (i + 1) * m] for k, v in batch.items()} for i in range(grad_accum)]
+
+
+def accumulated_value_and_grad(batch_loss, params, batch: Batch, sp_mask: torch.Tensor,
+                               seeds: Sequence[int], dropout: bool, grad_accum: int = 1):
+    """((loss, aux), grads) of `batch_loss` on `batch`. With grad_accum > 1,
+    the gradients and aux of the micro-batches (one sp mask; dropout seeds
+    `micro_seed(seed, i)`) are summed in order and divided by grad_accum,
+    and loss = aux["loss"]."""
+    device = batch["feats"].device
+
+    def rngs(i=None):
+        if not dropout:
+            return [None] * len(seeds)
+        return [torch.Generator(device=device).manual_seed(s if i is None else micro_seed(s, i))
+                for s in seeds]
+
+    if grad_accum == 1:
+        return value_and_grad(batch_loss, params, batch, sp_mask, rngs())
+    grads = aux = None
+    for i, mb in enumerate(_split_batch(batch, grad_accum)):
+        (_, aux_i), g_i = value_and_grad(batch_loss, params, mb, sp_mask, rngs(i))
+        if grads is None:
+            grads, aux = g_i, aux_i
+            continue
+        for k, g in g_i.items():
+            grads[k].add_(g)
+        aux = {k: aux[k] + aux_i[k] for k in aux}
+    grads = {k: g / grad_accum for k, g in grads.items()}
+    aux = {k: a / grad_accum for k, a in aux.items()}
+    return (aux["loss"], aux), grads
+
+
+def _make_step(model, batch_loss, optimizer: AdamW, loss_cfg: LossConfig, num_enc_layers: int,
+               grad_accum: int):
     dropout = model.cfg.dropout > 0
 
     def train_step(state: TrainState, batch: Batch):
+        # the same draws for every kind of step, so that runs resume alike
         sp_mask = sample_sp_mask(state.generator, num_enc_layers, loss_cfg.sp_low_p,
                                  loss_cfg.sp_high_p)
         seeds = torch.randint(0, 2 ** 62, (3,), generator=state.generator).tolist()
-        device = batch["feats"].device
-        rngs = [torch.Generator(device=device).manual_seed(s) if dropout else None
-                for s in seeds]
-        (_, aux), grads = value_and_grad(batch_loss, state.params, batch, sp_mask, rngs)
+        (_, aux), grads = accumulated_value_and_grad(batch_loss, state.params, batch, sp_mask,
+                                                     seeds, dropout, grad_accum)
         aux["grad_norm"] = optimizer.update(state.params, grads, state.mu, state.nu, state.count)
         state.count += 1
         state.step += 1
         return state, aux
 
     return train_step
+
+
+def make_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: SpecialTokens,
+                    num_enc_layers: int,
+                    grad_accum: int = 1) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict]]:
+    """train_step(state, batch) -> (state, aux): one optimizer step on a batch
+    {feats [B, T, F], feat_lens [B], tokens [B, U], token_lens [B]} of
+    tensors on the model's device. The state is updated in place and
+    returned; aux holds the loss terms and `grad_norm` as device scalars.
+
+    With grad_accum > 1 the batch is split along B into that many
+    micro-batches whose gradients are averaged before the one AdamW update
+    (activation memory scales with B / grad_accum; BatchNorm takes each
+    micro-batch's statistics, as in JAX). B must divide: else ValueError."""
+    batch_loss = make_batch_loss(model, loss_cfg, specials, num_enc_layers)
+    return _make_step(model, batch_loss, optimizer, loss_cfg, num_enc_layers, grad_accum)
+
+
+def make_fp32_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens):
+    """batch_loss(params, b, sp_mask, branch_rngs) -> (total, aux) of the
+    no-QAT control: one branch with every projection on its raw weights
+    (binary_mask=None), dropout from branch_rngs[0], total = (1 - gamma)
+    L_att + gamma L_ctc. sp_mask is not read."""
+
+    def batch_loss(params, b: Batch, sp_mask, branch_rngs):
+        del sp_mask
+        tgt_inp, tgt_out, tgt_valid = make_att_targets(b["tokens"], b["token_lens"], specials)
+        rng = branch_rngs[0]
+        _, enc_mask, logits_ctc, dec_logits = functional_call(
+            model, params, (b["feats"], b["feat_lens"]),
+            dict(binary_mask=None, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid,
+                 draws=None if rng is None else generator_draws(rng)))
+        l_att = att_ce_loss(dec_logits, tgt_out, tgt_valid, loss_cfg.label_smoothing)
+        l_ctc = ctc_loss(logits_ctc, enc_mask.sum(dim=-1), b["tokens"], b["token_lens"],
+                         specials.blank_id)
+        g = loss_cfg.gamma_ctc
+        total = (1.0 - g) * l_att + g * l_ctc
+        return total, {"loss": total, "loss_att_32bit": l_att, "loss_ctc_32bit": l_ctc}
+
+    return batch_loss
+
+
+def make_fp32_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: SpecialTokens,
+                         num_enc_layers: int, grad_accum: int = 1):
+    """The no-QAT control: make_train_step's step (the same draws from the
+    state's generator, the same grad_accum path, optimizer and clip) on
+    make_fp32_batch_loss. aux: loss, loss_att_32bit, loss_ctc_32bit,
+    grad_norm."""
+    return _make_step(model, make_fp32_batch_loss(model, loss_cfg, specials), optimizer,
+                      loss_cfg, num_enc_layers, grad_accum)
+
+
+def make_multi_train_step(model, optimizer: AdamW, loss_cfg: LossConfig,
+                          specials: SpecialTokens, num_enc_layers: int, grad_accum: int = 1):
+    """multi_step(state, stacked) -> (state, aux): make_train_step's step K
+    times in order on a stacked batch [K, B, ...] (stack_batches), the same
+    as K calls. aux is each key's mean over the K steps, plus `losses` [K].
+    JAX runs the K steps as one dispatch; here they are K steps of host
+    dispatch as before, and what the grouping saves is one host round-trip
+    for the aux of K steps."""
+    step = make_train_step(model, optimizer, loss_cfg, specials, num_enc_layers, grad_accum)
+
+    def multi_step(state: TrainState, stacked: Batch):
+        auxes = []
+        for k in range(stacked["feats"].shape[0]):
+            state, aux = step(state, {n: v[k] for n, v in stacked.items()})
+            auxes.append(aux)
+        out = {n: torch.stack([a[n] for a in auxes]).mean() for n in auxes[0]}
+        out["losses"] = torch.stack([a["loss"] for a in auxes])
+        return state, out
+
+    return multi_step
+
+
+def stack_batches(batches):
+    """Batches of one shape (numpy arrays or tensors) -> one batch [K, ...]."""
+    return {k: torch.stack([b[k] for b in batches]) if isinstance(batches[0][k], torch.Tensor)
+            else np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
 def make_eval_step(model, loss_cfg: LossConfig, specials: SpecialTokens, num_enc_layers: int,

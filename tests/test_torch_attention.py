@@ -37,6 +37,7 @@ from onebit_asr_tpu_torch import convert
 from onebit_asr_tpu_torch.model.conformer import relpos_attention_chain
 from onebit_asr_tpu_torch.ops import attention as fa
 from onebit_asr_tpu_torch.utils.config import ModelConfig
+from torch_cpu_threads import one_thread  # noqa: F401
 
 SMALL = dict(vocab_size=40, enc_d_model=64, enc_layers=2, enc_heads=2,
              enc_d_ff=128, enc_conv_kernel=7)

@@ -21,6 +21,7 @@ import onebit_asr_tpu.losses.ctc as jctc
 from onebit_asr_tpu.ops.ctc_pallas import ctc_alpha_pallas, ctc_beta_pallas
 from onebit_asr_tpu_torch.losses import ctc as tctc
 from onebit_asr_tpu_torch.ops import ctc_lattice as cl
+from torch_cpu_threads import one_thread  # noqa: F401
 
 BLANK = 3
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -45,22 +45,12 @@ from onebit_asr_tpu_torch.data.text import AsrTokenizer
 from onebit_asr_tpu_torch.eval import evaluate_stream
 from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
 from onebit_asr_tpu_torch.utils.config import DataConfig
+from torch_cpu_threads import one_thread  # noqa: F401
 
 TINY = ["--enc_layers", "2", "--enc_d_model", "64", "--enc_heads", "2", "--enc_d_ff", "128",
         "--enc_conv_kernel", "7", "--dec_layers", "1", "--dec_d_ff", "64",
         "--compute_dtype", "float32"]
 DCFG = dict(batch_size=4, num_buckets=2, max_frames=250, max_tokens=24)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this module's tiny torch work: with the suite's
-    workers sharing the cores, a team of spinning threads per op made the
-    2-step train run ~100x slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from onebit_asr_tpu_torch.decode.lm import NGramLM
 from onebit_asr_tpu_torch.decode.lm_device import DeviceLM, mul32
 from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
 from onebit_asr_tpu_torch.utils.config import ModelConfig
+from torch_cpu_threads import one_thread  # noqa: F401
 
 
 def _log_probs(seed, B, T, V, scale=2.0):

@@ -46,6 +46,7 @@ from onebit_asr_tpu_torch.eval.evaluate import evaluate_stream
 from onebit_asr_tpu_torch.model.packed import export_packed_params
 from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
 from onebit_asr_tpu_torch.utils.config import LossConfig, SpecialTokens
+from torch_cpu_threads import one_thread  # noqa: F401
 
 TINY = ["--enc_layers", "2", "--enc_d_model", "64", "--enc_heads", "2", "--enc_d_ff", "128",
         "--enc_conv_kernel", "7", "--dec_layers", "1", "--dec_d_ff", "64",

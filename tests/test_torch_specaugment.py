@@ -32,6 +32,7 @@ from onebit_asr_tpu_torch.ops.specaugment import (
     time_mask_widths,
 )
 from onebit_asr_tpu_torch.utils.config import FrontendConfig
+from torch_cpu_threads import one_thread  # noqa: F401
 
 # lengths: full, n = 1, n = 0, below time_mask_param, and the f32 floor trap
 # values at ratio 0.7 (90, 170, 180)

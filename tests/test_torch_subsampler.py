@@ -32,6 +32,7 @@ from onebit_asr_tpu_torch.cli import transcribe as cli
 from onebit_asr_tpu_torch.model.asr import ConformerASR
 from onebit_asr_tpu_torch.ops import subsampler as ss
 from onebit_asr_tpu_torch.utils.config import ModelConfig, train_config_from_json
+from torch_cpu_threads import one_thread  # noqa: F401
 
 SMALL = dict(vocab_size=40, enc_d_model=64, enc_layers=2, enc_heads=2,
              enc_d_ff=128, enc_conv_kernel=7)

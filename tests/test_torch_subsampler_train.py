@@ -52,6 +52,7 @@ from test_torch_train import (
     assert_loss_and_grads_match,
     assert_params_and_moments_match,
 )
+from torch_cpu_threads import one_thread  # noqa: F401
 
 GRADS = ("dx", "dw1", "db1", "dw2", "db2")
 

@@ -18,6 +18,7 @@ from onebit_asr_tpu_torch.convert import to_torch
 from onebit_asr_tpu_torch.model.packed import export_packed_params
 from onebit_asr_tpu_torch.ops import ternary_matmul as tm
 from onebit_asr_tpu_torch.ops.quant import project_weight
+from torch_cpu_threads import one_thread  # noqa: F401
 
 
 def _case(seed, M, K, N):

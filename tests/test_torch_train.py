@@ -67,6 +67,7 @@ from onebit_asr_tpu_torch.utils.config import (
     OptimConfig,
     SpecialTokens,
 )
+from torch_cpu_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(vocab_size=32, enc_d_model=64, enc_layers=2, enc_heads=2, enc_d_ff=128,
@@ -244,14 +245,14 @@ def test_clip_adamw_schedule_match_optax():
 SP_MASKS = [np.array([True, False]), np.array([False, True])]
 
 
-def _two_steps(compute_dtype, **flags):
-    """Two steps of (3-branch loss, grads, clip + AdamW) in JAX and in the
-    port, from the same converted params, batches and sp masks, dropout 0;
-    `flags` go to both models' configs."""
+def _two_steps(compute_dtype, steps=2, **flags):
+    """`steps` (two) steps of (3-branch loss, grads, clip + AdamW) in JAX and
+    in the port, from the same converted params, batches and sp masks,
+    dropout 0; `flags` go to both models' configs."""
     jcfg, cfg = _configs(compute_dtype, **flags)
     params = convert.init_params(cfg, 0)
     dm = DummyDataModule(batch_size=3, max_frames=72, max_tokens=6, vocab_size=32)
-    batches = list(dm.train_batches(0))[:2]
+    batches = list(dm.train_batches(0))[:steps]
     jmodel = JaxASR.from_config(jcfg, deterministic=True)
     jvg = jax.jit(jax.value_and_grad(
         jstep.make_batch_loss(jmodel, jc.LossConfig(), jc.SpecialTokens(), 2), has_aux=True))
@@ -343,7 +344,7 @@ def test_params_and_moments_after_two_steps_match_jax(f32_steps):
 
 
 def test_bf16_step_matches_jax_loosely():
-    for step in _two_steps("bfloat16")[:1]:
+    for step in _two_steps("bfloat16", steps=1):
         j, t = step["jax"], step["port"]
         for k in j["aux"]:
             np.testing.assert_allclose(t["aux"][k], j["aux"][k], rtol=1e-2, atol=1e-3, err_msg=k)
@@ -451,11 +452,10 @@ def test_eval_step_matches_jax(precision):
 
 
 REFUSED_FLAGS = [
-    ([], "real data"), (["--grad_accum", "2"], "--grad_accum"),
-    (["--multistep", "2"], "--multistep"), (["--fp32_control"], "--fp32_control"),
+    ([], "real data"),
     (["--fsdp"], "--fsdp"), (["--tensor_parallel", "2"], "--tensor_parallel"),
     (["--pipeline_stages", "2"], "--pipeline_stages"),
-    (["--wandb"], "--wandb"), (["--profile_dir", "x"], "--profile_dir"),
+    (["--wandb"], "--wandb"),
     (["--quant_per_channel"], "quant_per_channel"), (["--quant_decoder"], "quant_decoder"),
     (["--reference_decoder"], "reference_decoder"),
     (["--conv_norm", "layer_norm"], "conv_norm"), (["--causal_conv"], "causal_conv"),
@@ -501,9 +501,12 @@ def test_library_refusals():
         assert model.encoder.subsample.fused == change.get("fused_subsampler", False)
         assert model.encoder.subsample.qat
     model = convert.qat_model_from_jax(cfg, convert.init_params(cfg, 0), device="cpu")
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        make_train_step(model, AdamW(OptimConfig(), 10), LossConfig(), SpecialTokens(), 2,
-                        grad_accum=2)
+    batch = batch_to_device(next(iter(DummyDataModule(batch_size=3, max_frames=48,
+                                                      max_tokens=4).train_batches(0))), "cpu")
+    step = make_train_step(model, AdamW(OptimConfig(), 10), LossConfig(), SpecialTokens(), 2,
+                           grad_accum=2)
+    with pytest.raises(ValueError, match="batch 3 not divisible by grad_accum 2"):
+        step(create_train_state(model, 0), batch)
     # beam evaluation is ported: no batches, no refusal
     assert evaluate_stream(model, None, [], LossConfig(), SpecialTokens(), 2,
                            use_beam=True)["eval_batches"] == 0

@@ -46,6 +46,7 @@ from onebit_asr_tpu_torch.decode.greedy import greedy_ctc_decode
 from onebit_asr_tpu_torch.model.asr import ConformerASR
 from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn
 from onebit_asr_tpu_torch.utils.config import ModelConfig, train_config_from_json
+from torch_cpu_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(vocab_size=40, enc_d_model=64, enc_layers=2, enc_heads=2,
@@ -346,7 +347,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     line when there is no card, and on a 12-utterance data dir that
     chip_smoke's writer makes (the port's `write_manifest`, a character-level
     tokenizer.model) the train CLI takes one real-data step through prefetch
-    and the transcribe CLI serves one batch of `--split test`."""
+    and the transcribe CLI serves one batch of `--split test`, and `prepare
+    all --synthetic 8 --device cpu` writes a data dir."""
     code = r"""
 import importlib, io, contextlib, pkgutil, sys, dataclasses
 sys.modules["jax"] = None
@@ -424,6 +426,13 @@ with tempfile.TemporaryDirectory() as root:
                     "3", "--max_batches", "1", "--out", out, "--device", "cpu"]) == 0
     ids = [l.split("\t")[0] for l in open(out).read().splitlines()]
     assert sorted(ids) == [f"test-{i:06d}" for i in range(3)], ids
+from onebit_asr_tpu_torch.cli import prepare as pcli
+with tempfile.TemporaryDirectory() as root:
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert pcli.main(["all", "--out_dir", root, "--synthetic", "8", "--max_seconds", "1.5",
+                          "--vocab_size", "48", "--num_utts", "8", "--device", "cpu"]) == 0
+    assert {"cmvn_stats.npz", "lm.npz", "tokenizer.json", "train_manifest.jsonl"} <= set(
+        os.listdir(root))
 assert not any(k == "jax" or k.startswith(("jax.", "onebit_asr_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("clean")
