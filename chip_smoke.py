@@ -8,7 +8,8 @@ depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
 3-branch QAT train step of the same model and the train CLI, then serves and
 evaluates the runs the train CLI wrote, then trains, evaluates and serves on
-a seeded data dir through the real-data path:
+a seeded data dir through the real-data path, then under the model options
+(a streaming encoder, a quantized reference decoder, per-channel alpha):
 
 1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
    started together, then one link) and prints the time and each kernel's
@@ -201,7 +202,7 @@ a seeded data dir through the real-data path:
    writes the manifest's utt_ids in the data module's order, and the ids it
    decodes equal `Transcriber`'s; with an empty --data_dir it exits 2.
    `--no_real_data` skips this step.
-15. prepare and the step options (run after step 14, before the device
+15. prepare and the step options (run after step 16, before the device
    steps 9-12): `python -m onebit_asr_tpu_torch.prepare` (in process)
    ingests `--synthetic 64 --hard` (64/8/8 utterances of up to 8 s), a
    character-level tokenizer.model over its words' characters is written
@@ -221,9 +222,41 @@ a seeded data dir through the real-data path:
    turn (step 7's tolerances). `train --fp32_control --profile_dir` runs
    one step: only 32-bit evaluation is logged, and its Chrome trace must
    name row 7's kernel.
+16. model options (run after step 14, before step 15 and the device steps
+   9-12: it times steps, and a finished profiler session slows host code):
+   `python -m onebit_asr_tpu_torch.train --dummy_data` (in process) trains
+   Conformer-M (vocabulary 32) for 2 steps at B=16, 1,024 frames (T'=256),
+   with one evaluation batch at 32/2/1, three ways; each run's ms per step
+   (CUDA events) and peak memory are printed beside step 7's. (a)
+   `--conv_norm layer_norm --causal_conv --attn_chunk_size 16
+   --attn_left_chunks 2` under both fused flags: rows 5-8 as step 8 counts
+   them, rows 3-4 never (JAX takes its XLA attention whenever a pair mask
+   is set, onebit_asr_tpu/model/conformer.py:310-316, and so does the
+   port); then `transcribe --checkpoint --packed` at precision 2 and with
+   `--int8_act` launches rows 1-2 108 times a batch, and the run's CTC
+   log-probs through the kernels are held against the plain path at step
+   3's tolerances. (b) `--quant_decoder --reference_decoder --conv_norm
+   group_norm` under both fused flags: rows 3-8 as step 8 counts them; one
+   step (the reference smoothing on) at bench.py's batch is held against the
+   same step with each kernel pair on its plain version in turn (step 7's
+   tolerances); the trained run packed with its decoder, at precision 2
+   and with --int8_act, runs `forward_with_decoder` on that batch: rows
+   1-2 launch 128 times (108 encoder + 20 decoder projections, the
+   decoder's at M = B(U+1) = 784 rows), and its decoder and CTC log-probs
+   are held against the plain path at step 3's tolerances; `evaluate
+   --packed --precisions 2` launches row 1 128 times a forward, and its
+   loss is held against the unpacked precision-2 loss within 2% + 0.002.
+   (c)
+   `--quant_per_channel`, unfused: evaluated at 32/2/1, served unpacked, and
+   `transcribe --packed` must fail with the packed export's per-channel
+   NotImplementedError, as JAX's export does.
 
-`device_ms` retakes a profile that lost launches (up to 5 profiles) and the
-script prints how many profiles each call took.
+`device_ms` opens each profile with 64 short spins of the card: after a
+process's first profiler session, each later session drops its first few
+kernel records, more the longer ago that session was (ROADMAP C3), and the
+spins take the loss. It retakes a profile that kept none of its spins (with
+4x as many) or lost launches, up to 5 profiles, and the script prints how
+many profiles each call took and how many spins they lost.
 
 Prints a {"kernels": [...]} line, the card's name and power limit, and last
 {"ok": true, "device": {...}}. Exits non-zero without that line when there
@@ -258,10 +291,22 @@ DEVICE = "cuda"  # where the training phases run
 STEP_MS = {}  # step 7's ms per step by label, printed beside step 14's
 REAL_TRAIN = {}  # step 14's ms per step by T and peak memory, printed beside step 15's
 PROFILES = []  # profiles device_ms took per call (tries + 1: none complete)
+PAD_LOST = []  # opening spins each of device_ms's profiles lost (ROADMAP C3)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _reset(kernels):
+    """Every kernel wrapper's launch count to 0."""
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _counts(kernels):
+    """{name: launches} of the wrappers that launched since `_reset`."""
+    return {k: fn.launches for k, fn in kernels.items() if fn.launches}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -390,39 +435,66 @@ def kernel_phase(cfg, t_pad, seed):
     return rows
 
 
+SPIN_KERNEL = "spin_kernel"  # the kernel torch.cuda._sleep launches
+
+
+def opening_spins(n):
+    """`n` short spins of the card (~0.5 us each) for a profile to open
+    with: after a process's first profiler session, later sessions drop
+    their first few kernel records (ROADMAP C3), and the spins take the
+    loss."""
+    for _ in range(n):
+        torch.cuda._sleep(1 << 10)
+
+
 def device_ms(fn, iters: int = 20, tries: int = 5, per_kernel: bool = False):
     """(device ms per call, kernel names) of `fn` under torch.profiler: each
     kernel's mean duration times its launches per call, without launch gaps.
-    A profile in which a kernel ran on fewer calls than were made (a
-    profiler can drop events) is taken again, and raises after `tries`.
-    With per_kernel, the names are a dict: kernel name -> ms per call."""
+    The calls queue behind `pad` short spins of the card (torch.cuda._sleep):
+    once a process has run a profiler session, each later session drops the
+    first few kernel records it would keep, more the longer ago that first
+    session was (ROADMAP C3), and the spins take the loss. A profile that
+    kept none of its spins is taken again behind 4x as many; one in which a
+    kernel ran on fewer calls than were made is taken again too; it raises
+    after `tries`. With per_kernel, the names are a dict: kernel name -> ms
+    per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    counts = {}
+    counts, pad, spins = {}, 64, 0
     for n in range(1, tries + 1):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opening_spins(pad)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, spins = {}, 0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+                if SPIN_KERNEL in e.name:
+                    spins += 1
+                else:
+                    by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
         counts = {k[:60]: len(v) for k, v in by_name.items()}
-        if by_name and all(len(v) % iters == 0 for v in by_name.values()):
+        PAD_LOST.append(pad - spins)
+        if spins and by_name and all(len(v) % iters == 0 for v in by_name.values()):
             # each kernel's mean duration times its launches per call (a call
             # of a library op may launch one kernel several times)
             per = {k: sum(v) / len(v) * (len(v) // iters) for k, v in by_name.items()}
             PROFILES.append(n)
             return sum(per.values()), per if per_kernel else sorted(by_name)
-        log(f"device_ms: profile {n} of {tries} lost launches (events per kernel: {counts}); "
-            f"taking it again")
+        log(f"device_ms: profile {n} of {tries} lost launches ({spins} of its {pad} opening "
+            f"spins kept; events per kernel: {counts}); taking it again")
+        if not spins:
+            pad *= 4
     PROFILES.append(tries + 1)
-    raise AssertionError(f"the profiler recorded no complete profile of {iters} calls in "
-                         f"{tries} tries (events per kernel in the last: {counts})")
+    raise AssertionError(
+        f"the profiler recorded no complete profile of {iters} calls in {tries} tries (events "
+        f"per kernel in the last: {counts}; {spins} of its {pad} opening spins kept"
+        + ("" if spins else ": the profiler dropped the window's first records, ROADMAP C3")
+        + ")")
 
 
 def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1382,10 +1454,9 @@ def check_variant(name, t, int8_act, batch, lens, kernels):
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: t.transcribe(batch, lens), iters=5, warmup=1)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset(kernels)
     t.transcribe(batch, lens)
-    launched = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    launched = _counts(kernels)
     lp, enc_lens = t.log_probs(batch, lens)
     ids, n_ids = t.transcribe(batch, lens)
     if name == "ternary_matmul_bf16":
@@ -1463,16 +1534,15 @@ def path_phase(cfg, params, wavs, rows):
 
         for label, config, extra, want in runs:
             out = os.path.join(root, f"hyp_{label}.tsv")
-            for fn in kernels.values():
-                fn.launches = 0
+            _reset(kernels)
             t0 = time.perf_counter()
             rc = cli.main(argv(config, extra, out))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {k: fn.launches for k, fn in kernels.items()}
+            counts = _counts(kernels)
             if rc != 0:
                 raise AssertionError(f"transcribe CLI ({label}) returned {rc}")
-            if counts != {k: want.get(k, 0) for k in kernels}:
+            if counts != want:
                 raise AssertionError(f"{label}: launches {counts}, want {want}")
             if label in rows:
                 rows[label]["launches"] = counts[label]
@@ -1820,8 +1890,7 @@ def train_step_phase(cfg, seed, rows, kernels):
     state, aux = step(state, batch)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset(kernels)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     auxes = []
     start.record()
@@ -1830,7 +1899,7 @@ def train_step_phase(cfg, seed, rows, kernels):
         auxes.append(aux)
     end.record()
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in kernels.items()}
+    counts = _counts(kernels)
     fused = cfg.fused_attention
     label = ("train step fused_attention" if fused else
              "train step fused_subsampler" if cfg.fused_subsampler else "train step")
@@ -1840,7 +1909,7 @@ def train_step_phase(cfg, seed, rows, kernels):
                         fused_relpos_attention_bwd=3 * cfg.enc_layers)
     if cfg.fused_subsampler:  # each of the three branches
         per_step.update(fused_subsample=3, fused_subsample_bwd=3)
-    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in kernels}
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, want {want}")
     for k in (("fused_relpos_attention_bwd",) if fused else
@@ -1938,12 +2007,11 @@ def train_cli_phase(kernels, root):
         log(f"train cli: {line}")
     log(f"train cli: rc=0 wall_s={wall:.2f} (process start, build load, init, 6 steps, "
         f"2 evaluations at 32/2/1 bits, checkpoints)")
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset(kernels)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = tcli.main(["--epochs", "3", "--resume", *argv])
-    counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+    counts = _counts(kernels)
     text = out.getvalue()
     for line in text.splitlines():
         log(f"train cli resume: {line}")
@@ -1968,15 +2036,14 @@ def train_cli_phase(kernels, root):
              {**attention, "fused_subsample": 9 + 3, "fused_subsample_bwd": 9})):
         what = " ".join(f.lstrip("-") for f in flags)
         want = {"ctc_alpha": 6, "ctc_beta": 3, **want}
-        for fn in kernels.values():
-            fn.launches = 0
+        _reset(kernels)
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = tcli.main(["--epochs", "1", *flags, *argv[:argv.index("--run_name")],
                             "--run_name", name, "--device", DEVICE])
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        counts = _counts(kernels)
         for line in out.getvalue().splitlines():
             log(f"train cli {what}: {line}")
         run = os.path.join(root, name)
@@ -2169,8 +2236,7 @@ def serve_phase(root, kernels, seed):
 
     def transcribe(label, run, extra, want, wav_dir=paths["wavs"]):
         out = os.path.join(inputs, f"hyp_{label.replace(' ', '_')}.tsv")
-        for fn in kernels.values():
-            fn.launches = 0
+        _reset(kernels)
         t0 = time.perf_counter()
         with decoded_ids() as record:
             rc = cli.main(["--checkpoint", runs[run][0], "--wav_dir", wav_dir, "--data_dir",
@@ -2178,7 +2244,7 @@ def serve_phase(root, kernels, seed):
                            "--device", DEVICE, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        counts = _counts(kernels)
         if rc != 0 or counts != want:
             raise AssertionError(f"serve {label}: rc={rc} launches {counts}, want {want}")
         hyps = _hyps(out)
@@ -2288,15 +2354,14 @@ def serve_phase(root, kernels, seed):
             (["--greedy"], {"ctc_alpha": 3}),
             (["--beam_size", str(SERVE_BEAM)], {"ctc_alpha": 3}),
             (["--packed"], {"ctc_alpha": 1, "ternary_matmul_bf16": L})):
-        for fn in kernels.values():
-            fn.launches = 0
+        _reset(kernels)
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = ecli.main(["--checkpoint", runs["smoke"][0], "--dummy_data", "--max_batches",
                             "1", "--device", DEVICE, *extra])
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        counts = _counts(kernels)
         for line in out.getvalue().splitlines():
             log(f"serve eval {' '.join(extra)}: {line}")
         if rc != 0 or counts != want or "WER" not in out.getvalue():
@@ -2373,6 +2438,75 @@ def plain_pairs(model):
             ("plain CTC", plain_ctc, 1e-4, 1e-2, ("ctc_alpha", "ctc_beta")))
 
 
+def launched(kernels, fn):
+    """(fn(), the launches it made), the card synchronized."""
+    _reset(kernels)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts(kernels)
+
+
+def held_against_plain(kernels, model, step, want, what):
+    """`step()` -> (aux floats, grads): one step through `model`. On the
+    kernels it must launch exactly `want`; with each kernel pair of
+    plain_pairs on its plain version in turn, the swapped rows must not
+    launch and the aux terms and gradients must stay within step 7's
+    tolerances."""
+    (aux_k, grads_k), counts = launched(kernels, step)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+    for plain, swap, aux_tol, grad_tol, rows in plain_pairs(model):
+        with swap():
+            (aux_p, grads_p), counts_p = launched(kernels, step)
+        err, (grad_err, _) = aux_err(aux_k, aux_p), _grads_cmp(grads_k, grads_p)
+        del grads_p
+        log(f"{what} vs {plain}: aux max relative |d|={err:.3g} (tolerance {aux_tol}) "
+            f"grads |d|/|g|={grad_err:.3g} (tolerance {grad_tol}) loss="
+            f"{aux_k['loss']:.6g}/{aux_p['loss']:.6g} plain launches={counts_p}")
+        if any(counts_p.get(k) for k in rows) or err > aux_tol or grad_err > grad_tol:
+            raise AssertionError(f"{what}: the kernels stray from the {plain} (or the plain "
+                                 f"run launched them: {counts_p})")
+
+
+def train_cli_run(kernels, argv, want, what, *watch):
+    """The train CLI in process on `argv` (which names --save_dir and
+    --run_name), its output logged under `what`: it must exit 0, launch
+    exactly `want` and log finite train losses. Every train step is timed
+    (CUDA events) and the context managers `watch` are held around the run.
+    -> (run dir, metrics lines, [(T, ms)] per step, launches, peak memory
+    above the start in GB, wall s, what each of `watch` yielded)."""
+    from types import SimpleNamespace
+
+    from onebit_asr_tpu_torch.cli import train as tcli
+
+    _reset(kernels)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        record = stack.enter_context(timed_steps())
+        watched = [stack.enter_context(w) for w in watch]
+        stack.enter_context(contextlib.redirect_stdout(out))
+        rc = tcli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    counts = _counts(kernels)
+    for line in out.getvalue().splitlines():
+        log(f"{what}: {line}")
+    if rc != 0 or counts != want:
+        raise AssertionError(f"{what}: rc={rc} launches {counts}, want {want}")
+    run = os.path.join(argv[argv.index("--save_dir") + 1], argv[argv.index("--run_name") + 1])
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    if not all(np.isfinite(m["train_loss"]) for m in metrics):
+        raise AssertionError(f"{what}: metrics {metrics}")
+    return SimpleNamespace(run=run, metrics=metrics, counts=counts, peak_gb=peak_gb, wall=wall,
+                           step_ms=[(T, s.elapsed_time(e)) for T, s, e in record],
+                           watched=watched)
+
+
 def bucket_kernel_check(kernels, run, dm, seed):
     """Rows 3-8 at the shapes the real-data run gave them. For the first
     training batch of each length bucket (SpecAugment on), one step's loss
@@ -2401,45 +2535,26 @@ def bucket_kernel_check(kernels, run, dm, seed):
 
     def run_(batch, grad=True):
         gens = [torch.Generator(device=DEVICE).manual_seed(seed + i) for i in range(3)]
-        for fn in kernels.values():
-            fn.launches = 0
         if grad:
             (_, aux), grads = value_and_grad(batch_loss, params, batch, sp, gens)
         else:
             with torch.no_grad():
                 _, aux = batch_loss(params, batch, sp, gens)
             grads = None
-        torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-        return {k: float(v) for k, v in aux.items()}, grads, counts
+        return {k: float(v) for k, v in aux.items()}, grads
 
-    pairs = plain_pairs(model)
     want = {"ctc_alpha": 1, "ctc_beta": 1, "fused_relpos_attention": 3 * L,
             "fused_relpos_attention_bwd": 3 * L, "fused_subsample": 3, "fused_subsample_bwd": 3}
     want_fwd = {"ctc_alpha": 1, "fused_relpos_attention": 3 * L, "fused_subsample": 3}
     for T, batch in sorted(batches.items()):
         what = (f"real data kernels at B={batch['feats'].shape[0]} T={T} "
                 f"(T'={padded_frames(T, cfg)})")
-        aux_k, grads_k, counts = run_(batch)
-        if counts != want:
-            raise AssertionError(f"{what}: launches {counts}, want {want}")
-        for plain, swap, aux_tol, grad_tol, rows in pairs:
-            with swap():
-                aux_p, grads_p, counts = run_(batch)
-            err, (grad_err, _) = aux_err(aux_k, aux_p), _grads_cmp(grads_k, grads_p)
-            log(f"{what} vs {plain}: aux max relative |d|={err:.3g} (tolerance {aux_tol}) "
-                f"grads |d|/|g|={grad_err:.3g} (tolerance {grad_tol}) loss_ctc_2bit="
-                f"{aux_k['loss_ctc_2bit']:.6g}/{aux_p['loss_ctc_2bit']:.6g}")
-            if any(counts.get(k) for k in rows) or err > aux_tol or grad_err > grad_tol:
-                raise AssertionError(f"{what}: the kernels stray from the {plain} (or the "
-                                     f"plain run launched them: {counts})")
-            del grads_p
-        del grads_k
-        aux_k, _, counts = run_(batch, grad=False)
+        held_against_plain(kernels, model, lambda: run_(batch), want, what)
+        (aux_k, _), counts = launched(kernels, lambda: run_(batch, grad=False))
         with contextlib.ExitStack() as stack:
-            for _, swap, *_ in pairs:
+            for _, swap, *_ in plain_pairs(model):
                 stack.enter_context(swap())
-            aux_p, _, counts_p = run_(batch, grad=False)
+            (aux_p, _), counts_p = launched(kernels, lambda: run_(batch, grad=False))
         err = aux_err(aux_k, aux_p)
         log(f"{what}, forward alone vs every plain version: aux max relative |d|={err:.3g} "
             f"(tolerance 1e-2) launches={counts}")
@@ -2463,7 +2578,6 @@ def real_data_phase(kernels, seed, smi):
     """Step 14: the real-data path at Conformer-M full width through the
     CLIs a user calls, on a seeded data dir; see the module docstring."""
     from onebit_asr_tpu_torch.cli import evaluate as ecli
-    from onebit_asr_tpu_torch.cli import train as tcli
     from onebit_asr_tpu_torch.cli import transcribe as cli
     from onebit_asr_tpu_torch.convert import jax_tree_from_state_dict
     from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
@@ -2515,36 +2629,19 @@ def real_data_phase(kernels, seed, smi):
                     "fused_subsample": 3 * (steps + evals), "fused_subsample_bwd": 3 * steps}
 
         def train(label, data_dir, epochs, steps):
-            for fn in kernels.values():
-                fn.launches = 0
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            out = io.StringIO()
-            t0 = time.perf_counter()
-            with counted_frontend() as fe_calls, timed_steps() as record, \
-                    contextlib.redirect_stdout(out):
-                rc = tcli.main(["--data_dir", data_dir, "--epochs", str(epochs),
-                                "--steps_per_epoch", str(steps), "--run_name", label, *argv])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-            for line in out.getvalue().splitlines():
-                log(f"real data train {label}: {line}")
-            want = want_train(epochs * steps, epochs)
-            if rc != 0 or counts != want:
-                raise AssertionError(f"real data train {label}: rc={rc} launches {counts}, "
-                                     f"want {want}")
-            with open(os.path.join(root, label, "metrics.jsonl")) as f:
-                metrics = [json.loads(line) for line in f]
-            if len(metrics) != epochs or not all(
-                    np.isfinite(m["train_loss"]) and 0.0 <= m["input_wait_frac"] <= 1.0
-                    for m in metrics):
+            r = train_cli_run(kernels, ["--data_dir", data_dir, "--epochs", str(epochs),
+                                        "--steps_per_epoch", str(steps), "--run_name", label,
+                                        *argv],
+                              want_train(epochs * steps, epochs), f"real data train {label}",
+                              counted_frontend())
+            metrics, step_ms, counts, peak_gb, (fe_calls,) = (r.metrics, r.step_ms, r.counts,
+                                                               r.peak_gb, r.watched)
+            if len(metrics) != epochs or not all(0.0 <= m["input_wait_frac"] <= 1.0
+                                                 for m in metrics):
                 raise AssertionError(f"real data train {label}: metrics {metrics}")
-            step_ms = [(T, s.elapsed_time(e)) for T, s, e in record]
             per_T = {T: [round(ms, 2) for t, ms in step_ms if t == T]
                      for T in sorted({T for T, _ in step_ms})}
-            log(f"real data train {label}: rc=0 wall_s={wall:.2f} steps={len(step_ms)} "
+            log(f"real data train {label}: rc=0 wall_s={r.wall:.2f} steps={len(step_ms)} "
                 f"launches={counts} (per step: 1 + 1 lattice, 3 + 3 subsampler, {3 * L} + "
                 f"{3 * L} attention; per evaluation 3 x (1 lattice, 1 subsampler, {L} "
                 f"attention)) frontend_calls={fe_calls[0]}")
@@ -2575,15 +2672,14 @@ def real_data_phase(kernels, seed, smi):
 
         # evaluate dev and test: per batch and precision one lattice launch
         run = os.path.join(root, "real")
-        for fn in kernels.values():
-            fn.launches = 0
+        _reset(kernels)
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = ecli.main(["--checkpoint", run, "--data_dir", data, "--splits", "dev,test",
                             "--greedy", "--device", DEVICE])
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        counts = _counts(kernels)
         for line in out.getvalue().splitlines():
             log(f"real data eval: {line}")
         want = {"ctc_alpha": 6, "fused_relpos_attention": 6 * L, "fused_subsample": 6}
@@ -2605,15 +2701,14 @@ def real_data_phase(kernels, seed, smi):
                 ([], False, {"ternary_matmul_bf16": 9 * L, **fused}),
                 (["--int8_act"], True, {"ternary_matmul_w2a8": 9 * L, **fused})):
             path = os.path.join(root, f"hyp{len(extra)}.tsv")
-            for fn in kernels.values():
-                fn.launches = 0
+            _reset(kernels)
             t0 = time.perf_counter()
             with decoded_ids() as record:
                 rc = cli.main(["--checkpoint", run, "--split", "test", "--packed", "--out",
                                path, "--device", DEVICE, *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+            counts = _counts(kernels)
             with open(path) as f:
                 rows = [line.rstrip("\n").split("\t") for line in f]
             t = cli.Transcriber(cfg, tree, 2, int8_act, cmvn, DEVICE)
@@ -2686,11 +2781,27 @@ def _assert_features_close(what, got, ref):
         raise AssertionError(f"{what}: the card's features differ from the CPU's")
 
 
+def train_launches(L, steps, evals, branches=3, micro=1, precisions=3, attention=True,
+                   subsampler=True):
+    """Rows 3-8 of `steps` optimizer steps of `micro` micro-batches of
+    `branches` branches and `evals` evaluation batches at `precisions`
+    precisions; rows 3-4 only with `attention` (both fused flags set and no
+    chunk mask), rows 5-6 only with `subsampler`."""
+    n = steps * micro
+    want = {"ctc_alpha": n + precisions * evals, "ctc_beta": n}
+    if attention:
+        want.update(fused_relpos_attention=branches * L * n + precisions * L * evals,
+                    fused_relpos_attention_bwd=branches * L * n)
+    if subsampler:
+        want.update(fused_subsample=branches * n + precisions * evals,
+                    fused_subsample_bwd=branches * n)
+    return want
+
+
 def prepare_options_phase(kernels, seed, smi):
     """Step 15: prepare a corpus on the card with the port's `prepare`, and
     train it with the step options; see the module docstring."""
     from onebit_asr_tpu_torch.cli import prepare as pcli
-    from onebit_asr_tpu_torch.cli import train as tcli
     from onebit_asr_tpu_torch.convert import init_params, qat_model_from_jax
     from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
     from onebit_asr_tpu_torch.data.text import AsrTokenizer
@@ -2759,49 +2870,20 @@ def prepare_options_phase(kernels, seed, smi):
                 "2", "--eval_batches", "1", "--fused_attention", "--fused_subsampler",
                 "--save_dir", root, "--device", DEVICE, "--epochs", "1"]
 
-        def launches(steps, evals, branches=3, micro=1, precisions=3):
-            """Rows 3-8 of `steps` optimizer steps of `micro` micro-batches
-            and `evals` evaluation batches at `precisions` precisions."""
-            n = steps * micro
-            return {"ctc_alpha": n + precisions * evals, "ctc_beta": n,
-                    "fused_relpos_attention": branches * L * n + precisions * L * evals,
-                    "fused_relpos_attention_bwd": branches * L * n,
-                    "fused_subsample": branches * n + precisions * evals,
-                    "fused_subsample_bwd": branches * n}
-
         def train(label, extra, want):
-            for fn in kernels.values():
-                fn.launches = 0
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            out = io.StringIO()
-            t0 = time.perf_counter()
-            with timed_steps() as record, counted_multi_steps() as multi, \
-                    contextlib.redirect_stdout(out):
-                rc = tcli.main([*argv, "--run_name", label, *extra])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-            counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-            for line in out.getvalue().splitlines():
-                log(f"options train {label}: {line}")
-            with open(os.path.join(root, label, "metrics.jsonl")) as f:
-                metrics = [json.loads(line) for line in f]
-            if rc != 0 or counts != want or not all(np.isfinite(m["train_loss"])
-                                                    for m in metrics):
-                raise AssertionError(f"options train {label}: rc={rc} launches {counts}, want "
-                                     f"{want}; metrics {metrics}")
-            step_ms = [(T, s.elapsed_time(e)) for T, s, e in record]
-            log(f"options train {label} {' '.join(extra)}: rc=0 wall_s={wall:.2f} "
-                f"multi_step_calls={multi[0]} launches={counts} train_loss="
+            r = train_cli_run(kernels, [*argv, "--run_name", label, *extra], want,
+                              f"options train {label}", counted_multi_steps())
+            (multi,), metrics = r.watched, r.metrics
+            log(f"options train {label} {' '.join(extra)}: rc=0 wall_s={r.wall:.2f} "
+                f"multi_step_calls={multi[0]} launches={r.counts} train_loss="
                 f"{[round(m['train_loss'], 4) for m in metrics]} host_rss_gb="
-                f"{[round(m['host_rss_gb'], 3) for m in metrics]} peak_mem_gb={peak_gb:.3f} "
+                f"{[round(m['host_rss_gb'], 3) for m in metrics]} peak_mem_gb={r.peak_gb:.3f} "
                 f"[{smi}]")
-            return metrics, step_ms, multi[0], peak_gb
+            return metrics, r.step_ms, multi[0], r.peak_gb
 
         metrics, step_ms, n_multi, peak_gb = train(
             "options", ["--grad_accum", "2", "--multistep", "2", "--steps_per_epoch",
-                        str(PREP_STEPS)], launches(PREP_STEPS, 1, micro=2))
+                        str(PREP_STEPS)], train_launches(L, PREP_STEPS, 1, micro=2))
         if len(step_ms) != PREP_STEPS or n_multi < 1:
             raise AssertionError(f"options train: {len(step_ms)} timed steps, "
                                  f"{n_multi} K-step calls")
@@ -2826,44 +2908,27 @@ def prepare_options_phase(kernels, seed, smi):
         seeds = [seed + 10 + i for i in range(3)]
         T = batch["feats"].shape[1]
         what_T = f"B=16 T={T} (T'={padded_frames(T, cfg)})"
+
+        def step_(batch_loss):
+            (_, aux), grads = accumulated_value_and_grad(batch_loss, params, batch, sp, seeds,
+                                                         True, grad_accum=2)
+            return {k: float(v) for k, v in aux.items()}, grads
+
         for kind, batch_loss, want in (
                 ("grad_accum=2 QAT step", make_batch_loss(model, LossConfig(), cfg.specials, L),
-                 launches(1, 0, micro=2)),
+                 train_launches(L, 1, 0, micro=2)),
                 ("grad_accum=2 fp32-control step",
                  make_fp32_batch_loss(model, LossConfig(), cfg.specials),
-                 launches(1, 0, branches=1, micro=2))):
-
-            def step_():
-                for fn in kernels.values():
-                    fn.launches = 0
-                (_, aux), grads = accumulated_value_and_grad(batch_loss, params, batch, sp, seeds,
-                                                             True, grad_accum=2)
-                torch.cuda.synchronize()
-                counts = {k: fn.launches for k, fn in kernels.items() if fn.launches}
-                return {k: float(v) for k, v in aux.items()}, grads, counts
-
-            aux_k, grads_k, counts = step_()
-            if counts != want:
-                raise AssertionError(f"{kind}: launches {counts}, want {want}")
-            for plain, swap, aux_tol, grad_tol, rows in plain_pairs(model):
-                with swap():
-                    aux_p, grads_p, counts_p = step_()
-                err, (grad_err, _) = aux_err(aux_k, aux_p), _grads_cmp(grads_k, grads_p)
-                log(f"options {kind} at {what_T} vs {plain}: aux max relative |d|={err:.3g} "
-                    f"(tolerance {aux_tol}) grads |d|/|g|={grad_err:.3g} (tolerance {grad_tol}) "
-                    f"launches={counts}")
-                if any(counts_p.get(k) for k in rows) or err > aux_tol or grad_err > grad_tol:
-                    raise AssertionError(f"options {kind}: the kernels stray from the {plain} "
-                                         f"(or the plain run launched them: {counts_p})")
-                del grads_p
-            del grads_k
+                 train_launches(L, 1, 0, branches=1, micro=2))):
+            held_against_plain(kernels, model, lambda: step_(batch_loss), want,
+                               f"options {kind} at {what_T}")
         del model, params
 
         # the no-QAT control for one short epoch, its first epoch profiled
         prof = os.path.join(root, "profile")
         metrics, _, _, _ = train("fp32", ["--fp32_control", "--steps_per_epoch", "1",
                                           "--profile_dir", prof],
-                                 launches(1, 1, branches=1, precisions=1))
+                                 train_launches(L, 1, 1, branches=1, precisions=1))
         tags = {k for k in metrics[0] if k.startswith(("loss_", "wer_", "cer_"))}
         if tags != {"loss_32bit", "wer_32bit", "cer_32bit"}:
             raise AssertionError(f"fp32 control logged {sorted(tags)}")
@@ -2882,17 +2947,265 @@ def prepare_options_phase(kernels, seed, smi):
     log(f"prepare and options: phase wall_s={wall:.2f} (target <= 60) [{smi}]")
 
 
-def launches_per_batch(label, fn):
-    """Device kernels (and copies) one call of `fn` runs (torch.profiler)."""
+OPTION_STEPS = 2  # train steps of each step-16 run
+
+
+def _options_train(o, name, flags, want):
+    """The train CLI in process: 2 steps at B=16, 1,024 frames (T'=256) and
+    one evaluation batch at 32/2/1; its launches, ms per step and peak
+    memory; -> (run dir, config, JAX-layout tree)."""
+    from onebit_asr_tpu_torch.convert import jax_tree_from_state_dict
+    from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
+
+    r = train_cli_run(o.kernels, ["--dummy_data", "--dummy_frames", "1024", "--batch_size", "16",
+                                  "--epochs", "1", "--steps_per_epoch", str(OPTION_STEPS),
+                                  "--eval_batches", "1", "--save_dir", o.root, "--run_name",
+                                  name, "--device", DEVICE, *flags], want, f"options {name}")
+    metrics = r.metrics[0]
+    losses = [metrics[k] for k in ("train_loss", "loss_32bit", "loss_2bit", "loss_1bit")]
+    if len(r.step_ms) != OPTION_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"options {name}: {len(r.step_ms)} steps; losses {losses}")
+    log(f"options {name} ({' '.join(flags)}): rc=0 wall_s={r.wall:.2f} launches={r.counts} "
+        f"ms_per_step={[round(ms, 2) for _, ms in r.step_ms]} (CUDA events; the first a "
+        f"warm-up) peak_mem_gb={r.peak_gb:.3f} train_loss={metrics['train_loss']:.5g} "
+        f"loss_32/2/1bit={'/'.join(f'{v:.5g}' for v in losses[1:])}; beside step 7 (B=16, "
+        f"T'=256): { {k: round(v, 2) for k, v in STEP_MS.items()} } [{o.smi}]")
+    cfg = load_config(r.run)
+    _, sd = restore_params(os.path.join(r.run, "ckpt"))
+    return r.run, cfg, jax_tree_from_state_dict(sd, cfg.model)
+
+
+def _options_transcribe(o, what, run, extra, want):
+    from onebit_asr_tpu_torch.cli import transcribe as cli
+
+    out = os.path.join(o.root, "hyp.tsv")
+    _reset(o.kernels)
+    t0 = time.perf_counter()
+    rc = cli.main(["--checkpoint", run, "--wav_dir", o.wav_dir, "--data_dir", o.data,
+                   "--batch_size", str(BATCH), "--out", out, "--device", DEVICE, *extra])
+    torch.cuda.synchronize()
+    got = _counts(o.kernels)
+    if rc != 0 or got != want or len(_hyps(out)) != BATCH:
+        raise AssertionError(f"options {what}: rc={rc} launches {got}, want {want}")
+    log(f"options {what}: transcribe --checkpoint {' '.join(extra)}: rc=0 "
+        f"launches_per_batch={got} utterances={BATCH} wall_s={time.perf_counter() - t0:.2f}")
+
+
+def _options_evaluate(o, what, run, extra, want):
+    """The evaluate CLI on one synthetic batch, greedy: {tag: loss}."""
+    from onebit_asr_tpu_torch.cli import evaluate as ecli
+
+    _reset(o.kernels)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = ecli.main(["--checkpoint", run, "--dummy_data", "--max_batches", "1", "--greedy",
+                        "--device", DEVICE, *extra])
+    got, text = _counts(o.kernels), out.getvalue()
+    for line in text.splitlines():
+        log(f"options {what} eval {' '.join(extra)}: {line}")
+    losses = {}
+    for line in text.splitlines():  # "    2bit: loss 3.456  WER ..."
+        if ": loss " in line:
+            tag, rest = line.split(": loss ")
+            losses[tag.strip()] = float(rest.split()[0])
+    if rc != 0 or got != want or not losses or not np.isfinite(list(losses.values())).all():
+        raise AssertionError(f"options {what} eval {extra}: rc={rc} launches {got}, want "
+                             f"{want}; losses {losses}")
+    log(f"options {what} eval {' '.join(extra)}: rc=0 launches={got} losses={losses}")
+    return losses
+
+
+def _options_stream(o, L=12):
+    """(a) the streaming encoder under both fused flags: the chunk mask keeps
+    rows 3-4 off; then packed serving against the plain path."""
+    from onebit_asr_tpu_torch.cli import transcribe as cli
+
+    flags = ["--conv_norm", "layer_norm", "--causal_conv", "--attn_chunk_size", "16",
+             "--attn_left_chunks", "2", "--fused_attention", "--fused_subsampler"]
+    run, cfg, tree = _options_train(o, "stream", flags,
+                                    train_launches(L, OPTION_STEPS, 1, attention=False))
+    log("options stream: rows 3-4 launched 0 times although fused_attention is set: JAX "
+        "takes its XLA attention whenever a pair mask is set (onebit_asr_tpu/model/"
+        "conformer.py:310-316), and the port takes its plain chain there too (the fused "
+        "kernel has no pair mask); rows 5-8 as step 8 counts them")
+    for what, extra, int8_act, row in (("stream packed p2", [], False, "ternary_matmul_bf16"),
+                                        ("stream packed int8", ["--int8_act"], True,
+                                         "ternary_matmul_w2a8")):
+        _options_transcribe(o, what, run, ["--packed", *extra], {row: 9 * L, "fused_subsample": 1})
+        t = cli.Transcriber(cfg, tree, 2, int8_act, o.cmvn, DEVICE)
+        lp, enc_lens = t.log_probs(o.batch, o.lens)
+        _use_plain(t.model, int8_act)
+        lp_ref, _ = t.log_probs(o.batch, o.lens)
+        mask, dmax, dmean, agree = _compare(what, lp, lp_ref, enc_lens, cfg.model.vocab_size,
+                                            cfg.model.time_pad_multiple)
+        log(f"options {what}: T'={lp.shape[1]} ({lp.shape[1] // 16} chunks of 16, 2 left) "
+            f"valid_frames={int(mask.sum())} vs the plain path: logprob max|d|={dmax:.4g} "
+            f"mean|d|={dmean:.4g} argmax_agree={agree:.4f} (tolerance mean <= 0.05, "
+            f"agreement >= 0.9)")
+        if dmean > 0.05 or agree < 0.9:
+            raise AssertionError(f"options {what}: kernel path strays from the plain path")
+        del t
+
+
+def _options_decoder(o, L=12):
+    """(b) the quantized reference decoder with group norm under both fused
+    flags: one step against the plain versions; the packed model's decoder
+    and CTC log-probs on rows 1 and 2 against their plain versions; then
+    packed evaluation (128 row-1 launches) against the unpacked loss."""
+    from onebit_asr_tpu_torch.convert import (init_params, packed_model_from_jax,
+                                              qat_model_from_jax)
+    from onebit_asr_tpu_torch.losses.attention import make_att_targets
+    from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
+    from onebit_asr_tpu_torch.train import create_train_state
+    from onebit_asr_tpu_torch.train.step import make_batch_loss, sample_sp_mask, value_and_grad
+
+    flags = ["--quant_decoder", "--reference_decoder", "--conv_norm", "group_norm",
+             "--fused_attention", "--fused_subsampler"]
+    run, cfg, tree = _options_train(o, "decoder", flags, train_launches(L, OPTION_STEPS, 1))
+    if not cfg.loss.reference_smoothing:
+        raise AssertionError("--reference_decoder did not set LossConfig.reference_smoothing")
+    model = qat_model_from_jax(cfg.model, init_params(cfg.model, o.seed), device=DEVICE)
+    params = create_train_state(model, o.seed).params
+    batch = bench_batch(cfg.model, o.seed)
+    batch_loss = make_batch_loss(model, cfg.loss, cfg.model.specials, L)
+    sp = sample_sp_mask(torch.Generator().manual_seed(o.seed + 1), L)
+
+    def step_():
+        gens = [torch.Generator(device=DEVICE).manual_seed(o.seed + i) for i in range(3)]
+        (_, aux), grads = value_and_grad(batch_loss, params, batch, sp, gens)
+        return {k: float(v) for k, v in aux.items()}, grads
+
+    held_against_plain(o.kernels, model, step_, train_launches(L, 1, 0),
+                       "options decoder step at B=16 T=1024 (T'=256)")
+    del model, params
+
+    # the trained run packed with its decoder: rows 1-2 at the decoder's own
+    # shapes, M = B(U+1) = 784 rows for the self-attention, ff and
+    # cross-attention query projections, the encoder's B T' = 4096 for the
+    # cross-attention's keys and values
+    tgt_inp, _, tgt_valid = make_att_targets(batch["tokens"], batch["token_lens"],
+                                             cfg.model.specials)
+    bm = precision_to_binary_mask(2, L).to(DEVICE)
+    for int8_act, row in ((False, "ternary_matmul_bf16"), (True, "ternary_matmul_w2a8")):
+        packed_model = packed_model_from_jax(cfg.model, tree, 2, int8_act, DEVICE, decoder=True)
+
+        def forward():
+            with torch.no_grad():
+                _, enc_mask, logits_ctc, dec_logits = packed_model.forward_with_decoder(
+                    batch["feats"], batch["feat_lens"], tgt_inp, tgt_valid, bm)
+            return {"CTC": (torch.log_softmax(logits_ctc.float(), -1), enc_mask),
+                    "decoder": (torch.log_softmax(dec_logits.float(), -1), tgt_valid)}
+
+        out, got = launched(o.kernels, forward)
+        want = {row: 9 * L + 2 * 10, "fused_subsample": 1, "fused_relpos_attention": L}
+        if got != want:
+            raise AssertionError(f"options decoder packed forward: launches {got}, want {want}")
+        _use_plain(packed_model, int8_act)
+        ref, got_p = launched(o.kernels, forward)
+        if got_p:
+            raise AssertionError(f"options decoder packed forward: the plain path launched {got_p}")
+        for what, (lp, mask) in out.items():
+            lp_ref = ref[what][0]
+            if not bool(torch.isfinite(lp[mask]).all()):
+                raise AssertionError(f"options decoder packed {what}: non-finite log-probs")
+            d = (lp - lp_ref).abs()[mask]
+            agree = (lp.argmax(-1) == lp_ref.argmax(-1))[mask].float().mean().item()
+            log(f"options decoder packed p2{' int8_act' if int8_act else ''} {what} log-probs "
+                f"{tuple(lp.shape)} ({int(mask.sum())} valid positions) vs the plain path: "
+                f"max|d|={d.max().item():.4g} mean|d|={d.mean().item():.4g} "
+                f"argmax_agree={agree:.4f} (tolerance mean <= 0.05, agreement >= 0.9) "
+                f"launches={got}")
+            if d.mean().item() > 0.05 or agree < 0.9:
+                raise AssertionError(f"options decoder packed {what}: the kernels stray from "
+                                     f"the plain path")
+        del packed_model, out, ref
+    # packed: 9 x 12 encoder projections and 2 x (4 + 4 + 2) decoder ones
+    fwd = {"ctc_alpha": 1, "fused_subsample": 1, "fused_relpos_attention": L}
+    packed = _options_evaluate(o, "decoder", run, ["--packed", "--precisions", "2"],
+                               {**fwd, "ternary_matmul_bf16": 9 * L + 2 * 10})
+    unpacked = _options_evaluate(o, "decoder", run, ["--precisions", "2"], fwd)
+    d = abs(packed["2bit"] - unpacked["2bit"])
+    log(f"options decoder eval: packed vs unpacked precision-2 loss {packed['2bit']:.4g} / "
+        f"{unpacked['2bit']:.4g}, |d|={d:.3g} (tolerance 0.02 x the unpacked loss + 0.002: "
+        f"the unpacked product rounds alpha * Q to bf16, 2^-9 relative, the packed one "
+        f"scales in f32; the CLI prints 3 decimals)")
+    if d > 0.02 * abs(unpacked["2bit"]) + 0.002:
+        raise AssertionError("options decoder eval: the packed loss strays from the unpacked")
+
+
+def _options_per_channel(o, L=12):
+    """(c) per-channel alpha, unfused: evaluated at 32/2/1 and served
+    unpacked; the packed export refuses it, as JAX's does."""
+    from onebit_asr_tpu_torch.cli import transcribe as cli
+
+    run, _, _ = _options_train(o, "per_channel", ["--quant_per_channel"],
+                               train_launches(L, OPTION_STEPS, 1, attention=False,
+                                              subsampler=False))
+    _options_evaluate(o, "per_channel", run, [], {"ctc_alpha": 3})
+    _options_transcribe(o, "per_channel unpacked p2", run, [], {})
+    try:
+        cli.main(["--checkpoint", run, "--wav_dir", o.wav_dir, "--data_dir", o.data,
+                  "--out", os.path.join(o.root, "hyp.tsv"), "--device", DEVICE, "--packed"])
+    except NotImplementedError as e:
+        if "tensor-wise alpha" not in str(e):
+            raise
+        log(f"options per_channel transcribe --packed: refused as JAX's export refuses it: "
+            f"NotImplementedError: {e}")
+    else:
+        raise AssertionError("transcribe --packed served a per-channel run")
+
+
+@contextlib.contextmanager
+def options_inputs(kernels, seed, smi):
+    """What step 16's parts share: a temporary root under the build dir with
+    step 3's 8 waveforms as wavs, their CMVN and a character tokenizer."""
+    from types import SimpleNamespace
+
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        wavs = synthetic_waveforms(seed)
+        batch, lens = pcm_batch(wavs)
+        o = SimpleNamespace(kernels=kernels, seed=seed, smi=smi, root=root, batch=batch,
+                            lens=lens, cmvn=cmvn_of(batch, lens),
+                            wav_dir=os.path.join(root, "wavs"), data=os.path.join(root, "data"))
+        write_wavs(o.wav_dir, wavs)
+        write_cmvn(o.data, o.cmvn)
+        write_char_tokenizer(o.data)
+        yield o
+
+
+def model_options_phase(kernels, seed, smi):
+    """Step 16: Conformer-M trained, evaluated and served under the model
+    options: (a) the streaming encoder (layer norm, causal conv, chunked
+    attention), (b) the quantized reference decoder with group norm, (c)
+    per-channel alpha; see the module docstring."""
+    t_phase = time.perf_counter()
+    with options_inputs(kernels, seed, smi) as o:
+        _options_stream(o)
+        _options_decoder(o)
+        _options_per_channel(o)
+    log(f"model options: phase wall_s={time.perf_counter() - t_phase:.2f} [{smi}]")
+
+
+def launches_per_batch(label, fn, pad: int = 256):
+    """Device kernels (and copies) one call of `fn` runs (torch.profiler),
+    behind `pad` opening spins; raises if the profile kept none of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opening_spins(pad)
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spins = sum(SPIN_KERNEL in e.name for e in events)
+    if not spins:
+        raise AssertionError(f"serve launches {label}: the profile kept none of its {pad} "
+                             f"opening spins, so it may have lost kernels too (ROADMAP C3)")
+    events = [e for e in events if SPIN_KERNEL not in e.name]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
     log(f"serve launches {label}: device_kernels_per_batch={len(events) - copies} "
         f"copies_per_batch={copies}")
@@ -2983,6 +3296,12 @@ def main(argv=None) -> int:
         log("real data: trained over three bucket lengths on the wav and the feature-cache "
             "paths, held rows 3-8 against their plain versions at each bucket's shapes, "
             "evaluated and transcribed through the CLIs, on the kernels")
+    # times steps: before any profiler run too (a finished profiler session
+    # slows host code)
+    model_options_phase(kernels, args.seed, smi)
+    log("model options: trained, evaluated and served the streaming encoder (rows 3-4 off under "
+        "the chunk mask), the quantized reference decoder (128 packed launches per eval "
+        "forward) and per-channel alpha (the packed export refused), on the kernels")
     prepare_options_phase(kernels, args.seed, smi)  # times steps: before any profiler run too
     log("prepare and options: prepared a corpus on the card (CMVN and features equal to the "
         "CPU's), trained it with --grad_accum 2 --multistep 2 and --fp32_control, held rows 3-8 "
@@ -3000,7 +3319,10 @@ def main(argv=None) -> int:
 
     log(f"device_ms: {len(PROFILES)} calls, profiles taken per call "
         f"{ {n: PROFILES.count(n) for n in sorted(set(PROFILES))} } (step 14 "
-        f"{'skipped' if args.no_real_data else 'run'} before them)")
+        f"{'skipped' if args.no_real_data else 'run'} before them); opening spins lost by "
+        f"a profile: max {max(PAD_LOST, default=0)}, mean "
+        f"{float(np.mean(PAD_LOST)) if PAD_LOST else 0.0:.2f} over {len(PAD_LOST)} profiles "
+        f"(ROADMAP C3)")
     log(f"chip_smoke: wall_s={time.perf_counter() - t_start:.2f} (the build included) "
         f"[{smi}]")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -9,8 +9,12 @@ Counterpart of onebit_asr_tpu/cli/evaluate.py, with its flags: restore a run
 and, for more than one split, a summary. `--packed` evaluates planar-packed
 2-bit weights on the packed-ternary kernels (one precision: the first of
 `--precisions` that is not 32, else 2), with `--int8_act` on the W2A8
-kernel; the decoder stays full precision, as in JAX. `--no_fused_kernels`
-clears the run's fused_attention and fused_subsampler flags.
+kernel; the decoder stays full precision, or with the run's quant_decoder
+has its projections packed too, as in JAX. A per-channel run
+(quant_per_channel) under `--packed` raises the packed export's
+NotImplementedError, as JAX's does. Every other model option of the run's
+config is evaluated as it trained. `--no_fused_kernels` clears the run's
+fused_attention and fused_subsampler flags.
 
 The data is the synthetic backend (`--dummy_data`) or the `--splits`
 (comma-separated, default `dev`) of a prepared `--data_dir` (default: the

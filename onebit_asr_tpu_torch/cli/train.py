@@ -39,13 +39,20 @@ single step; not with `--fp32_control`: exit 1); `--profile_dir` writes a
 torch.profiler Chrome trace of this run's first epoch. Each epoch logs
 `host_rss_gb` after giving glibc's retained heap pages back.
 
+The model options are JAX's too: `--quant_per_channel` (an alpha per output
+channel), `--quant_decoder` (the decoder's projections quantized at each
+branch's base precision), `--reference_decoder` (position-blind, post-LN
+decoder, with the reference's label smoothing), `--conv_norm
+{batch_norm,group_norm,layer_norm}`, `--causal_conv` and `--attn_chunk_size
+N --attn_left_chunks M` (chunked attention; with `--causal_conv --conv_norm
+layer_norm` the streaming-trained encoder). The run's `config.json` carries
+them, and the evaluate and transcribe CLIs read them back.
+
 Not ported yet, and refused with exit code 2 and a message naming what is
-missing: `--fsdp`, `--tensor_parallel`, `--pipeline_stages`, `--wandb`,
-`--quant_per_channel`, `--quant_decoder`, `--reference_decoder` and the
-streaming options (`--conv_norm` other than batch_norm, `--causal_conv`,
-`--attn_chunk_size`). Flags of the JAX CLI that have no counterpart here
-(its memory and compile knobs `--no_remat`, `--remat_policy`,
-`--scan_unroll`) are accepted and change nothing.
+missing: `--fsdp`, `--tensor_parallel`, `--pipeline_stages`, `--wandb`.
+Flags of the JAX CLI that have no counterpart here (its memory and compile
+knobs `--no_remat`, `--remat_policy`, `--scan_unroll`) are accepted and
+change nothing.
 """
 
 from __future__ import annotations
@@ -227,15 +234,18 @@ def main(argv=None) -> int:
         compute_dtype=args.compute_dtype, conv_norm=args.conv_norm,
         quant_per_channel=args.quant_per_channel, quant_decoder=args.quant_decoder,
         reference_decoder=args.reference_decoder, causal_conv=args.causal_conv,
-        attn_chunk_size=args.attn_chunk_size or None, time_pad_multiple=args.time_pad_multiple,
+        attn_chunk_size=args.attn_chunk_size or None, attn_left_chunks=args.attn_left_chunks,
+        time_pad_multiple=args.time_pad_multiple,
         fused_attention=args.fused_attention, fused_subsampler=args.fused_subsampler,
     )
     try:
         check_trainable(model_cfg)
-    except NotImplementedError as e:
+    except ValueError as e:
         print(f"FATAL: {e}", file=sys.stderr)
         return 2
-    loss_cfg = LossConfig(gamma_ctc=args.gamma_ctc, lambda1=args.lambda1, lambda2=args.lambda2)
+    # --reference_decoder pairs with the reference's smoothing, as in JAX
+    loss_cfg = LossConfig(gamma_ctc=args.gamma_ctc, lambda1=args.lambda1, lambda2=args.lambda2,
+                          reference_smoothing=args.reference_decoder)
     optim_cfg = OptimConfig(lr=args.lr, warmup_steps=args.warmup_steps)
 
     # the schedule's length: epochs * steps per epoch

@@ -19,7 +19,11 @@ serves planar-packed 2-bit weights through the packed-ternary kernels, at
 precision 2 or 1, and `--int8_act` (which needs `--packed`) through the
 W2A8 kernel. A config with `fused_subsampler` runs the fused subsampler
 kernel, one with `fused_attention` the fused rel-pos attention kernel, in
-either form; `--no_fused_kernels` clears both flags. `--longform` serves
+either form; `--no_fused_kernels` clears both flags. A run of any model
+option is served as it trained (a chunked-attention encoder offline with
+its chunk mask over the whole utterance, as JAX's offline path does); a
+per-channel run (quant_per_channel) serves unpacked only: under `--packed`
+the packed export raises NotImplementedError, as JAX's does. `--longform` serves
 recordings of any length through overlapped windows (`--chunk_seconds`,
 `--overlap_seconds`) and stitched CTC, greedy only.
 

@@ -19,7 +19,11 @@ handled:
 - packed quantized dense leaves (packed_kernel, alpha, bias) keep their
   layout: the CUDA kernels read the planar-packed [K/4, N] bytes directly;
 - QAT quantized dense leaves (kernel, alpha, bias) keep theirs too:
-  `QATDense` holds its kernel [in, out], as JAX does;
+  `QATDense` holds its kernel [in, out], as JAX does, in the encoder and in
+  a quantized decoder (ModelConfig.quant_decoder) alike; a per-channel
+  alpha is [L, N] in the stack and [N] per layer;
+- the conv module's norm is "bn", "gn" or "frame_ln" (ModelConfig.conv_norm)
+  under the same name on both sides;
 - the decoder's layers "layer{i}" are the ModuleList "layers.{i}", its
   embedding [V, D] keeps its layout.
 
@@ -44,6 +48,9 @@ from onebit_asr_tpu_torch.model.packed import export_packed_params
 from onebit_asr_tpu_torch.utils.config import ModelConfig
 
 Tree = Dict[str, Any]
+
+# the JAX parameter name of the conv module's norm, by ModelConfig.conv_norm
+CONV_NORM_LEAF = {"batch_norm": "bn", "group_norm": "gn", "layer_norm": "frame_ln"}
 
 
 def flatten(tree: Mapping, sep: str = "/", prefix: str = "") -> Dict[str, Any]:
@@ -91,7 +98,10 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Tree:
     kaiming-uniform x2 with alpha = mean|W|, lecun-normal dense and conv
     kernels, torch-uniform biases); the norms and biases get small random
     offsets so that a conversion error cannot hide behind ones and zeros.
-    The draws are numpy's, not JAX's: equal in distribution only."""
+    The tree follows `cfg`'s options: per-channel alpha (mean |W| over the
+    input axis), the conv norm's leaves, the decoder's projections as
+    quantized dense leaves under quant_decoder. The draws are numpy's, not
+    JAX's: equal in distribution only."""
     rng = np.random.default_rng(seed)
     D, L, H = cfg.enc_d_model, cfg.enc_layers, cfg.enc_heads
     dff, k, V = cfg.enc_d_ff, cfg.enc_conv_kernel, cfg.vocab_size
@@ -106,12 +116,13 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Tree:
     def norm(*lead):
         return {"scale": (1.0 + uni((*lead, D), 0.1)), "bias": uni((*lead, D), 0.1)}
 
-    def quant(fan_in, fan_out):
-        kern = uni((L, fan_in, fan_out), np.sqrt(1.0 / fan_in)) * 2.0
+    def quant(fan_in, fan_out, *lead):
+        kern = uni((*lead, fan_in, fan_out), np.sqrt(1.0 / fan_in)) * 2.0
+        axes = -2 if cfg.quant_per_channel else (-2, -1)
         return {
             "kernel": kern,
-            "alpha": np.abs(kern).mean(axis=(1, 2)).astype(f32),
-            "bias": uni((L, fan_out), 1.0 / np.sqrt(fan_in)),
+            "alpha": np.abs(kern).mean(axis=axes).astype(f32),
+            "bias": uni((*lead, fan_out), 1.0 / np.sqrt(fan_in)),
         }
 
     def dense(fan_in, fan_out, *lead):
@@ -124,19 +135,21 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Tree:
         Dd, Vd = cfg.dec_d_ff, V
         emb = rng.standard_normal((Vd, D)).astype(f32)
         emb[cfg.specials.pad_id] = 0.0  # the padding row, zeroed as JAX's init does
-        attn = lambda: {n: dense(D, D) for n in ("q", "k", "v", "o")}  # noqa: E731
+        proj = quant if cfg.quant_decoder else dense
+        attn = lambda: {n: proj(D, D) for n in ("q", "k", "v", "o")}  # noqa: E731
         tree = {f"layer{i}": {"ln1": norm(), "self_attn": attn(), "ln2": norm(),
                               "cross_attn": attn(), "ln3": norm(),
-                              "ff1": dense(D, Dd), "ff2": dense(Dd, D)}
+                              "ff1": proj(D, Dd), "ff2": proj(Dd, D)}
                 for i in range(cfg.dec_layers)}
         return {"embedding": emb, **tree, "ln_out": norm(), "out": dense(D, Vd)}
 
     f2 = subsampled_frames(cfg.input_dim)
     blocks = {
-        "ff1": {"ln": norm(L), "w1": quant(D, dff), "w2": quant(dff, D)},
+        "ff1": {"ln": norm(L), "w1": quant(D, dff, L), "w2": quant(dff, D, L)},
         "mhsa": {
             "ln": norm(L),
-            **{n: quant(D, D) for n in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj")},
+            **{n: quant(D, D, L) for n in ("q_proj", "k_proj", "v_proj", "pos_proj",
+                                           "out_proj")},
             "pos_bias_u": (0.01 * rng.standard_normal((L, H, D // H))).astype(f32),
             "pos_bias_v": (0.01 * rng.standard_normal((L, H, D // H))).astype(f32),
         },
@@ -144,10 +157,10 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> Tree:
             "ln": norm(L),
             "pw1": dense(D, 2 * D, L),
             "dw_kernel": lecun((L, k, 1, D), k),
-            "bn": norm(L),
+            CONV_NORM_LEAF[cfg.conv_norm]: norm(L),
             "pw2": dense(D, D, L),
         },
-        "ff2": {"ln": norm(L), "w1": quant(D, dff), "w2": quant(dff, D)},
+        "ff2": {"ln": norm(L), "w1": quant(D, dff, L), "w2": quant(dff, D, L)},
         "ln_out": norm(L),
     }
     return {
@@ -211,11 +224,13 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Te
     sd["ctc_head.weight"] = params["ctc_head"]["kernel"].transpose(0, 1)
     sd["ctc_head.bias"] = params["ctc_head"]["bias"]
     if "decoder" in params:
-        for key, v in flatten(params["decoder"]).items():
+        dec = flatten(params["decoder"])
+        quantized = {k.rsplit("/", 1)[0] for k in dec if k.endswith("/alpha")}
+        for key, v in dec.items():
             *path, name = key.split("/")
+            suffix, value = _leaf(name, v, "/".join(path) in quantized)
             if path and path[0].startswith("layer"):
                 path = ["layers", path[0][len("layer"):], *path[1:]]
-            suffix, value = _leaf(name, v)
             sd[".".join(["decoder", *path, suffix])] = value
     return {k: v.contiguous() for k, v in sd.items()}
 
@@ -280,8 +295,10 @@ def packed_model_from_jax(
     """Training-form JAX tree (numpy or torch leaves) -> packed ConformerASR
     on `device`, in eval mode: the weights are projected to `precision`
     (2 = ternary, 1 = binary) and planar-packed (model/packed.py). With
-    `decoder` the model also carries the tree's full-precision decoder, as
-    the JAX package's packed model does, for `forward_with_decoder`."""
+    `decoder` the model also carries the tree's decoder, as the JAX
+    package's packed model does, for `forward_with_decoder`: full precision,
+    or under quant_decoder with its projections packed like the encoder's.
+    A per-channel tree raises the export's NotImplementedError."""
     tree = to_torch({k: v for k, v in params.items() if decoder or k != "decoder"})
     packed = export_packed_params(tree, precision)
     model = ConformerASR(cfg, int8_act=int8_act, decoder=decoder)

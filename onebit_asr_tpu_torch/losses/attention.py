@@ -31,13 +31,21 @@ def make_att_targets(tokens: torch.Tensor, token_lens: torch.Tensor,
 
 
 def att_ce_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
-                label_smoothing: float = 0.1) -> torch.Tensor:
-    """Label-smoothed cross-entropy with torch CrossEntropyLoss's smoothing
-    ((1 - ls) * onehot + ls / V), in f32, mean over valid positions."""
+                label_smoothing: float = 0.1, reference_smoothing: bool = False) -> torch.Tensor:
+    """Label-smoothed cross-entropy, in f32, mean over valid positions. The
+    target distribution is torch CrossEntropyLoss's ((1 - ls) * onehot +
+    ls / V), or with `reference_smoothing` the reference's own (1 - ls on
+    the target, ls / (V - 1) on each other class; attention.py:47-92)."""
+    V = logits.shape[-1]
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
-    smooth = -logp.mean(dim=-1)
-    loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    if reference_smoothing:
+        # -sum(true_dist * logp) = (1 - ls) nll + ls / (V - 1) (sum(-logp) - nll)
+        sum_neg = -logp.sum(dim=-1)
+        loss = (1.0 - label_smoothing) * nll + (label_smoothing / (V - 1)) * (sum_neg - nll)
+    else:
+        smooth = -logp.mean(dim=-1)
+        loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     m = valid.to(torch.float32)
     return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
 

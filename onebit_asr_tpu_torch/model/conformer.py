@@ -11,8 +11,11 @@ FastDropout site of the JAX encoder) runs either attention and either
 subsampler: the fused attention differentiates through the forward and
 backward kernels of ops/attention.py, with its attention dropout drawn as
 uint8 bytes at the unfused chain's draw, and the fused subsampler through
-those of ops/subsampler.py. Streaming variants (chunked attention, causal
-conv) and the other conv norms are not implemented here and are refused.
+those of ops/subsampler.py. Every option of the JAX encoder is here:
+per-channel alpha (`Parts(per_channel=True)`), the conv module's three norms
+and its causal padding, and chunked attention (a [T, T] pair mask over the
+padded time axis, which the unfused chain takes: JAX's dispatch sends a
+pair mask past its fused kernel, conformer.py:310-316, and so does this).
 
 Layouts inside this package are PyTorch's: the subsampler convs are NCHW
 with OIHW weights, and the unfused output flattens channel-major (index
@@ -36,6 +39,7 @@ from onebit_asr_tpu_torch.model.layers import (
     FastDropout,
     LayerNorm,
     MaskedBatchNorm,
+    MaskedGroupNorm,
     QATDense,
     QuantDense,
     lengths_to_mask,
@@ -60,6 +64,20 @@ def subsampled_frames(t: int) -> int:
     return ((t - 3) // 2 + 1 - 3) // 2 + 1
 
 
+def chunk_pair_mask(T: int, chunk_size: int, left_chunks: int = -1,
+                    device=None) -> torch.Tensor:
+    """[T, T] bool, True where query frame t may attend to key frame s under
+    chunked attention (conformer.py:122-140): t sees its own chunk of
+    `chunk_size` frames whole and `left_chunks` chunks before it (every
+    earlier chunk if left_chunks < 0)."""
+    cid = torch.arange(T, device=device) // chunk_size
+    q, k = cid[:, None], cid[None, :]
+    mask = k <= q
+    if left_chunks >= 0:
+        mask = mask & (k >= q - left_chunks)
+    return mask
+
+
 def rel_shift_padded(x: torch.Tensor) -> torch.Tensor:
     """[B, H, T, 2T] position scores whose column 0 is zero -> [B, H, T, T]
     with out[..., t, s] = x[..., t, T-t+s] (relative offset t-s)."""
@@ -71,34 +89,37 @@ def rel_shift_padded(x: torch.Tensor) -> torch.Tensor:
 
 class Parts:
     """What the layers of one model are built from: the compute dtype, the
-    projections (packed serving `QuantDense`, or `QATDense`) and the
-    dropout (rate 0 and no draws in the serving form), all FastDropout
-    layers drawing from one shared `DropoutRng`."""
+    projections (packed serving `QuantDense`, or `QATDense`, whose alpha is
+    per output channel with `per_channel`) and the dropout (rate 0 and no
+    draws in the serving form), all FastDropout layers drawing from one
+    shared `DropoutRng`."""
 
     def __init__(self, compute_dtype: torch.dtype, int8_act: bool = False, qat: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, per_channel: bool = False):
         self.compute_dtype = compute_dtype
         self.int8_act = int8_act
         self.qat = qat
         self.dropout = dropout
+        self.per_channel = per_channel
         self.rng = DropoutRng()
 
     def proj(self, in_features: int, features: int) -> nn.Module:
         if self.qat:
-            return QATDense(in_features, features, self.compute_dtype)
+            return QATDense(in_features, features, self.compute_dtype, self.per_channel)
         return QuantDense(in_features, features, self.compute_dtype, self.int8_act)
 
     def drop(self) -> FastDropout:
         return FastDropout(self.dropout, self.rng)
 
 
-def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, dropout=None):
+def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, dropout=None, pair_mask=None):
     """The unfused attention of `RelPosMHSA` (JAX conformer.py:354-397): q/k/v
     [B, T, H, dh], p [2T-1, H, dh], u/vb [H, dh], all in the compute dtype;
-    key_mask [B, T] bool -> [B, T, H, dh]. The content and position scores
-    are rounded to the compute dtype and added there; the softmax runs in
-    f32, and its output is rounded to the compute dtype, then goes through
-    `dropout` (a module, or None)."""
+    key_mask [B, T] bool, and pair_mask [T, T] bool (chunked attention) or
+    None -> [B, T, H, dh]. The content and position scores are rounded to
+    the compute dtype and added there; the softmax runs in f32 over the
+    keys both masks allow, and its output is rounded to the compute dtype,
+    then goes through `dropout` (a module, or None)."""
     H, dh = u.shape
     cd = v.dtype
     # a zero row in front of the table puts rel_shift's pad column into
@@ -107,7 +128,10 @@ def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, dropout=None):
     bd = rel_shift_padded(torch.einsum("bthd,phd->bhtp", q + vb, p_padded))
     ac = torch.einsum("bthd,bshd->bhts", q + u, k)
     scores = (ac + bd).to(torch.float32) * scale
-    scores = scores.masked_fill(~key_mask[:, None, None, :], NEG_INF)
+    allowed = key_mask[:, None, None, :]
+    if pair_mask is not None:
+        allowed = allowed & pair_mask[None, None]
+    scores = scores.masked_fill(~allowed, NEG_INF)
     attn = torch.softmax(scores, dim=-1).to(cd)
     if dropout is not None:
         attn = dropout(attn)
@@ -137,11 +161,13 @@ class RelPosMHSA(nn.Module):
     with the separate q/k/v/pos/out projections of the serving path
     (conformer.py:237-251) and plain tensor attention (:354-397) or, with
     `fused=True` (:315-353), `fused_relpos_attention` on [B, H, T, dh]
-    operands. In the QAT form the attention probabilities and the output
-    projection go through dropout while the model has draws; the fused
-    branch then draws the [B, H, T, T] bytes the unfused chain's `attn_drop`
-    would draw, at the same point, and hands them to the kernel with the
-    dropout rate (rate 0 and no draw otherwise, as in serving).
+    operands. A pair mask (chunked attention) always takes the plain chain,
+    as JAX's dispatch does (:310-316). In the QAT form the attention
+    probabilities and the output projection go through dropout while the
+    model has draws; the fused branch then draws the [B, H, T, T] bytes the
+    unfused chain's `attn_drop` would draw, at the same point, and hands
+    them to the kernel with the dropout rate (rate 0 and no draw otherwise,
+    as in serving).
 
     `attention_fn` is a plain attribute: a function with the signature of
     `fused_relpos_attention` (its plain version, say) can take its place."""
@@ -166,8 +192,9 @@ class RelPosMHSA(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.empty(num_heads, dh))
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor,
-                bits=None) -> torch.Tensor:
-        # x [B, T, D]; pos [2T-1, D]; key_mask [B, T] bool (True = valid)
+                bits=None, pair_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # x [B, T, D]; pos [2T-1, D]; key_mask [B, T] bool (True = valid);
+        # pair_mask [T, T] bool (True = may attend) or None
         B, T, D = x.shape
         H = self.num_heads
         dh = D // H
@@ -181,7 +208,9 @@ class RelPosMHSA(nn.Module):
         vb = self.pos_bias_v.to(cd)
         scale = 1.0 / math.sqrt(dh)
 
-        if self.fused:
+        # JAX takes its XLA chain whenever a pair mask is set
+        # (conformer.py:310-316): the fused kernel has no pair mask
+        if self.fused and pair_mask is None:
             drop, rate, drop8 = self.attn_drop, 0.0, self.no_drop
             if drop.rng.draws is not None and drop_threshold(drop.rate) > 0:
                 rate, drop8 = drop.rate, drop.rng.draws((B, H, T, T), x.device)
@@ -193,26 +222,53 @@ class RelPosMHSA(nn.Module):
                 u, vb, key_mask.to(torch.float32), drop8, scale, rate,
             ).transpose(1, 2)  # back to [B, T, H, dh]
         else:
-            out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, self.attn_drop)
+            out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, self.attn_drop,
+                                         pair_mask)
         out = self.out_drop(self.out_proj(out.reshape(B, T, D), bits))
         return out * key_mask[..., None].to(out.dtype)  # zero padded queries
 
 
-class ConvModule(nn.Module):
-    """Conformer convolution module, full precision: pre-LN -> pointwise
-    d->2d -> GLU -> depthwise conv (SAME, in f32) -> masked batch norm ->
-    swish -> pointwise d->d -> dropout. Inputs are masked before the
-    depthwise conv."""
+CONV_NORMS = ("batch_norm", "group_norm", "layer_norm")
 
-    def __init__(self, d: int, kernel_size: int, parts: Parts):
+
+def check_encoder_options(conv_norm: str, attn_chunk_size: Optional[int] = None) -> None:
+    """ValueError for a conv norm other than the three of JAX's CLI, or a
+    chunk size below 1 (None is full context)."""
+    if conv_norm not in CONV_NORMS:
+        raise ValueError(f"conv_norm {conv_norm!r} is not one of {CONV_NORMS}")
+    if attn_chunk_size is not None and attn_chunk_size < 1:
+        raise ValueError(f"attn_chunk_size {attn_chunk_size}: at least 1, or None for full "
+                         "context")
+
+
+class ConvModule(nn.Module):
+    """Conformer convolution module, full precision (conformer.py:400-465):
+    pre-LN -> pointwise d->2d -> GLU -> depthwise conv (in f32; SAME, or
+    with `causal` padded (k-1, 0) so frame t sees frames <= t) -> norm ->
+    swish -> pointwise d->d -> dropout. Inputs are masked before the
+    depthwise conv. The norm is `norm`'s, under JAX's parameter name:
+    "batch_norm" -> `bn` (MaskedBatchNorm), "group_norm" -> `gn`
+    (MaskedGroupNorm, min(32, d) groups), "layer_norm" -> `frame_ln`
+    (LayerNorm per frame, then masked)."""
+
+    def __init__(self, d: int, kernel_size: int, parts: Parts, norm: str = "batch_norm",
+                 causal: bool = False):
         super().__init__()
+        check_encoder_options(norm)
         compute_dtype = parts.compute_dtype
         self.kernel_size = kernel_size
         self.compute_dtype = compute_dtype
+        self.norm = norm
+        self.causal = causal
         self.ln = LayerNorm(d)
         self.pw1 = Dense(d, 2 * d, compute_dtype)
         self.dw_kernel = nn.Parameter(torch.empty(d, 1, kernel_size))  # [D, 1, k]
-        self.bn = MaskedBatchNorm(d)
+        if norm == "group_norm":
+            self.gn = MaskedGroupNorm(d, min(32, d))
+        elif norm == "layer_norm":
+            self.frame_ln = LayerNorm(d)
+        else:
+            self.bn = MaskedBatchNorm(d)
         self.pw2 = Dense(d, d, compute_dtype)
         self.drop = parts.drop()
 
@@ -221,10 +277,17 @@ class ConvModule(nn.Module):
         y = F.glu(self.pw1(self.ln(x)), dim=-1)
         y = y * keep.to(y.dtype)
         k = self.kernel_size
-        y = F.pad(y.to(torch.float32).transpose(1, 2), ((k - 1) // 2, k // 2))
+        pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2)
+        y = F.pad(y.to(torch.float32).transpose(1, 2), pad)
         y = F.conv1d(y, self.dw_kernel, groups=self.dw_kernel.shape[0])
         y = y.transpose(1, 2).to(self.compute_dtype)
-        y = self.drop(self.pw2(F.silu(self.bn(y, frame_mask))))
+        if self.norm == "group_norm":
+            y = self.gn(y, frame_mask)
+        elif self.norm == "layer_norm":
+            y = self.frame_ln(y) * keep.to(y.dtype)
+        else:
+            y = self.bn(y, frame_mask)
+        y = self.drop(self.pw2(F.silu(y)))
         return y * keep.to(y.dtype)
 
 
@@ -232,18 +295,19 @@ class ConformerBlock(nn.Module):
     """ff1(1/2) -> MHSA -> Conv -> ff2(1/2) -> LN."""
 
     def __init__(self, d: int, num_heads: int, d_ff: int, conv_kernel: int, parts: Parts,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, conv_norm: str = "batch_norm",
+                 causal_conv: bool = False):
         super().__init__()
         self.ff1 = FeedForward(d, d_ff, parts)
         self.mhsa = RelPosMHSA(d, num_heads, parts, fused=fused_attention)
-        self.conv = ConvModule(d, conv_kernel, parts)
+        self.conv = ConvModule(d, conv_kernel, parts, conv_norm, causal_conv)
         self.ff2 = FeedForward(d, d_ff, parts)
         self.ln_out = LayerNorm(d)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, key_mask: torch.Tensor,
-                bits=None) -> torch.Tensor:
+                bits=None, pair_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + 0.5 * self.ff1(x, bits)
-        x = x + self.mhsa(x, pos, key_mask, bits)
+        x = x + self.mhsa(x, pos, key_mask, bits, pair_mask)
         x = x + self.conv(x, key_mask)
         x = x + 0.5 * self.ff2(x, bits)
         return self.ln_out(x)
@@ -325,21 +389,30 @@ class Conv2dSubsampling(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """subsample -> pad time -> dropout -> L blocks -> LN, returning
-    (x, key_mask). `parts` chooses the serving or the QAT form."""
+    (x, key_mask). `parts` chooses the serving or the QAT form. With
+    `attn_chunk_size` every block attends under `chunk_pair_mask` of the
+    padded time axis (chunk ids count from its frame 0, as in JAX,
+    conformer.py:667-671)."""
 
     def __init__(self, input_dim: int = 80, d_model: int = 256, num_layers: int = 12,
                  num_heads: int = 4, d_ff: int = 1024, conv_kernel: int = 31, *,
                  parts: Parts, time_pad_multiple: int = 128,
-                 fused_subsampler: bool = False, fused_attention: bool = False):
+                 fused_subsampler: bool = False, fused_attention: bool = False,
+                 conv_norm: str = "batch_norm", causal_conv: bool = False,
+                 attn_chunk_size: Optional[int] = None, attn_left_chunks: int = -1):
         super().__init__()
+        check_encoder_options(conv_norm, attn_chunk_size)
         self.qat = parts.qat
         self.d_model = d_model
         self.num_layers = num_layers
         self.time_pad_multiple = time_pad_multiple
+        self.attn_chunk_size = attn_chunk_size
+        self.attn_left_chunks = attn_left_chunks
         self.subsample = Conv2dSubsampling(input_dim, d_model, parts, fused=fused_subsampler)
         self.drop = parts.drop()
         self.blocks = nn.ModuleList(
-            ConformerBlock(d_model, num_heads, d_ff, conv_kernel, parts, fused_attention)
+            ConformerBlock(d_model, num_heads, d_ff, conv_kernel, parts, fused_attention,
+                           conv_norm, causal_conv)
             for _ in range(num_layers)
         )
         self.ln_out = LayerNorm(d_model)
@@ -378,8 +451,11 @@ class ConformerEncoder(nn.Module):
         key_mask = lengths_to_mask(enc_lens, T)
         pos = self._pos(T, x.device)
         x = self.drop(x)
+        pair_mask = None
+        if self.attn_chunk_size is not None:
+            pair_mask = chunk_pair_mask(T, self.attn_chunk_size, self.attn_left_chunks, x.device)
         for block, b in zip(self.blocks, bits):
-            x = block(x, pos, key_mask, b)
+            x = block(x, pos, key_mask, b, pair_mask)
         return self.ln_out(x), key_mask
 
     def layer_bits(self, binary_mask: Optional[torch.Tensor]) -> List:

@@ -1,5 +1,6 @@
 """Building blocks: quantized dense (packed serving form and QAT form),
-dense, f32 norms, dropout from uint8 draws, position tables.
+dense, f32 norms (layer, masked batch and masked group norm), dropout from
+uint8 draws, position tables.
 
 Counterparts of onebit_asr_tpu/model/layers.py. Each dense module keeps the
 JAX module's dtype order: operands in the compute dtype (bf16 by default),
@@ -66,17 +67,19 @@ class QuantDense(nn.Module):
 
 class QATDense(nn.Module):
     """Training form of the quantized dense layer (QuantDense with
-    packed=False, layers.py:145-167): an f32 kernel [in, out], a tensor-wise
-    alpha and an f32 bias; each call quantizes the kernel at its own `bits`
-    (1, 2, 32 or a bool, True = binary) with the straight-through quantizer,
-    so one parameter set serves every branch. y = cast(x @ W_hat + bias):
-    operands rounded to the compute dtype, summed in f32."""
+    packed=False, layers.py:145-167): an f32 kernel [in, out], an alpha (a
+    scalar, or [out] with `per_channel`) and an f32 bias; each call
+    quantizes the kernel at its own `bits` (1, 2, 32 or a bool, True =
+    binary) with the straight-through quantizer, so one parameter set serves
+    every branch. y = cast(x @ W_hat + bias): operands rounded to the
+    compute dtype, summed in f32."""
 
-    def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype):
+    def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype,
+                 per_channel: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.alpha = nn.Parameter(torch.empty(()))
+        self.alpha = nn.Parameter(torch.empty((features,) if per_channel else ()))
         self.bias = nn.Parameter(torch.empty(features))
 
     def forward(self, x: torch.Tensor, bits: BitSpec) -> torch.Tensor:
@@ -144,7 +147,9 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bits: Optional[BitSpec] = None) -> torch.Tensor:
+        """`bits` is accepted for the signature of `QATDense`: a Dense layer
+        is full precision at every branch."""
         cd, f32 = self.compute_dtype, torch.float32
         y = torch.nn.functional.linear(x.to(cd).to(f32), self.weight.to(cd).to(f32))
         return (y + self.bias).to(cd)
@@ -190,6 +195,33 @@ class MaskedBatchNorm(nn.Module):
         var = ((x32 - mean).square() * m).sum(dim=(0, 1)) / n
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
         return ((y * self.weight + self.bias) * m).to(x.dtype)
+
+
+class MaskedGroupNorm(nn.Module):
+    """Group normalization over valid frames only, in f32 (layers.py:398-430):
+    per utterance and group of C / num_groups channels, the mean and
+    variance over the valid frames; the output is masked."""
+
+    def __init__(self, dim: int, num_groups: int = 32, epsilon: float = 1e-5):
+        super().__init__()
+        if dim % num_groups:
+            raise ValueError(f"channels {dim} not divisible by groups {num_groups}")
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.empty(dim))  # flax "scale"
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
+        # x: [B, T, C]; frame_mask: [B, T] (True = valid)
+        B, T, C = x.shape
+        G = self.num_groups
+        x32 = x.to(torch.float32).reshape(B, T, G, C // G)
+        m = frame_mask.to(torch.float32)[:, :, None, None]
+        n = torch.clamp(m.sum(dim=1, keepdim=True) * (C // G), min=1.0)
+        mean = (x32 * m).sum(dim=(1, 3), keepdim=True) / n  # [B, 1, G, 1]
+        var = ((x32 - mean).square() * m).sum(dim=(1, 3), keepdim=True) / n
+        y = ((x32 - mean) * torch.rsqrt(var + self.epsilon)).reshape(B, T, C)
+        return ((y * self.weight + self.bias) * frame_mask[..., None]).to(x.dtype)
 
 
 def rel_positional_encoding(length: int, d_model: int) -> np.ndarray:

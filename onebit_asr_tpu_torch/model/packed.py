@@ -3,8 +3,11 @@
 Counterpart of onebit_asr_tpu/model/packed.py. Every quantized dense
 subtree (a dict holding both "kernel" and "alpha") has its weight projected
 onto {-1,0,+1} (ternary) or {-1,+1} (binary) as the training quantizer's
-forward does, then planar-packed 4 weights per byte. Stacked block leaves
-[L, K, N] pack layer by layer. The tree holds torch tensors (convert.py turns
+forward does, then planar-packed 4 weights per byte: the encoder's
+projections and, under ModelConfig.quant_decoder, the decoder's. Stacked
+block leaves [L, K, N] pack layer by layer. A per-channel alpha (an [N] or
+[L, N] alpha against an [.., K, N] kernel) is refused as JAX refuses it:
+the packed kernels take one scale per matrix. The tree holds torch tensors (convert.py turns
 a JAX tree of numpy arrays into one).
 """
 
@@ -32,9 +35,11 @@ def export_packed_params(params: Any, precision: int = 2) -> Any:
         if "kernel" in node and "alpha" in node:
             kernel, alpha = node["kernel"], node["alpha"]
             if alpha.dim() and alpha.shape[-1] == kernel.shape[-1]:
+                # JAX's exception, word for word (model/packed.py:48-55)
                 raise NotImplementedError(
                     "packed export requires tensor-wise alpha; per-channel "
-                    "scales need a vector-alpha kernel"
+                    "scales need a vector-alpha kernel "
+                    "(see ModelConfig.quant_per_channel docs)"
                 )
             out = {
                 "packed_kernel": pack_planar(project_weight(kernel, alpha, binary)),

@@ -1,4 +1,6 @@
-"""Binary / ternary weight quantization with a learnable tensor-wise scale.
+"""Binary / ternary weight quantization with a learnable scale: one per
+tensor (alpha a scalar) or one per output channel (alpha [N] against W
+[K, N], ModelConfig.quant_per_channel).
 
 Counterpart of onebit_asr_tpu/ops/quant.py:
 
@@ -6,7 +8,8 @@ forward:  Wa = W / a, a = |alpha| + ALPHA_EPS (the gradient flows through
           the abs); Q = sign(clip(Wa, -1, 1)) with 0 -> +1 (1-bit), or 0
           where |clip(Wa)| < 0.5 else its sign (ternary); W_hat = a * Q.
 backward: dW = g * 1[|Wa| <= 1] (straight-through), with Wa clipped to
-          +-_WA_CLIP_BWD first; da = sum(g * term), term = -Wa + Q' where
+          +-_WA_CLIP_BWD first; da = g * term summed over every axis where
+          a broadcasts (all of them for a scalar), term = -Wa + Q' where
           |Wa| < 1 else sign(Wa) ("Eq. (3)"), where Q' uses plain sign
           (0 -> 0) for the binary projection, unlike the forward.
 
@@ -45,13 +48,15 @@ def project_weight(kernel: torch.Tensor, alpha: torch.Tensor, binary: bool) -> t
 
 class QuantizeSTE(torch.autograd.Function):
     """a * Q(W / a) in f32 with the straight-through backward above; `a` is a
-    positive scalar tensor, `binary` a Python bool."""
+    positive scalar tensor or, per channel, [N] against W [K, N]; `binary`
+    a Python bool."""
 
     @staticmethod
     def forward(ctx, w, a, binary):
         wa = w.to(torch.float32) / a
         ctx.save_for_backward(wa)
         ctx.binary = bool(binary)
+        ctx.alpha_shape = a.shape
         return a * _project(torch.clamp(wa, -1.0, 1.0), ctx.binary)
 
     @staticmethod
@@ -63,12 +68,13 @@ class QuantizeSTE(torch.autograd.Function):
         sign = torch.sign(wa)
         q_bwd = sign if ctx.binary else torch.where(wa.abs() >= 0.5, sign, 0.0)
         term = torch.where(wa.abs() < 1.0, -wa + q_bwd, sign)
-        return grad_w, (g * term).sum(), None
+        return grad_w, (g * term).sum_to_size(ctx.alpha_shape), None
 
 
 def quantize_weight(w: torch.Tensor, alpha: torch.Tensor, bits: BitSpec) -> torch.Tensor:
     """Quantize `w` per `bits` (1, 2, 32, or a bool: True = binary); 32 is
-    the full-precision passthrough. Returns w's dtype."""
+    the full-precision passthrough. `alpha` is a scalar or [N] per channel.
+    Returns w's dtype."""
     if isinstance(bits, bool):
         binary = bits
     elif bits == 32:

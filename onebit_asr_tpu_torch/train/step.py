@@ -9,6 +9,10 @@ probability log-spaced from sp_low_p to sp_high_p across depth), then
     Lint = (1 - gamma) L_att + gamma L_ctc,
 
 its gradient, the global-norm clip and an AdamW step (train/optim.py).
+With quant_decoder each branch's decoder runs at that branch's base
+precision (model/asr.py::decoder_bits), and L_att takes the reference's
+label smoothing under LossConfig.reference_smoothing, in every step kind
+and in the evaluation step, as in JAX.
 
 The JAX step vmaps the branches; here they run one after another, which
 gives each its own BatchNorm statistics as the vmap does. Their CTC losses
@@ -95,7 +99,8 @@ def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_en
             dec.append(dec_logits)
         lc = ctc_loss(torch.cat(logits), torch.cat(enc_lens), b["tokens"].repeat(3, 1),
                       b["token_lens"].repeat(3), specials.blank_id, groups=3)
-        la = [att_ce_loss(d, tgt_out, tgt_valid, loss_cfg.label_smoothing) for d in dec]
+        la = [att_ce_loss(d, tgt_out, tgt_valid, loss_cfg.label_smoothing,
+                          loss_cfg.reference_smoothing) for d in dec]
         g = loss_cfg.gamma_ctc
         li = [(1.0 - g) * la[i] + g * lc[i] for i in range(3)]
         kl1 = kl_logits(dec[0], dec[1], tgt_valid)
@@ -221,7 +226,8 @@ def make_fp32_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens):
             model, params, (b["feats"], b["feat_lens"]),
             dict(binary_mask=None, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid,
                  draws=None if rng is None else generator_draws(rng)))
-        l_att = att_ce_loss(dec_logits, tgt_out, tgt_valid, loss_cfg.label_smoothing)
+        l_att = att_ce_loss(dec_logits, tgt_out, tgt_valid, loss_cfg.label_smoothing,
+                            loss_cfg.reference_smoothing)
         l_ctc = ctc_loss(logits_ctc, enc_mask.sum(dim=-1), b["tokens"], b["token_lens"],
                          specials.blank_id)
         g = loss_cfg.gamma_ctc
@@ -284,7 +290,8 @@ def make_eval_step(model, loss_cfg: LossConfig, specials: SpecialTokens, num_enc
             model, params, (batch["feats"], batch["feat_lens"]),
             dict(binary_mask=bm, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid))
         enc_lens = enc_mask.sum(dim=-1)
-        l_att = att_ce_loss(dec_logits, tgt_out, tgt_valid, loss_cfg.label_smoothing)
+        l_att = att_ce_loss(dec_logits, tgt_out, tgt_valid, loss_cfg.label_smoothing,
+                            loss_cfg.reference_smoothing)
         l_ctc = ctc_loss(logits_ctc, enc_lens, batch["tokens"], batch["token_lens"],
                          specials.blank_id)
         l_int = (1.0 - loss_cfg.gamma_ctc) * l_att + loss_cfg.gamma_ctc * l_ctc

@@ -4,9 +4,13 @@ under the same names and defaults, so that a `config.json` written by either
 package is read by the other.
 
 `FrontendConfig` and `DataConfig` hold every field of JAX's, with its names
-and defaults. `train_config_from_json` keeps the fields known here; every
-other field (the JAX model's compile and parallelism knobs) is ignored, and
-a missing one takes its default (as the JAX reader does).
+and defaults; `ModelConfig` and `LossConfig` every field that changes what
+the model computes. `train_config_from_json` keeps the fields known here;
+every other field is ignored (the JAX model's `remat_blocks`,
+`remat_policy`, `scan_unroll` and `split_qkv`, the train config's
+`mesh_shape` and `mesh_axes`: compile, memory and parallelism knobs, which
+change no result here), and a missing one takes its default (as the JAX
+reader does).
 """
 
 from __future__ import annotations
@@ -73,17 +77,23 @@ class ModelConfig:
     dec_d_ff: int = 1024
     specials: SpecialTokens = field(default_factory=SpecialTokens)
     compute_dtype: str = "bfloat16"  # activations and matmuls; params f32
-    # read only to refuse what this package does not implement yet
-    conv_norm: str = "batch_norm"
-    quant_per_channel: bool = False
-    reference_decoder: bool = False
-    quant_decoder: bool = False
+    conv_norm: str = "batch_norm"  # the conv module's norm: "batch_norm"
+    # (masked batch statistics), "group_norm" (masked, per utterance) or
+    # "layer_norm" (per frame; the streaming-safe one)
+    quant_per_channel: bool = False  # an alpha per output channel of each
+    # quantized projection; the packed export needs tensor-wise alpha
+    reference_decoder: bool = False  # position-blind embeddings and post-LN
+    # decoder layers (pair with LossConfig.reference_smoothing)
+    quant_decoder: bool = False  # the decoder's q/k/v/o and ff projections
+    # quantized at the branch's base precision; embedding and out stay fp
     fused_attention: bool = False  # the whole rel-pos attention of a block
     # as one CUDA kernel (ops/attention.py), in the JAX kernel's roundings
     fused_subsampler: bool = False  # conv1 -> ReLU -> conv2 -> ReLU as one
     # CUDA kernel (ops/subsampler.py), conv1 in f32 as the JAX kernel does
-    causal_conv: bool = False
-    attn_chunk_size: Optional[int] = None
+    causal_conv: bool = False  # the depthwise conv sees only the past
+    attn_chunk_size: Optional[int] = None  # chunked attention, in subsampled
+    # frames: a frame sees its own chunk and `attn_left_chunks` before it
+    attn_left_chunks: int = -1  # -1 = all history
     time_pad_multiple: int = 128  # pad the subsampled time axis to a
     # multiple of this when it exceeds half of it; 1 disables
 
@@ -96,6 +106,8 @@ class LossConfig:
     lambda1: float = 0.5  # weight of the 1-bit and stochastic-precision losses
     lambda2: float = 1.0  # weight of the KL terms
     label_smoothing: float = 0.1
+    reference_smoothing: bool = False  # eps / (V - 1) to each non-target
+    # class and 1 - eps to the target, instead of (1 - eps) onehot + eps / V
     sp_low_p: float = 0.2  # stochastic-precision mask: P(1-bit) of the first
     sp_high_p: float = 0.9  # and of the last layer, log-spaced between
 

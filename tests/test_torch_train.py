@@ -245,28 +245,30 @@ def test_clip_adamw_schedule_match_optax():
 SP_MASKS = [np.array([True, False]), np.array([False, True])]
 
 
-def _two_steps(compute_dtype, steps=2, **flags):
+def _two_steps(compute_dtype, steps=2, loss=None, sp_masks=SP_MASKS, **flags):
     """`steps` (two) steps of (3-branch loss, grads, clip + AdamW) in JAX and
-    in the port, from the same converted params, batches and sp masks,
-    dropout 0; `flags` go to both models' configs."""
+    in the port, from the same converted params, batches and sp masks
+    (`sp_masks`), dropout 0; `flags` go to both models' configs, `loss` (a
+    dict of LossConfig fields) to both loss configs."""
     jcfg, cfg = _configs(compute_dtype, **flags)
     params = convert.init_params(cfg, 0)
     dm = DummyDataModule(batch_size=3, max_frames=72, max_tokens=6, vocab_size=32)
     batches = list(dm.train_batches(0))[:steps]
     jmodel = JaxASR.from_config(jcfg, deterministic=True)
     jvg = jax.jit(jax.value_and_grad(
-        jstep.make_batch_loss(jmodel, jc.LossConfig(), jc.SpecialTokens(), 2), has_aux=True))
+        jstep.make_batch_loss(jmodel, jc.LossConfig(**(loss or {})), jc.SpecialTokens(), 2),
+        has_aux=True))
     jopt = joptim.make_optimizer(jc.OptimConfig(warmup_steps=1), 10)
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jp)
     keys = jnp.stack([jax.random.PRNGKey(i) for i in range(3)])
     model = convert.qat_model_from_jax(cfg, params, device="cpu")
     state = create_train_state(model, 0)
-    batch_loss = make_batch_loss(model, LossConfig(), SpecialTokens(), 2)
+    batch_loss = make_batch_loss(model, LossConfig(**(loss or {})), SpecialTokens(), 2)
     topt = AdamW(OptimConfig(warmup_steps=1), 10)
     sd = lambda tree: convert.state_dict_from_jax(convert.to_torch(tree), cfg)  # noqa: E731
     steps = []
-    for b, sp in zip(batches, SP_MASKS):
+    for b, sp in zip(batches, sp_masks):
         (jl, jaux), jg = jvg(jp, {k: jnp.asarray(v) for k, v in b.items()}, jnp.asarray(sp), keys)
         updates, jstate = jopt.update(jg, jstate, jp)
         jp = optax.apply_updates(jp, updates)
@@ -456,10 +458,6 @@ REFUSED_FLAGS = [
     (["--fsdp"], "--fsdp"), (["--tensor_parallel", "2"], "--tensor_parallel"),
     (["--pipeline_stages", "2"], "--pipeline_stages"),
     (["--wandb"], "--wandb"),
-    (["--quant_per_channel"], "quant_per_channel"), (["--quant_decoder"], "quant_decoder"),
-    (["--reference_decoder"], "reference_decoder"),
-    (["--conv_norm", "layer_norm"], "conv_norm"), (["--causal_conv"], "causal_conv"),
-    (["--attn_chunk_size", "8"], "attn_chunk_size"),
 ]
 
 
@@ -474,6 +472,43 @@ def test_cli_refuses_what_is_not_ported(flags, names, tmp_path, capsys):
     assert (f"no tokenizer artifact in {tmp_path / 'no_data'}" if names == "real data"
             else names) in err
     assert not os.listdir(tmp_path)  # refused before anything is written
+
+
+# each model option: its flags and the config.json fields they must set
+MODEL_OPTIONS = [
+    (["--quant_per_channel"], dict(quant_per_channel=True)),
+    (["--quant_decoder"], dict(quant_decoder=True)),
+    (["--reference_decoder"], dict(reference_decoder=True)),
+    (["--conv_norm", "layer_norm"], dict(conv_norm="layer_norm")),
+    (["--causal_conv"], dict(causal_conv=True)),
+    (["--attn_chunk_size", "8"], dict(attn_chunk_size=8, attn_left_chunks=-1)),
+    (["--attn_chunk_size", "8", "--attn_left_chunks", "1"],
+     dict(attn_chunk_size=8, attn_left_chunks=1)),
+]
+
+
+@pytest.mark.parametrize("flags,fields", MODEL_OPTIONS)
+def test_cli_trains_with_model_option(flags, fields, tmp_path, capsys):
+    """One tiny step on the CPU with the option; the run's config.json
+    carries it (and --reference_decoder the reference's smoothing), and
+    `transcribe --checkpoint` serves the run back under it."""
+    from onebit_asr_tpu_torch.cli import transcribe
+    from test_torch_serve_checkpoint import _write_inputs
+
+    assert cli.main(["--device", "cpu", "--dummy_data", "--epochs", "1", "--steps_per_epoch",
+                     "1", "--batch_size", "4", "--eval_batches", "1", "--dummy_frames", "64",
+                     "--save_dir", str(tmp_path), "--run_name", "r", *flags, *TINY_CLI]) == 0
+    saved = json.loads((tmp_path / "r" / "config.json").read_text())
+    assert {k: saved["model"][k] for k in fields} == fields
+    assert saved["loss"]["reference_smoothing"] == ("--reference_decoder" in flags)
+    _write_inputs(tmp_path)
+    out = tmp_path / "hyp.tsv"
+    capsys.readouterr()
+    assert transcribe.main(["--checkpoint", str(tmp_path / "r"), "--wav_dir",
+                            str(tmp_path / "wavs"), "--data_dir", str(tmp_path / "data"),
+                            "--out", str(out), "--device", "cpu"]) == 0
+    assert len(out.read_text().splitlines()) == 3
+    assert "transcribed 3 utterances" in capsys.readouterr().err
 
 
 def test_cli_eval_beam_trains_and_reports_beam_wer(tmp_path, capsys):

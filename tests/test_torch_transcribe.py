@@ -43,7 +43,8 @@ from onebit_asr_tpu.utils import config as jax_config
 from onebit_asr_tpu_torch import convert
 from onebit_asr_tpu_torch.cli import transcribe as cli
 from onebit_asr_tpu_torch.decode.greedy import greedy_ctc_decode
-from onebit_asr_tpu_torch.model.asr import ConformerASR
+from onebit_asr_tpu_torch.model.asr import ConformerASR, check_trainable
+from onebit_asr_tpu_torch.model.packed import export_packed_params
 from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn
 from onebit_asr_tpu_torch.utils.config import ModelConfig, train_config_from_json
 from torch_cpu_threads import one_thread  # noqa: F401
@@ -260,22 +261,75 @@ def test_time_padding_leaves_valid_frames_unchanged(jax_params):
         out[32][1][:, :37][mask].numpy(), out[1][1][mask].numpy(), atol=2e-2)
 
 
+# every option of the JAX ModelConfig that changes what the model computes
+ALL_OPTIONS = dict(conv_norm="group_norm", quant_per_channel=True, reference_decoder=True,
+                   quant_decoder=True, causal_conv=True, attn_chunk_size=16, attn_left_chunks=2,
+                   fused_attention=True, fused_subsampler=True, time_pad_multiple=32)
+
+
 def test_unsupported_configs_are_refused():
+    """What is still refused: per-channel alpha in the packed export, by
+    both packages with the same exception and words. Every option builds in
+    both forms, with and without the decoder."""
     _, cfg = _configs()
-    for change in (dict(conv_norm="group_norm"), dict(causal_conv=True),
-                   dict(attn_chunk_size=16), dict(quant_per_channel=True)):
-        with pytest.raises(NotImplementedError):
+    params = convert.init_params(dataclasses.replace(cfg, quant_per_channel=True), 0)
+    msgs = []
+    for export, tree in ((jax_export, params), (export_packed_params, convert.to_torch(params))):
+        with pytest.raises(NotImplementedError) as e:
+            export(tree, 2)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "tensor-wise alpha" in msgs[0]
+    for change in (dict(conv_norm="group_norm"), dict(conv_norm="layer_norm"),
+                   dict(causal_conv=True), dict(attn_chunk_size=16, attn_left_chunks=1),
+                   dict(quant_per_channel=True), dict(quant_decoder=True),
+                   dict(reference_decoder=True), ALL_OPTIONS):
+        for qat in (False, True):
+            ConformerASR(dataclasses.replace(cfg, **change), qat=qat, decoder=True)
+        check_trainable(dataclasses.replace(cfg, **change))
+    for change, what in ((dict(conv_norm="instance_norm"), "conv_norm"),
+                         (dict(attn_chunk_size=0), "attn_chunk_size"),
+                         (dict(attn_chunk_size=-3), "attn_chunk_size")):
+        with pytest.raises(ValueError, match=what):
+            check_trainable(dataclasses.replace(cfg, **change))
+        with pytest.raises(ValueError, match=what):
             ConformerASR(dataclasses.replace(cfg, **change))
 
 
 def test_config_json_of_a_jax_run_is_read():
+    """A JAX run's config.json, with every model option and the reference
+    smoothing set, reads back field for field."""
     jcfg, cfg = _configs()
     jtrain = jax_config.TrainConfig(model=jcfg, data=jax_config.DataConfig(max_frames=900))
     got = train_config_from_json(jax_config.config_to_json(jtrain))
     assert got.model == cfg
     assert got.data.max_frames == 900
+    jtrain = jax_config.TrainConfig(model=dataclasses.replace(jcfg, **ALL_OPTIONS),
+                                    loss=jax_config.LossConfig(reference_smoothing=True))
+    got = train_config_from_json(jax_config.config_to_json(jtrain))
+    assert got.model == dataclasses.replace(cfg, **ALL_OPTIONS)
+    assert dataclasses.asdict(got.loss) == dataclasses.asdict(jtrain.loss)
     assert dataclasses.asdict(got.frontend) == dataclasses.asdict(jtrain.frontend)
     assert dataclasses.asdict(got.data) == dataclasses.asdict(jtrain.data)
+
+
+def test_config_reader_drops_only_the_jax_compile_knobs():
+    """The JAX config fields the port's reader drops are exactly the knobs
+    that change no result in the port (remat, scan unroll, the QKV layout,
+    the mesh): a later JAX field fails here instead of vanishing from a run
+    read by the port."""
+    from onebit_asr_tpu_torch.utils import config as tc
+
+    dropped = {}
+    for name in ("SpecialTokens", "FrontendConfig", "ModelConfig", "LossConfig", "DataConfig",
+                 "OptimConfig", "TrainConfig"):
+        jax_fields = {f.name for f in dataclasses.fields(getattr(jax_config, name))}
+        port_fields = {f.name for f in dataclasses.fields(getattr(tc, name))}
+        assert port_fields <= jax_fields, name
+        if jax_fields - port_fields:
+            dropped[name] = jax_fields - port_fields
+    assert dropped == {"ModelConfig": {"remat_blocks", "remat_policy", "scan_unroll",
+                                       "split_qkv"},
+                       "TrainConfig": {"mesh_axes", "mesh_shape"}}
 
 
 def _write_wav(path, wav, sr=16000):
