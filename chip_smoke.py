@@ -9,7 +9,9 @@ weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
 3-branch QAT train step of the same model and the train CLI, then serves and
 evaluates the runs the train CLI wrote, then trains, evaluates and serves on
 a seeded data dir through the real-data path, then under the model options
-(a streaming encoder, a quantized reference decoder, per-channel alpha):
+(a streaming encoder, a quantized reference decoder, per-channel alpha),
+then streams the streaming run through sessions, a server and the serve
+daemon, and evaluates a reference-layout checkpoint:
 
 1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
    started together, then one link) and prints the time and each kernel's
@@ -250,6 +252,34 @@ a seeded data dir through the real-data path, then under the model options
    `--quant_per_channel`, unfused: evaluated at 32/2/1, served unpacked, and
    `transcribe --packed` must fail with the packed export's per-channel
    NotImplementedError, as JAX's export does.
+17. streaming (right after step 16 (a), on its run, before step 15 and any
+   profiler session): step 3's 8 waveforms are featurized one by one on the
+   card (the daemon's `wav_featurizer`, step 3's CMVN). (i) One
+   `StreamingSession` per utterance at precision 2, fed in pushes of 10
+   frames (100 ms): its chunk log-probs on valid frames against the same
+   run's offline chunked encoder with the fused flags cleared (step 3's
+   tolerances; the share of utterances with equal ids is printed). (ii) One
+   `StreamingServer(max_streams=8)` over all 8, against (i) the same way.
+   (iii) `python -m onebit_asr_tpu_torch.serve --checkpoint` as a
+   subprocess on stdio on the default device, driven with NDJSON (8 `open`,
+   `feed_wav`, `close`): its finals must equal (ii)'s ids. (iv) `evaluate
+   --streaming --dummy_data --max_batches 1` exits 0. No kernel row launches
+   in (i)-(iii) (the daemon reports its own counts on exit). Printed: ms per
+   chunk step (CUDA events, full caches) at N=1 and N=8, the real-time
+   factor per stream (a chunk of 16 frames is 640 ms of audio), peak memory,
+   the step's wall time; device kernels per chunk step come at the end
+   (torch.profiler).
+18. a reference checkpoint (after step 17, before step 15): a Conformer-M
+   reference-layout state dict (`reference_state_dict`, the inverse of
+   utils/torch_import.py; vocabulary 5,004, 2 decoder layers) drawn from
+   --seed is saved with `torch.save` beside a config.json; the import must
+   give back the drawn tree bit for bit. `evaluate --torch_checkpoint
+   --dummy_data --greedy --max_batches 1 --precisions 32,2,1` runs
+   unpacked (row 7 once a precision), `--packed` (row 1 108 times a
+   forward, row 2 never) and `--packed --int8_act` (the other way round).
+   The packed f32 model on step 3's 8 waveforms on rows 1 and 2 is held
+   against the plain path at step 3's tolerances; ms per batch (CUDA
+   events) beside the unpacked f32 forward.
 
 `device_ms` opens each profile with 64 short spins of the card: after a
 process's first profiler session, each later session drops its first few
@@ -1437,7 +1467,7 @@ def _compare(name, lp, lp_ref, enc_lens, vocab, pad_multiple):
     T = lp.shape[1]
     if lp.shape != (BATCH, T, vocab) or T % pad_multiple:
         raise AssertionError(f"{name}: log-probs shape {tuple(lp.shape)}")
-    mask = torch.arange(T, device="cuda")[None] < enc_lens[:, None]
+    mask = torch.arange(T, device=lp.device)[None] < enc_lens[:, None]
     if not bool(torch.isfinite(lp[mask]).all()):
         raise AssertionError(f"{name}: non-finite log-probs")
     d = (lp - lp_ref).abs()[mask]
@@ -3017,7 +3047,8 @@ def _options_evaluate(o, what, run, extra, want):
 
 def _options_stream(o, L=12):
     """(a) the streaming encoder under both fused flags: the chunk mask keeps
-    rows 3-4 off; then packed serving against the plain path."""
+    rows 3-4 off; then packed serving against the plain path. -> (run dir,
+    config, JAX-layout tree) for step 17."""
     from onebit_asr_tpu_torch.cli import transcribe as cli
 
     flags = ["--conv_norm", "layer_norm", "--causal_conv", "--attn_chunk_size", "16",
@@ -3045,6 +3076,7 @@ def _options_stream(o, L=12):
         if dmean > 0.05 or agree < 0.9:
             raise AssertionError(f"options {what}: kernel path strays from the plain path")
         del t
+    return run, cfg, tree
 
 
 def _options_decoder(o, L=12):
@@ -3179,13 +3211,420 @@ def model_options_phase(kernels, seed, smi):
     """Step 16: Conformer-M trained, evaluated and served under the model
     options: (a) the streaming encoder (layer norm, causal conv, chunked
     attention), (b) the quantized reference decoder with group norm, (c)
-    per-channel alpha; see the module docstring."""
+    per-channel alpha; see the module docstring. Step 17 (the streaming
+    runtime) runs on (a)'s run right after (a). -> step 17's chunk steps
+    [(label, fn)], whose device kernels are counted at the end."""
     t_phase = time.perf_counter()
     with options_inputs(kernels, seed, smi) as o:
-        _options_stream(o)
+        stream = _options_stream(o)
+        log(f"model options: (a) wall_s={time.perf_counter() - t_phase:.2f}")
+        chunk_steps = streaming_phase(o, *stream)
+        del stream
+        t_rest = time.perf_counter()
         _options_decoder(o)
         _options_per_channel(o)
-    log(f"model options: phase wall_s={time.perf_counter() - t_phase:.2f} [{smi}]")
+    log(f"model options: phase wall_s={time.perf_counter() - t_phase:.2f}, (b) and (c) "
+        f"{time.perf_counter() - t_rest:.2f} [{smi}]")
+    return chunk_steps
+
+
+STREAM_PUSH = 10  # feature frames a push in step 17: 100 ms of audio
+# the streaming daemon as a subprocess that reports, on exit, the launches of
+# every kernel wrapper in its process
+DAEMON = """import atexit, runpy, sys
+from onebit_asr_tpu_torch.ops import attention as fa, ctc_lattice as cl
+from onebit_asr_tpu_torch.ops import subsampler as ss, ternary_matmul as tm
+fns = (tm.ternary_matmul, tm.ternary_matmul_w2a8, ss.fused_subsample, ss.fused_subsample_bwd,
+       fa.fused_relpos_attention, fa.fused_relpos_attention_bwd, cl.ctc_alpha, cl.ctc_beta)
+atexit.register(lambda: print("kernel launches", sum(f.launches for f in fns), file=sys.stderr))
+sys.argv = ["onebit_asr_tpu_torch.serve", *sys.argv[1:]]
+runpy.run_module("onebit_asr_tpu_torch.serve", run_name="__main__")
+"""
+
+
+def _recording(rt):
+    """Wrap a session's or server's `_step` to record (f32 logits [N, cs,
+    V], cur_valid [N]) of every chunk step, on the card."""
+    record, step = [], rt._step
+
+    def wrapped(windows, caches, cache_valid, cur_valid):
+        logits, new_caches = step(windows, caches, cache_valid, cur_valid)
+        record.append((logits, cur_valid))
+        return logits, new_caches
+
+    rt._step = wrapped
+    return record
+
+
+def _held(what, lps, refs, ids, ref_ids):
+    """Log-probs of each utterance on its valid frames against a reference's:
+    max and mean |d|, argmax agreement, the share of utterances whose ids are
+    equal; step 3's tolerances."""
+    d = torch.cat([(a - b).abs().flatten() for a, b in zip(lps, refs)])
+    agree = torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(lps, refs)]).float().mean()
+    same = sum(a == b for a, b in zip(ids, ref_ids))
+    finite = all(bool(torch.isfinite(a).all()) for a in lps)
+    log(f"streaming {what}: valid_frames={sum(len(a) for a in lps)} logprob "
+        f"max|d|={d.max().item():.4g} mean|d|={d.mean().item():.4g} "
+        f"argmax_agree={agree.item():.4f} same_ids={same}/{len(ids)} (tolerance mean <= 0.05, "
+        f"agreement >= 0.9)")
+    if not finite or d.mean().item() > 0.05 or agree.item() < 0.9:
+        raise AssertionError(f"streaming {what}: strays from its reference")
+
+
+def streaming_phase(o, run, cfg, tree):
+    """Step 17: the streaming runtime on step 16 (a)'s run (vocabulary 32,
+    chunks of 16 with 2 left) over step 3's 8 waveforms, featurized one by
+    one on the card as the daemon does; see the module docstring. ->
+    [(label, one chunk step at N=1 / N=8)]."""
+    from onebit_asr_tpu_torch.cli import evaluate as ecli
+    from onebit_asr_tpu_torch.cli import serve as serve_cli
+    from onebit_asr_tpu_torch.convert import qat_model_from_jax
+    from onebit_asr_tpu_torch.decode.greedy import greedy_ctc_decode
+    from onebit_asr_tpu_torch.decode.streaming import (StreamingServer, StreamingSession,
+                                                       streaming_modules)
+    from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
+
+    t_phase = time.perf_counter()
+    mc = cfg.model
+    cs, L = mc.attn_chunk_size, mc.enc_layers
+    featurize = serve_cli.wav_featurizer(cfg.frontend, o.cmvn, DEVICE)
+    wavs = [os.path.join(o.wav_dir, f"utt{i}.wav") for i in range(BATCH)]
+    feats = [featurize(w) for w in wavs]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    modules = streaming_modules(mc, tree, DEVICE)
+
+    # (i) one session per utterance, in pushes of 10 frames
+    _reset(o.kernels)
+    sess_lp, sess_ids, chunks = [], [], 0
+    t0 = time.perf_counter()
+    for f in feats:
+        sess = StreamingSession(mc, None, 2, DEVICE, modules)
+        record = _recording(sess)
+        ids = []
+        for k in range(0, len(f), STREAM_PUSH):
+            ids += sess.accept(f[k: k + STREAM_PUSH])
+        ids += sess.finish()
+        sess_ids.append(ids)
+        sess_lp.append(torch.log_softmax(
+            torch.cat([lg[0, : int(n[0])] for lg, n in record]), -1))
+        chunks += len(record)
+    torch.cuda.synchronize()
+    wall_sessions = time.perf_counter() - t0
+    launched_i = _counts(o.kernels)
+    log(f"streaming (i) sessions: {BATCH} utterances, {chunks} chunk steps, pushes of "
+        f"{STREAM_PUSH} frames, wall_s={wall_sessions:.2f} ({wall_sessions / chunks * 1e3:.2f} ms "
+        f"a chunk with the host's work) kernel launches={launched_i}")
+
+    # the same run's offline chunked encoder, fused flags cleared
+    model = qat_model_from_jax(dataclasses.replace(mc, fused_subsampler=False,
+                                                   fused_attention=False),
+                               tree, DEVICE, decoder=False).requires_grad_(False).eval()
+    lens = torch.tensor([len(f) for f in feats], device=DEVICE)
+    x = torch.zeros(BATCH, int(lens.max()), mc.input_dim, device=DEVICE)
+    for i, f in enumerate(feats):
+        x[i, : len(f)] = torch.from_numpy(f)
+    with torch.no_grad():
+        _, mask, logits = model(x, lens, precision_to_binary_mask(2, L).to(DEVICE))
+    off = torch.log_softmax(logits.float(), -1)
+    n_valid = mask.sum(-1)
+    off_ids, off_n = greedy_ctc_decode(off, n_valid, mc.specials.blank_id)
+    off_ids = [off_ids[i, : int(off_n[i])].tolist() for i in range(BATCH)]
+    refs = [off[i, : int(n_valid[i])] for i in range(BATCH)]
+    if [len(a) for a in sess_lp] != [len(r) for r in refs]:
+        raise AssertionError(f"streaming (i): frames {[len(a) for a in sess_lp]} vs offline "
+                             f"{[len(r) for r in refs]}")
+    _held("(i) sessions vs the offline chunked encoder", sess_lp, refs, sess_ids, off_ids)
+    del model, x, logits, off, refs
+
+    # (ii) one server of 8 slots over all 8 utterances
+    _reset(o.kernels)
+    server = StreamingServer(mc, None, 2, max_streams=BATCH, device=DEVICE, modules=modules)
+    record = _recording(server)
+    srv_ids = {}
+    t0 = time.perf_counter()
+    for f in feats:
+        sid = server.open()
+        server.feed(sid, f)
+        server.close(sid)
+        srv_ids[sid] = []
+    while any(server._open):
+        for sid, toks in server.step().items():
+            srv_ids[sid] += toks
+    torch.cuda.synchronize()
+    wall_server = time.perf_counter() - t0
+    launched_ii = _counts(o.kernels)
+    srv_ids = [srv_ids[i] for i in range(BATCH)]
+    srv_lp = [torch.log_softmax(torch.cat([lg[i, : int(n[i])] for lg, n in record
+                                           if int(n[i])]), -1) for i in range(BATCH)]
+    log(f"streaming (ii) server: {len(record)} batched steps of {BATCH} slots, "
+        f"wall_s={wall_server:.2f} kernel launches={launched_ii}")
+    _held("(ii) server vs (i) sessions", srv_lp, sess_lp, srv_ids, sess_ids)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # (iii) the daemon on stdio, default device
+    lines = ([{"op": "open"}] * BATCH + [{"op": "feed_wav", "sid": i, "path": w}
+                                          for i, w in enumerate(wavs)]
+             + [{"op": "close", "sid": i} for i in range(BATCH)])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DAEMON, "--checkpoint", run, "--data_dir", o.data,
+         "--max_streams", str(BATCH), *([] if DEVICE == "cuda" else ["--device", DEVICE])],
+        input="".join(json.dumps(x) + "\n" for x in lines), capture_output=True, text=True,
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
+    wall_daemon = time.perf_counter() - t0
+    events = [json.loads(line) for line in proc.stdout.splitlines()]
+    finals = {e["sid"]: e["ids"] for e in events if e["event"] == "final"}
+    errors = [e for e in events if e["event"] == "error"]
+    launched_iii = [line for line in proc.stderr.splitlines() if line.startswith("kernel launches")]
+    texts = sum("text" in e for e in events)
+    log(f"streaming (iii) daemon: rc={proc.returncode} wall_s={wall_daemon:.2f} (start-up, "
+        f"restore and featurizing included) events={len(events)} finals={len(finals)} "
+        f"with_text={texts} errors={errors} {launched_iii}")
+    if (proc.returncode != 0 or errors or launched_iii != ["kernel launches 0"]
+            or [finals.get(i) for i in range(BATCH)] != srv_ids):
+        raise AssertionError(f"streaming (iii): the daemon's finals differ from (ii)'s ids or "
+                             f"it failed: {proc.stderr[-2000:]}")
+    log("streaming (iii): the daemon's finals equal (ii)'s ids for all 8 streams")
+    if launched_i or launched_ii:
+        raise AssertionError(f"streaming: kernel rows launched in (i) {launched_i} or (ii) "
+                             f"{launched_ii}")
+
+    # (iv) evaluate --streaming
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = ecli.main(["--checkpoint", run, "--dummy_data", "--streaming", "--max_batches", "1",
+                        "--device", DEVICE])
+    for line in out.getvalue().splitlines():
+        log(f"streaming (iv) evaluate --streaming: {line}")
+    if rc != 0 or "streaming) ==" not in out.getvalue():
+        raise AssertionError(f"streaming (iv): evaluate --streaming rc={rc}")
+    log(f"streaming (iv): rc=0 wall_s={time.perf_counter() - t0:.2f}")
+
+    # one chunk step on the card, full caches (the 6th window of utterance 0)
+    sess = StreamingSession(mc, None, 2, DEVICE, modules)
+    start = 5 * sess.hop_raw
+    sess.accept(feats[0][:start + 3])
+    full = torch.tensor([sess.cache_chunks * cs], device=DEVICE)
+    win1 = torch.from_numpy(feats[0][start: start + sess.window_raw][None]).to(DEVICE)
+    args1 = (win1, sess._caches, full, torch.tensor([cs], device=DEVICE))
+    args8 = (win1.expand(BATCH, -1, -1).contiguous(),
+             sess._caches.expand(-1, BATCH, -1, -1).contiguous(), full.expand(BATCH).contiguous(),
+             torch.full((BATCH,), cs, device=DEVICE))
+    server = StreamingServer(mc, None, 2, max_streams=BATCH, device=DEVICE, modules=modules)
+    step1, step8 = (lambda: sess._step(*args1)), (lambda: server._step(*args8))
+    audio_ms = cs * 40.0
+    ms = {}
+    for n, fn in ((1, step1), (BATCH, step8)):
+        ms[n] = cuda_ms(fn, iters=20, warmup=3)
+    log(f"streaming chunk step (d={mc.enc_d_model}, {L} blocks, window {sess.cache_chunks * cs} "
+        f"cached + "
+        f"{cs} frames, precision 2, CUDA events): N=1 {ms[1]:.3f} ms, N=8 {ms[BATCH]:.3f} ms; "
+        f"real-time factor per stream {ms[1] / audio_ms:.4f} (N=1), {ms[BATCH] / audio_ms:.4f} "
+        f"(N=8; a chunk is {audio_ms:.0f} ms of audio); peak_mem_gb={peak_gb:.3f} (above the "
+        f"phase's start); kernel rows launched 0 in (i)-(iii); device kernels per chunk step at "
+        f"the end (torch.profiler)")
+    log(f"streaming: step 17 wall_s={time.perf_counter() - t_phase:.2f} [{o.smi}]")
+    return [("streaming chunk step N=1", step1), (f"streaming chunk step N={BATCH}", step8)]
+
+
+def reference_checkpoint_phase(kernels, seed, smi):
+    """Step 18: a Conformer-M reference-layout checkpoint drawn from `seed`
+    (`reference_state_dict`, with a sibling config.json) through `evaluate
+    --torch_checkpoint` unpacked, packed and packed with --int8_act; the
+    packed f32 model on rows 1 and 2 against the plain path on step 3's 8
+    waveforms; see the module docstring."""
+    from onebit_asr_tpu_torch.cli import evaluate as ecli
+    from onebit_asr_tpu_torch.convert import (flatten, init_params, packed_model_from_jax,
+                                              qat_model_from_jax)
+    from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
+    from onebit_asr_tpu_torch.model.presets import apply_preset
+    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn
+    from onebit_asr_tpu_torch.utils.config import ModelConfig
+    from onebit_asr_tpu_torch.utils.torch_import import load_reference_checkpoint_params
+
+    t_phase = time.perf_counter()
+    mc = dataclasses.replace(apply_preset(ModelConfig(), "m"), compute_dtype="float32",
+                             conv_norm="batch_norm")
+    L = mc.enc_layers
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        t0 = time.perf_counter()
+        tree = init_params(mc, seed)
+        sd = reference_state_dict(tree, seed)
+        path = os.path.join(root, "ckpt_last.pt")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                    "args": {"gamma_ctc": 0.2}}, path)
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump({k: getattr(mc, k) for k in ecli.REFERENCE_HPARAMS}, f)
+        log(f"reference: wrote {os.path.getsize(path) / 1e6:.1f} MB ({len(sd)} tensors, "
+            f"d={mc.enc_d_model}, {L} blocks, {mc.dec_layers} decoder layers, vocabulary "
+            f"{mc.vocab_size}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        imported = load_reference_checkpoint_params(path, mc.input_dim, L, mc.dec_layers)
+        flat, want = flatten(imported), flatten(tree)
+        if sorted(flat) != sorted(want) or not all(np.array_equal(flat[k], want[k]) for k in want):
+            raise AssertionError("reference: the import does not give back the drawn tree")
+        fwd = {"ctc_alpha": 1}
+        for extra, launches in (([], {"ctc_alpha": 3}),
+                                (["--packed"], {**fwd, "ternary_matmul_bf16": 9 * L}),
+                                (["--packed", "--int8_act"], {**fwd, "ternary_matmul_w2a8": 9 * L})):
+            _reset(kernels)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = ecli.main(["--torch_checkpoint", path, "--dummy_data", "--greedy",
+                                "--max_batches", "1", "--precisions", "32,2,1", "--device", DEVICE,
+                                *extra])
+            torch.cuda.synchronize()
+            got, text = _counts(kernels), out.getvalue()
+            losses = [float(line.split("loss ")[1].split()[0]) for line in text.splitlines()
+                      if ": loss " in line]
+            for line in text.splitlines():
+                log(f"reference evaluate --torch_checkpoint {' '.join(extra)}: {line}")
+            if rc != 0 or got != launches or not losses or not np.isfinite(losses).all():
+                raise AssertionError(f"reference {extra}: rc={rc} launches {got}, want "
+                                     f"{launches}; losses {losses}")
+            log(f"reference {' '.join(extra) or 'unpacked'}: rc=0 launches={got} "
+                f"wall_s={time.perf_counter() - t0:.2f} (one dummy batch, B=16, T=160, at "
+                f"{len(losses)} precision(s))")
+
+    # the packed f32 model on the 8 waveforms: kernels vs plain, ms per batch
+    batch, lens = pcm_batch(synthetic_waveforms(seed))
+    cmvn = [torch.from_numpy(a).to(DEVICE) for a in cmvn_of(batch, lens)]
+    feats, feat_lens = LogMelFrontend()(torch.from_numpy(batch).to(DEVICE),
+                                        torch.from_numpy(lens).to(DEVICE))
+    feats = apply_cmvn(feats, *cmvn)
+    qat = qat_model_from_jax(mc, imported, DEVICE, decoder=False).requires_grad_(False).eval()
+    bm = precision_to_binary_mask(2, L).to(DEVICE)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: qat(feats, feat_lens, bm), iters=5, warmup=1)
+    del qat
+    for int8_act, row in ((False, "ternary_matmul_bf16"), (True, "ternary_matmul_w2a8")):
+        model = packed_model_from_jax(mc, imported, 2, int8_act, DEVICE)
+
+        def forward(model=model):
+            with torch.no_grad():
+                _, enc_mask, logits = model(feats, feat_lens)
+            return torch.log_softmax(logits.float(), -1), enc_mask.sum(-1)
+
+        (lp, enc_lens), got = launched(kernels, forward)
+        if got != {row: 9 * L}:
+            raise AssertionError(f"reference packed forward: launches {got}, want {row}: {9 * L}")
+        ms = cuda_ms(forward, iters=5, warmup=1)
+        _use_plain(model, int8_act)
+        (lp_ref, _), got_p = launched(kernels, forward)
+        if got_p:
+            raise AssertionError(f"reference packed forward: the plain path launched {got_p}")
+        _, dmax, dmean, agree = _compare(f"reference {row}", lp, lp_ref, enc_lens, mc.vocab_size,
+                                         mc.time_pad_multiple)
+        log(f"reference packed f32 {row}: T'={lp.shape[1]} launches={got} vs the plain path: "
+            f"logprob max|d|={dmax:.4g} mean|d|={dmean:.4g} argmax_agree={agree:.4f} (tolerance "
+            f"mean <= 0.05, agreement >= 0.9); ms_per_batch={ms:.2f} (CUDA events, B=8, "
+            f"{lens.sum() / SAMPLE_RATE:.2f} s of audio; the unpacked f32 QAT forward at "
+            f"precision 2: {plain_ms:.2f})")
+        if dmean > 0.05 or agree < 0.9:
+            raise AssertionError(f"reference packed {row}: the kernels stray from the plain path")
+        del model
+    log(f"reference: step 18 wall_s={time.perf_counter() - t_phase:.2f} (target < 60) [{smi}]")
+
+
+def reference_state_dict(tree, seed=0):
+    """A JAX-layout tree (batch-norm conv module, tensor-wise alpha, a
+    full-precision decoder) -> the reference PyTorch model's state dict, as
+    numpy: the inverse of utils/torch_import.py, with the key names it reads
+    (Linear [out, in], Conv2d OIHW, pointwise Conv1d [out, in, 1], the
+    depthwise [D, 1, k], the subsampler projection's columns c*F'+f, the
+    decoder's fused q/k/v in_proj). It also writes what a reference
+    checkpoint carries and the import does not read: each depthwise conv's
+    bias and each BatchNorm's running statistics, drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    sd = {}
+
+    def put(key, v):
+        sd[key] = np.ascontiguousarray(np.asarray(v, f32))
+
+    def ln(prefix, node):  # the reference wraps nn.LayerNorm as `.ln`
+        put(f"{prefix}.ln.weight", node["scale"])
+        put(f"{prefix}.ln.bias", node["bias"])
+
+    def linear(prefix, node):
+        put(f"{prefix}.weight", np.asarray(node["kernel"]).T)
+        if "alpha" in node:
+            put(f"{prefix}.alpha", node["alpha"])
+        if "bias" in node:
+            put(f"{prefix}.bias", node["bias"])
+
+    enc = tree["encoder"]
+    sub = enc["subsample"]
+    for name, ref in (("conv1", "conv.0"), ("conv2", "conv.2")):
+        put(f"encoder.subsample.{ref}.weight", np.asarray(sub[name]["kernel"]).transpose(3, 2, 0, 1))
+        put(f"encoder.subsample.{ref}.bias", sub[name]["bias"])
+    kern = np.asarray(sub["proj"]["kernel"])  # rows f*C+c
+    C, d = np.asarray(sub["conv2"]["kernel"]).shape[-1], kern.shape[1]
+    put("encoder.subsample.out.weight",
+        kern.reshape(-1, C, d).transpose(2, 1, 0).reshape(d, -1))  # columns c*F'+f
+    put("encoder.subsample.out.bias", sub["proj"]["bias"])
+    blocks = enc["blocks"]
+    L = np.asarray(blocks["ln_out"]["scale"]).shape[0]
+    for i in range(L):
+        b = _layer(blocks, i)
+        p = f"encoder.blocks.{i}"
+        for ff in ("ff1", "ff2"):
+            ln(f"{p}.{ff}.ln", b[ff]["ln"])
+            linear(f"{p}.{ff}.lin1", b[ff]["w1"])
+            linear(f"{p}.{ff}.lin2", b[ff]["w2"])
+        m = b["mhsa"]
+        ln(f"{p}.mhsa.ln", m["ln"])
+        for name in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj"):
+            linear(f"{p}.mhsa.{name}", m[name])
+        put(f"{p}.mhsa.pos_bias_u", m["pos_bias_u"])
+        put(f"{p}.mhsa.pos_bias_v", m["pos_bias_v"])
+        c = b["conv"]
+        ln(f"{p}.conv.ln", c["ln"])
+        for pw in ("pw1", "pw2"):
+            put(f"{p}.conv.{pw}.weight", np.asarray(c[pw]["kernel"]).T[:, :, None])
+            put(f"{p}.conv.{pw}.bias", c[pw]["bias"])
+        dw = np.asarray(c["dw_kernel"]).transpose(2, 1, 0)  # [k, 1, D] -> [D, 1, k]
+        put(f"{p}.conv.dw.weight", dw)
+        put(f"{p}.conv.dw.bias", rng.standard_normal(dw.shape[0]))
+        put(f"{p}.conv.bn.weight", c["bn"]["scale"])
+        put(f"{p}.conv.bn.bias", c["bn"]["bias"])
+        put(f"{p}.conv.bn.running_mean", rng.standard_normal(dw.shape[0]))
+        put(f"{p}.conv.bn.running_var", rng.uniform(0.5, 2.0, dw.shape[0]))
+        sd[f"{p}.conv.bn.num_batches_tracked"] = np.array(1000, np.int64)
+        ln(f"{p}.ln", b["ln_out"])
+    ln("encoder.ln_out", enc["ln_out"])
+    linear("ctc_head", tree["ctc_head"])
+    dec = tree.get("decoder")
+    if dec is not None:
+        put("decoder.emb.weight", dec["embedding"])
+        ln("decoder.ln", dec["ln_out"])
+        linear("decoder.out", dec["out"])
+        for i in range(sum(k.startswith("layer") for k in dec)):
+            lay, p = dec[f"layer{i}"], f"decoder.dec.layers.{i}"
+            for name, ref in (("self_attn", "self_attn"), ("cross_attn", "multihead_attn")):
+                a = lay[name]
+                put(f"{p}.{ref}.in_proj_weight",
+                    np.concatenate([np.asarray(a[q]["kernel"]).T for q in "qkv"]))
+                put(f"{p}.{ref}.in_proj_bias", np.concatenate([a[q]["bias"] for q in "qkv"]))
+                linear(f"{p}.{ref}.out_proj", a["o"])
+            linear(f"{p}.linear1", lay["ff1"])
+            linear(f"{p}.linear2", lay["ff2"])
+            for j in (1, 2, 3):
+                put(f"{p}.norm{j}.weight", lay[f"ln{j}"]["scale"])
+                put(f"{p}.norm{j}.bias", lay[f"ln{j}"]["bias"])
+    return sd
+
+
+def _layer(tree, i):
+    """Layer i of a tree of [L, ...]-stacked leaves."""
+    return {k: _layer(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
 
 
 def launches_per_batch(label, fn, pad: int = 256):
@@ -3298,10 +3737,18 @@ def main(argv=None) -> int:
             "evaluated and transcribed through the CLIs, on the kernels")
     # times steps: before any profiler run too (a finished profiler session
     # slows host code)
-    model_options_phase(kernels, args.seed, smi)
+    chunk_steps = model_options_phase(kernels, args.seed, smi)
+    served += chunk_steps
+    profiles += [(label, fn, 15) for label, fn in chunk_steps]
     log("model options: trained, evaluated and served the streaming encoder (rows 3-4 off under "
         "the chunk mask), the quantized reference decoder (128 packed launches per eval "
         "forward) and per-channel alpha (the packed export refused), on the kernels")
+    log("streaming: sessions, an 8-slot server and the serve daemon decoded the streaming run "
+        "as its offline chunked encoder does, and evaluate --streaming ran")
+    reference_checkpoint_phase(kernels, args.seed, smi)  # times batches: before any profiler
+    log("reference: a reference-layout Conformer-M checkpoint evaluated unpacked and packed "
+        "(108 launches of row 1, or row 2 with --int8_act, a forward) through "
+        "evaluate --torch_checkpoint")
     prepare_options_phase(kernels, args.seed, smi)  # times steps: before any profiler run too
     log("prepare and options: prepared a corpus on the card (CMVN and features equal to the "
         "CPU's), trained it with --grad_accum 2 --multistep 2 and --fp32_control, held rows 3-8 "

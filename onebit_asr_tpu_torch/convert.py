@@ -28,7 +28,9 @@ handled:
   embedding [V, D] keeps its layout.
 
 The serving form ignores the decoder subtree unless asked to carry it (the
-evaluation of packed weights takes the decoder's loss). The same mapping
+evaluation of packed weights takes the decoder's loss). The streaming step
+(`streaming_step_from_jax`) takes the encoder and CTC head of the same tree,
+always with the unfused subsampler's row order. The same mapping
 carries any tree of the parameters' shape (the gradients of a JAX step, say)
 onto the state dict's names, and `jax_tree_from_state_dict` is its exact
 inverse: a run this package trained becomes a JAX-layout tree, which the
@@ -37,13 +39,15 @@ serving and evaluation paths take like a JAX run's.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from onebit_asr_tpu_torch.model.asr import ConformerASR
 from onebit_asr_tpu_torch.model.conformer import subsampled_frames
+from onebit_asr_tpu_torch.model.layers import Dense
 from onebit_asr_tpu_torch.model.packed import export_packed_params
 from onebit_asr_tpu_torch.utils.config import ModelConfig
 
@@ -316,3 +320,28 @@ def qat_model_from_jax(cfg: ModelConfig, params: Mapping, device: str = "cuda",
     sd = state_dict_from_jax(tree, cfg)
     model.load_state_dict({k: v.to(torch.float32) for k, v in sd.items()}, strict=True)
     return model.to(device)
+
+
+def streaming_step_from_jax(cfg: ModelConfig, params: Mapping, device: str = "cuda"
+                            ) -> Tuple[Any, Dense]:
+    """Training-form JAX tree (numpy or torch leaves) -> (StreamingEncoderStep,
+    CTC head) on `device`, in eval mode, f32 parameters. The step's
+    subsampler is always the unfused one (JAX model/streaming.py:107-109),
+    so the projection's rows take the unfused order even for a run trained
+    with fused_subsampler."""
+    from onebit_asr_tpu_torch.model.streaming import StreamingEncoderStep
+
+    cfg = dataclasses.replace(cfg, fused_subsampler=False, fused_attention=False)
+    sd = state_dict_from_jax(to_torch({k: params[k] for k in ("encoder", "ctc_head")}), cfg)
+    cd = getattr(torch, cfg.compute_dtype)
+    step = StreamingEncoderStep(
+        cfg.input_dim, cfg.enc_d_model, cfg.enc_layers, cfg.enc_heads, cfg.enc_d_ff,
+        cfg.enc_conv_kernel, int(cfg.attn_chunk_size), cfg.attn_left_chunks, cd,
+        cfg.quant_per_channel)
+    step.load_state_dict({k[len("encoder."):]: v.to(torch.float32) for k, v in sd.items()
+                          if k.startswith("encoder.")}, strict=True)
+    head = Dense(cfg.enc_d_model, cfg.vocab_size, cd)
+    head.load_state_dict({k[len("ctc_head."):]: v.to(torch.float32) for k, v in sd.items()
+                          if k.startswith("ctc_head.")}, strict=True)
+    return (step.requires_grad_(False).to(device).eval(),
+            head.requires_grad_(False).to(device).eval())

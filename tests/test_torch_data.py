@@ -289,12 +289,3 @@ def test_config_fields_equal_jax():
         ours, theirs = getattr(pc, name), getattr(jc, name)
         assert [(f.name, f.default) for f in dataclasses.fields(ours)] == [
             (f.name, f.default) for f in dataclasses.fields(theirs)]
-
-
-@pytest.mark.parametrize("flags,name", [(["--spm", "m.model"], "--spm"),
-                                        (["--torch_checkpoint", "c.pt"], "--torch_checkpoint"),
-                                        (["--streaming"], "--streaming")])
-def test_evaluate_cli_still_refuses(run, data_dir, flags, name, capsys):
-    assert eval_cli.main(["--checkpoint", run, "--data_dir", data_dir, "--device", "cpu",
-                          *flags]) == 2
-    assert name in capsys.readouterr().err

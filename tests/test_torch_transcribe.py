@@ -402,7 +402,10 @@ def test_port_runs_without_jax_or_the_jax_package():
     chip_smoke's writer makes (the port's `write_manifest`, a character-level
     tokenizer.model) the train CLI takes one real-data step through prefetch
     and the transcribe CLI serves one batch of `--split test`, and `prepare
-    all --synthetic 8 --device cpu` writes a data dir."""
+    all --synthetic 8 --device cpu` writes a data dir; a tiny streaming
+    session decodes, a ServeLoop round trip gives its ids, and a reference
+    state dict (chip_smoke's inverse of the import) imports back to its
+    tree."""
     code = r"""
 import importlib, io, contextlib, pkgutil, sys, dataclasses
 sys.modules["jax"] = None
@@ -487,6 +490,26 @@ with tempfile.TemporaryDirectory() as root:
                           "--vocab_size", "48", "--num_utts", "8", "--device", "cpu"]) == 0
     assert {"cmvn_stats.npz", "lm.npz", "tokenizer.json", "train_manifest.jsonl"} <= set(
         os.listdir(root))
+from onebit_asr_tpu_torch.cli.serve import ServeLoop
+from onebit_asr_tpu_torch.convert import flatten
+from onebit_asr_tpu_torch.decode.streaming import StreamingServer, streaming_greedy_decode
+from onebit_asr_tpu_torch.utils.torch_import import import_reference_state_dict
+sc = dataclasses.replace(cfg, vocab_size=32, enc_layers=2, conv_norm="layer_norm",
+                         causal_conv=True, attn_chunk_size=4, attn_left_chunks=1)
+tree = init_params(sc, 0)
+x = np.random.default_rng(0).standard_normal((45, 80)).astype(np.float32)
+ids = streaming_greedy_decode(sc, tree, x, 2, feed_frames=7, device="cpu")
+loop = ServeLoop(StreamingServer(sc, tree, 2, max_streams=2, device="cpu"))
+for line in ('{"op": "open"}', json.dumps({"op": "feed", "sid": 0, "feats": x.tolist()}),
+             '{"op": "close", "sid": 0}'):
+    loop.handle_line(line)
+finals = [e["ids"] for e in loop.pump() if e["event"] == "final"]
+assert finals == [ids], (finals, ids)
+rc = dataclasses.replace(cfg, vocab_size=32, dec_layers=1, dec_d_ff=32)
+ref = init_params(rc, 1)
+back = flatten(import_reference_state_dict(chip_smoke.reference_state_dict(ref), 80, 1, 1))
+ref = flatten(ref)
+assert sorted(back) == sorted(ref) and all(np.array_equal(back[k], ref[k]) for k in ref)
 assert not any(k == "jax" or k.startswith(("jax.", "onebit_asr_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("clean")
