@@ -11,7 +11,8 @@ evaluates the runs the train CLI wrote, then trains, evaluates and serves on
 a seeded data dir through the real-data path, then under the model options
 (a streaming encoder, a quantized reference decoder, per-channel alpha),
 then streams the streaming run through sessions, a server and the serve
-daemon, and evaluates a reference-layout checkpoint:
+daemon, evaluates a reference-layout checkpoint, and exports serving
+artifacts and runs them from module.pt2 alone:
 
 1. build: compiles csrc/*.cu with nvcc (sm_90a; one nvcc per source, all
    started together, then one link) and prints the time and each kernel's
@@ -280,6 +281,30 @@ daemon, and evaluates a reference-layout checkpoint:
    The packed f32 model on step 3's 8 waveforms on rows 1 and 2 is held
    against the plain path at step 3's tolerances; ms per batch (CUDA
    events) beside the unpacked f32 forward.
+19. serving artifacts (export.py on torch.export; (a)-(d) after step 18,
+   (e) at the end of step 13, (f) inside step 17, each on what that step
+   built; none before a profiler session): every artifact is exported,
+   saved as module.pt2 + meta.json and loaded back, and its export, save
+   and load seconds and module size are printed. (a) step 3's random
+   Conformer-M with both fused flags, packed at precision 2, B=8, T=1,598
+   (step 3's features): one forward from the loaded artifact launches row
+   1 exactly 108 times, row 5 once, row 3 12 times and row 2 never, and its
+   log-probs on valid frames are held against the live packed forward
+   (mean |d| <= 1e-3, argmax agreement >= 0.99; the share bit-equal
+   printed); (b) the same without the fused flags and with --int8_act (row
+   2 108 times, nothing else); (c, d) both fused flags, unpacked at precision 2,
+   one symbolic-batch artifact: at B=8 and at B=1 row 5 once and row 3 12
+   times a forward, held the same way; (e) step 13's run through `cli.export
+   offline --packed --emit beam --beam_size 10 --lm` (step 13's 3-gram LM
+   baked in) at 35 raw frames (T'=8: the artifact unrolls the beam's frame
+   loop, ~430 graph nodes a frame, and export, save and load grow with the
+   nodes; PERF.md §6): its ids must equal the live device beam's; (f) step
+   17's run through `cli.export streaming --n_streams 8`, served by `serve
+   --artifact` as a subprocess on stdio with step 17's NDJSON: its finals
+   must equal step 17 (ii)'s server ids for all 8 streams. ms per batch (or
+   chunk step) from each artifact beside the live forward (CUDA events; in
+   (a)-(d) the median of 6 alternating rounds of 3 calls each, with the
+   rounds' range of artifact/live ratios).
 
 `device_ms` opens each profile with 64 short spins of the card: after a
 process's first profiler session, each later session drops its first few
@@ -326,6 +351,14 @@ PAD_LOST = []  # opening spins each of device_ms's profiles lost (ROADMAP C3)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
 
 
 def _reset(kernels):
@@ -2398,7 +2431,65 @@ def serve_phase(root, kernels, seed):
             raise AssertionError(f"evaluate {extra}: rc={rc} launches {counts}, want {want}")
         log(f"serve eval {' '.join(extra)}: rc=0 launches={counts} wall_s={wall:.2f}")
     log(f"serve: phase wall_s={time.perf_counter() - t_phase:.2f}")
+    export_beam_part(runs["smoke"], paths["lm.npz"], cmvn, batch, lens, kernels, inputs)
     return counted
+
+
+def export_beam_part(run, lm_path, cmvn, batch, lens, kernels, root):
+    """Step 19 (e): step 13's run exported packed with emit=beam and step 13's
+    3-gram LM baked in, through the export CLI, at EXPORT_BEAM_FRAMES raw
+    frames (the artifact unrolls its frame loop, ~430 graph nodes a frame
+    with the LM: export, save and load grow with T'); its ids on step 3's
+    features cut to those frames (lengths 35, 33, ..., 21) must equal the
+    live device beam's (Transcriber.decode) on the live packed forward."""
+    from onebit_asr_tpu_torch.cli import export as export_cli
+    from onebit_asr_tpu_torch.cli import transcribe as cli
+    from onebit_asr_tpu_torch.decode.lm import NGramLM
+    from onebit_asr_tpu_torch.decode.lm_device import DeviceLM
+    from onebit_asr_tpu_torch.export import greedy_ids_to_lists, load_artifact
+
+    smi = smi_line()
+    run_dir, cfg, tree = run
+    art = os.path.join(root, "beam_lm.export")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = export_cli.main(["offline", "--checkpoint", run_dir, "--out", art, "--packed",
+                              "--batch", str(BATCH), "--frames", str(EXPORT_BEAM_FRAMES),
+                              "--emit", "beam", "--beam_size", str(SERVE_BEAM), "--lm", lm_path,
+                              "--lm_weight", str(SERVE_LM_WEIGHT)])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn, meta = load_artifact(art)
+    load_s = time.perf_counter() - t0
+    mb = os.path.getsize(os.path.join(art, "module.pt2")) / 1e6
+    t = cli.Transcriber(cfg, tree, 2, cmvn=cmvn, device=DEVICE, beam_size=SERVE_BEAM,
+                        lm=DeviceLM.pack(NGramLM.load(lm_path), DEVICE),
+                        lm_weight=SERVE_LM_WEIGHT)
+    feats, _ = t.featurize(batch, lens)
+    x = feats[:, :EXPORT_BEAM_FRAMES].clone()
+    xl = torch.tensor([EXPORT_BEAM_FRAMES - 2 * b for b in range(BATCH)], device=DEVICE)
+
+    @torch.no_grad()
+    def live():
+        _, mask, logits = t.model(x, xl, t.binary_mask)
+        return t.decode(torch.log_softmax(logits.float(), -1), mask.sum(-1))
+
+    _reset(kernels)
+    ids_a, n_a = fn(x, xl)
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    got, want = greedy_ids_to_lists(ids_a, n_a), greedy_ids_to_lists(*live())
+    ms_a = cuda_ms(lambda: fn(x, xl), iters=3, warmup=1)
+    ms_l = cuda_ms(live, iters=3, warmup=1)
+    log(f"export (e) beam {SERVE_BEAM} + 3-gram LM, packed p2, B={BATCH} T={EXPORT_BEAM_FRAMES} "
+        f"T'={ids_a.shape[1]}: export CLI rc={rc} export+save_s={export_s:.2f} "
+        f"load_s={load_s:.2f} module_mb={mb:.2f} launches={counts} ids equal to the live "
+        f"device beam's: {got == want} (tokens {sum(map(len, got))}) ms_per_batch "
+        f"artifact={ms_a:.2f} live={ms_l:.2f} [{smi}]")
+    if rc != 0 or got != want or counts != {"ternary_matmul_bf16": 9 * cfg.model.enc_layers}:
+        raise AssertionError(f"export (e): rc={rc} launches {counts}, or the beam artifact's "
+                             f"ids differ from the live beam's: {got} vs {want}")
 
 
 @contextlib.contextmanager
@@ -3427,8 +3518,54 @@ def streaming_phase(o, run, cfg, tree):
         f"(N=8; a chunk is {audio_ms:.0f} ms of audio); peak_mem_gb={peak_gb:.3f} (above the "
         f"phase's start); kernel rows launched 0 in (i)-(iii); device kernels per chunk step at "
         f"the end (torch.profiler)")
+    export_stream_part(o, run, cfg, lines, srv_ids, args8, ms[BATCH])
     log(f"streaming: step 17 wall_s={time.perf_counter() - t_phase:.2f} [{o.smi}]")
     return [("streaming chunk step N=1", step1), (f"streaming chunk step N={BATCH}", step8)]
+
+
+def export_stream_part(o, run, cfg, lines, srv_ids, args8, live_ms):
+    """Step 19 (f): step 17's run exported as an 8-slot streaming artifact
+    through the export CLI and served by `serve --artifact` (a subprocess on
+    stdio, step 17's NDJSON): its finals must equal step 17 (ii)'s server
+    ids for all 8 streams; one artifact chunk step at N=8 is timed beside
+    the live step (`live_ms`)."""
+    from onebit_asr_tpu_torch.cli import export as export_cli
+    from onebit_asr_tpu_torch.export import load_artifact
+    from onebit_asr_tpu_torch.utils.config import FrontendConfig
+
+    t_part = time.perf_counter()
+    art = os.path.join(o.root, "stream8.export")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = export_cli.main(["streaming", "--checkpoint", run, "--out", art, "--n_streams",
+                              str(BATCH)])
+    export_s = time.perf_counter() - t0
+    mb = os.path.getsize(os.path.join(art, "module.pt2")) / 1e6
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DAEMON, "--artifact", art, "--data_dir", o.data],
+        input="".join(json.dumps(x) + "\n" for x in lines), capture_output=True, text=True,
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, timeout=300)
+    wall_daemon = time.perf_counter() - t0
+    events = [json.loads(line) for line in proc.stdout.splitlines()]
+    finals = {e["sid"]: e["ids"] for e in events if e["event"] == "final"}
+    errors = [e for e in events if e["event"] == "error"]
+    launched = [line for line in proc.stderr.splitlines() if line.startswith("kernel launches")]
+    fn, _ = load_artifact(art)
+    active = torch.ones(BATCH, dtype=torch.bool, device=DEVICE)
+    ms_a = cuda_ms(lambda: fn(*args8, active), iters=20, warmup=3)
+    log(f"export (f) streaming, {BATCH} slots, precision 2: export CLI rc={rc} "
+        f"export+save_s={export_s:.2f} module_mb={mb:.2f}; serve --artifact rc={proc.returncode} "
+        f"wall_s={wall_daemon:.2f} (start-up, load and featurizing included) finals="
+        f"{len(finals)} errors={errors} {launched}; the run's frontend is the default one: "
+        f"{cfg.frontend == FrontendConfig()}; ms per chunk step at N={BATCH} artifact={ms_a:.3f} "
+        f"live={live_ms:.3f}; part wall_s={time.perf_counter() - t_part:.2f} [{o.smi}]")
+    if (rc != 0 or proc.returncode != 0 or errors or launched != ["kernel launches 0"]
+            or [finals.get(i) for i in range(BATCH)] != srv_ids):
+        raise AssertionError(f"export (f): serve --artifact's finals differ from step 17 (ii)'s "
+                             f"ids, or it failed: {proc.stderr[-2000:]}")
+    log("export (f): serve --artifact's finals equal step 17 (ii)'s server ids for all 8 streams")
 
 
 def reference_checkpoint_phase(kernels, seed, smi):
@@ -3627,23 +3764,153 @@ def _layer(tree, i):
     return {k: _layer(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in tree.items()}
 
 
-def launches_per_batch(label, fn, pad: int = 256):
+EXPORT_BEAM_FRAMES = 35  # raw frames of step 19 (e)'s beam artifact: T' = 8 (its loop unrolls)
+
+
+def exported_artifact(what, root, export, meta, smi):
+    """Step 19: export (a call returning an ExportedProgram), save it as an
+    artifact directory under `root` and load it back -> (callable, meta),
+    printing the export, save and load seconds and module.pt2's size."""
+    from onebit_asr_tpu_torch import export as ex
+
+    path = os.path.join(root, "".join(c for c in what.split()[0] if c.isalnum()))
+    t0 = time.perf_counter()
+    ep = export()
+    t1 = time.perf_counter()
+    ex.save_artifact(ep, path, meta)
+    t2 = time.perf_counter()
+    fn, meta = ex.load_artifact(path)
+    t3 = time.perf_counter()
+    mb = os.path.getsize(os.path.join(path, "module.pt2")) / 1e6
+    ops = sum(str(n.target).startswith("onebit.") for n in ep.graph.nodes)
+    log(f"export {what}: export_s={t1 - t0:.2f} save_s={t2 - t1:.2f} load_s={t3 - t2:.2f} "
+        f"module_mb={mb:.2f} graph_nodes={len(ep.graph.nodes)} custom_op_nodes={ops} "
+        f"signature {meta['signature']} [{smi}]")
+    return fn, meta
+
+
+def paired_ms(fa, fb, rounds: int = 6, iters: int = 3):
+    """ms per call of fa and of fb, timed in alternating rounds (ab, ba,
+    ab, ...; CUDA events around `iters` calls each) after one call of each:
+    (median a, median b, [min, max] of the rounds' a/b ratios)."""
+    fa(), fb()
+    ta, tb = [], []
+    for r in range(rounds):
+        for fn, out in ((fa, ta), (fb, tb))[::1 if r % 2 == 0 else -1]:
+            out.append(cuda_ms(fn, iters=iters, warmup=0))
+    ratios = [a / b for a, b in zip(ta, tb)]
+    return float(np.median(ta)), float(np.median(tb)), [min(ratios), max(ratios)]
+
+
+def artifact_vs_live(what, kernels, fn, live, args, want, smi):
+    """Step 19: an offline log-probs artifact against the live forward on the
+    same inputs: the kernel launches of one artifact call (`want`), its
+    valid frames equal, its log-probs within mean |d| <= 1e-3 and argmax
+    agreement >= 0.99 (the share bit-equal printed), ms per batch of both
+    (paired_ms: CUDA events, alternating rounds)."""
+    _reset(kernels)
+    lp_a, enc_a = fn(*args)
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    with torch.no_grad():
+        lp_l, enc_l = live(*args)
+    mask = torch.arange(lp_a.shape[1], device=lp_a.device)[None] < enc_l[:, None]
+    d = (lp_a - lp_l).abs()[mask]
+    agree = (lp_a.argmax(-1) == lp_l.argmax(-1))[mask].float().mean().item()
+    same = (lp_a == lp_l)[mask].float().mean().item()
+    finite = bool(torch.isfinite(lp_a[mask]).all())
+    with torch.no_grad():
+        ms_a, ms_l, ratios = paired_ms(lambda: fn(*args), lambda: live(*args))
+    log(f"export {what}: B={args[0].shape[0]} T={args[0].shape[1]} T'={lp_a.shape[1]} "
+        f"launches={counts} valid_frames={int(mask.sum())} logprob max|d|={d.max().item():.4g} "
+        f"mean|d|={d.mean().item():.4g} argmax_agree={agree:.4f} bit_equal={same:.4f} "
+        f"ms_per_batch (median of 6 alternating rounds of 3) artifact={ms_a:.2f} "
+        f"live={ms_l:.2f} artifact/live per round {ratios[0]:.3f}-{ratios[1]:.3f} [{smi}]")
+    if (counts != want or not torch.equal(enc_a, enc_l) or not finite
+            or d.mean().item() > 1e-3 or agree < 0.99):
+        raise AssertionError(f"export {what}: launches {counts} (want {want}), or the "
+                             f"artifact strays from the live forward")
+
+
+def export_phase(kernels, seed, smi):
+    """Step 19 (a)-(d): step 3's random Conformer-M exported through
+    export.py on the card, saved, loaded and run on step 3's features; see
+    the module docstring. (e) runs at the end of step 13 and (f) inside
+    step 17, on their runs."""
+    from onebit_asr_tpu_torch import export as ex
+    from onebit_asr_tpu_torch.convert import init_params
+    from onebit_asr_tpu_torch.model.presets import apply_preset
+    from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn
+    from onebit_asr_tpu_torch.utils.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    cfg = apply_preset(ModelConfig(), "m")
+    params = init_params(cfg, seed)
+    batch, lens = pcm_batch(synthetic_waveforms(seed))
+    cmvn = [torch.from_numpy(a).to(DEVICE) for a in cmvn_of(batch, lens)]
+    with torch.no_grad():
+        feats, feat_lens = LogMelFrontend()(torch.from_numpy(batch).to(DEVICE),
+                                            torch.from_numpy(lens).to(DEVICE))
+        feats = apply_cmvn(feats, *cmvn)
+    frames, L = feats.shape[1], 9 * cfg.enc_layers
+    build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
+    os.makedirs(build_root, exist_ok=True)
+    fcfg = dataclasses.replace(cfg, fused_subsampler=True, fused_attention=True)
+    fused = {"fused_subsample": 1, "fused_relpos_attention": cfg.enc_layers}
+    with tempfile.TemporaryDirectory(dir=build_root) as root:
+        # (a), (b): packed at precision 2, B=8: (a) the serving form with both
+        # fused flags and bf16 activations, (b) without them, int8 activations
+        for part, c, int8_act, want in (
+                ("(a)", fcfg, False, {"ternary_matmul_bf16": L, **fused}),
+                ("(b)", cfg, True, {"ternary_matmul_w2a8": L})):
+            kw = dict(packed=True, emit="logprobs", device=DEVICE, int8_act=int8_act)
+            what = (f"{part} packed p2 B={BATCH}{' int8_act' if int8_act else ''}"
+                    f"{' fused' if c.fused_attention else ''}")
+            fn, meta = exported_artifact(what, root, lambda: ex.export_offline(
+                c, params, 2, frames, BATCH, **kw), ex.artifact_meta(
+                c, 2, "offline", "logprobs", True, {"int8_act": int8_act}), smi)
+            live = ex.build_offline_forward(c, params, 2, **kw)
+            artifact_vs_live(what, kernels, fn, live, (feats, feat_lens), want, smi)
+            del fn, live
+        # (c), (d): both fused flags, unpacked at precision 2, one symbolic-batch
+        # artifact serving B=8 and B=1
+        what = "(c,d) unpacked p2 fused, symbolic batch"
+        fn, meta = exported_artifact(what, root, lambda: ex.export_offline(
+            fcfg, params, 2, frames, None, emit="logprobs", device=DEVICE),
+            ex.artifact_meta(fcfg, 2, "offline", "logprobs"), smi)
+        live = ex.build_offline_forward(fcfg, params, 2, emit="logprobs", device=DEVICE)
+        for B in (BATCH, 1):
+            artifact_vs_live(f"(c,d) unpacked p2 fused, symbolic batch at B={B}", kernels, fn,
+                             live, (feats[:B], feat_lens[:B]), fused, smi)
+        del fn, live
+    log(f"export: step 19 (a)-(d) wall_s={time.perf_counter() - t_phase:.2f} [{smi}]")
+
+
+def launches_per_batch(label, fn, pad: int = 256, tries: int = 3):
     """Device kernels (and copies) one call of `fn` runs (torch.profiler),
-    behind `pad` opening spins; raises if the profile kept none of them."""
+    behind `pad` opening spins. A profile that kept none of them may have
+    lost kernels too (ROADMAP C3: after a long session, as the beam + LM's
+    ~174,000 kernels, the next one dropped all 256): it is taken again
+    behind 4x as many, as device_ms does; raises after `tries`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        opening_spins(pad)
+    for n in range(1, tries + 1):
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spins = sum(SPIN_KERNEL in e.name for e in events)
-    if not spins:
-        raise AssertionError(f"serve launches {label}: the profile kept none of its {pad} "
-                             f"opening spins, so it may have lost kernels too (ROADMAP C3)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            opening_spins(pad)
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if any(SPIN_KERNEL in e.name for e in events):
+            break
+        log(f"serve launches {label}: profile {n} of {tries} kept none of its {pad} opening "
+            f"spins (ROADMAP C3); taking it again")
+        pad *= 4
+    else:
+        raise AssertionError(f"serve launches {label}: no profile in {tries} kept any of its "
+                             f"opening spins, so each may have lost kernels too (ROADMAP C3)")
     events = [e for e in events if SPIN_KERNEL not in e.name]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
     log(f"serve launches {label}: device_kernels_per_batch={len(events) - copies} "
@@ -3665,10 +3932,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = smi_line()
 
     from onebit_asr_tpu_torch.convert import init_params
     from onebit_asr_tpu_torch.model.conformer import subsampled_frames
@@ -3749,6 +4013,12 @@ def main(argv=None) -> int:
     log("reference: a reference-layout Conformer-M checkpoint evaluated unpacked and packed "
         "(108 launches of row 1, or row 2 with --int8_act, a forward) through "
         "evaluate --torch_checkpoint")
+    export_phase(kernels, args.seed, smi)  # times batches: before any profiler run too
+    log("export: packed (108 launches of row 1, or of row 2 with --int8_act, a forward; row 5 "
+        "once and row 3 12 times with the fused flags), fused unpacked (row 5 once, row 3 12 "
+        "times) and symbolic-batch artifacts ran from module.pt2 alone and "
+        "agree with the live forward; the beam artifact (step 13) and serve --artifact (step "
+        "17) too")
     prepare_options_phase(kernels, args.seed, smi)  # times steps: before any profiler run too
     log("prepare and options: prepared a corpus on the card (CMVN and features equal to the "
         "CPU's), trained it with --grad_accum 2 --multistep 2 and --fp32_control, held rows 3-8 "

@@ -14,7 +14,10 @@ all are CUDA C++
 kernels for sm_90a, built with nvcc at first use. It serves and evaluates
 the runs it trains (`transcribe --checkpoint`, `python -m
 onebit_asr_tpu_torch.eval`), packed or unpacked, greedy or with the prefix
-beam on the device and an n-gram LM, and long recordings in windows.
+beam on the device and an n-gram LM, and long recordings in windows. It
+exports serving artifacts with `torch.export` (`export.py`, `python -m
+onebit_asr_tpu_torch.cli.export`), which load and run without the model's
+modules, and streams them behind `python -m onebit_asr_tpu_torch.serve`.
 """
 
 __version__ = "0.1.0"

@@ -20,10 +20,15 @@ cmvn_stats.npz when there is one). The checkpoint is a run this package
 trained (`--checkpoint`: config.json + ckpt/), streaming-trained
 (`--attn_chunk_size`, `--attn_left_chunks` >= 0, `--causal_conv`,
 `--conv_norm layer_norm`), served unpacked at `--precision`. `--artifact`
-(an exported streaming artifact) is refused with exit code 2: export is not
-ported yet (ROADMAP queue A, item 7).
+serves a batched streaming artifact instead (`python -m
+onebit_asr_tpu_torch.cli.export streaming --n_streams N`): its step, its N
+slots, its precision and its device come from the artifact (`--precision`,
+`--max_streams` and `--device` beside it are refused), and `feed_wav`
+takes the default frontend (with `--data_dir`, that dir's tokenizer and
+cmvn_stats.npz).
 
 Run:  python -m onebit_asr_tpu_torch.serve --checkpoint runs/stream --port 7600
+      python -m onebit_asr_tpu_torch.serve --artifact stream8.export --port 7600
       (--port 0 speaks the protocol on stdin/stdout; --device cpu off the card)
 """
 
@@ -43,17 +48,20 @@ def build_argparser():
     p.add_argument("--checkpoint", default="",
                    help="run dir (config.json + ckpt/), streaming-trained")
     p.add_argument("--artifact", default="",
-                   help="an exported batched streaming artifact: not ported yet "
-                        "(ROADMAP queue A, item 7)")
-    p.add_argument("--precision", type=int, default=2, choices=(32, 2, 1))
-    p.add_argument("--max_streams", type=int, default=8,
-                   help="concurrent stream slots (one batched step serves all ready slots)")
+                   help="an exported batched streaming artifact (cli.export streaming "
+                        "--n_streams N); sets the slots, precision and device")
+    p.add_argument("--precision", type=int, default=None, choices=(32, 2, 1),
+                   help="with --checkpoint (default 2); an artifact has its own")
+    p.add_argument("--max_streams", type=int, default=None,
+                   help="concurrent stream slots (one batched step serves all ready slots); "
+                        "with --checkpoint (default 8), an artifact has its own")
     p.add_argument("--port", type=int, default=0,
                    help="TCP port to listen on (localhost); 0 = stdio")
     p.add_argument("--data_dir", default="",
                    help="tokenizer and cmvn_stats.npz location (default: the checkpoint's "
                         "data_dir)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu, with --checkpoint; an artifact has its own")
     return p
 
 
@@ -151,23 +159,42 @@ def build_loop(args):
     served)."""
     import numpy as np
 
-    from onebit_asr_tpu_torch.convert import jax_tree_from_state_dict
-    from onebit_asr_tpu_torch.decode.streaming import StreamingServer
     from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
+    from onebit_asr_tpu_torch.utils.config import FrontendConfig, TrainConfig
 
     if bool(args.artifact) == bool(args.checkpoint):
         return None, "need exactly one of --checkpoint / --artifact"
     if args.artifact:
-        return None, ("FATAL: --artifact: not ported yet (ROADMAP queue A, item 7: the "
-                      "exported streaming artifacts)")
-    cfg = load_config(args.checkpoint)
-    if cfg is None:
-        return None, f"no config.json in {args.checkpoint}"
-    step, sd = restore_params(os.path.join(args.checkpoint, "ckpt"))
-    print(f"restored step {step}", file=sys.stderr)
-    server = StreamingServer(cfg.model, jax_tree_from_state_dict(sd, cfg.model),
-                             precision=args.precision, max_streams=args.max_streams,
-                             device=args.device)
+        from onebit_asr_tpu_torch.export import streaming_server_from_artifact
+
+        if not os.path.isfile(os.path.join(args.artifact, "meta.json")):
+            return None, f"no streaming artifact at {args.artifact} (module.pt2 + meta.json)"
+        given = [f"--{k}" for k in ("precision", "max_streams", "device")
+                 if getattr(args, k) is not None]
+        if given:
+            return None, (f"{', '.join(given)}: the artifact fixes its precision, slots and "
+                          "device (set them when exporting it)")
+        try:
+            server = streaming_server_from_artifact(args.artifact)
+        except ValueError as e:
+            return None, str(e)
+        # frontend defaults for the feed_wav helper; no checkpoint config
+        cfg = TrainConfig(model=server.cfg, frontend=FrontendConfig())
+        device = str(server.device)
+        print(f"serving artifact {args.artifact} ({server.n} stream slots)", file=sys.stderr)
+    else:
+        from onebit_asr_tpu_torch.convert import jax_tree_from_state_dict
+        from onebit_asr_tpu_torch.decode.streaming import StreamingServer
+
+        cfg = load_config(args.checkpoint)
+        if cfg is None:
+            return None, f"no config.json in {args.checkpoint}"
+        step, sd = restore_params(os.path.join(args.checkpoint, "ckpt"))
+        print(f"restored step {step}", file=sys.stderr)
+        device = args.device or "cuda"
+        server = StreamingServer(cfg.model, jax_tree_from_state_dict(sd, cfg.model),
+                                 precision=args.precision or 2,
+                                 max_streams=args.max_streams or 8, device=device)
     ids_to_text = None
     data_dir = args.data_dir or cfg.data.data_dir
     if data_dir and os.path.isdir(data_dir):
@@ -182,7 +209,7 @@ def build_loop(args):
     if cmvn_path and os.path.exists(cmvn_path):
         with np.load(cmvn_path) as stats:
             cmvn = (stats["mean"], stats["std"])
-    return ServeLoop(server, ids_to_text, wav_featurizer(cfg.frontend, cmvn, args.device)), ""
+    return ServeLoop(server, ids_to_text, wav_featurizer(cfg.frontend, cmvn, device)), ""
 
 
 def main(argv=None) -> int:
@@ -215,7 +242,7 @@ def main(argv=None) -> int:
                         io.TextIOWrapper(self.wfile, "utf-8"))
 
         with socketserver.ThreadingTCPServer(("127.0.0.1", args.port), Handler) as srv:
-            print(f"serving on 127.0.0.1:{args.port} ({args.max_streams} stream slots)",
+            print(f"serving on 127.0.0.1:{args.port} ({loop.server.n} stream slots)",
                   file=sys.stderr)
             srv.serve_forever()
     else:

@@ -20,7 +20,9 @@ promises no order. Both top-k selections here (the frame's K tokens, the W
 survivors) therefore take the first entries of a stable descending sort,
 which orders ties as JAX does. The frames' top-K tokens do not depend on the
 beam, so one sort over [B, T, V] takes them all before the loop, and the
-loop stops at the longest utterance (later frames change nothing).
+loop stops at the longest utterance (later frames change nothing). That
+stop reads a length's value; `all_frames=True` runs every frame instead, as
+JAX's scan does, which `torch.export` can trace (the ids are the same).
 
 The hashes are uint32 arithmetic mod 2^32 kept in int64 (lm_device.mul32).
 The loop launches a few dozen small kernels a frame: on the card the search
@@ -75,17 +77,22 @@ def beam_search_device(
     lm: Optional[DeviceLM] = None,
     lm_weight: float = 0.0,
     length_bonus: float = 0.0,
+    all_frames: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ids [B, max_len] int64, -1 past each length; lens [B]), on the
     device of `log_probs`. `lm` (a DeviceLM on the same device) is fused
-    only with a nonzero `lm_weight`."""
+    only with a nonzero `lm_weight`. `all_frames` runs all T frames, not
+    just up to the longest length."""
     B, T, V = log_probs.shape
     W, K = beam_size, min(top_k, V)
     dev = log_probs.device
     lp = log_probs.to(torch.float32)
     fuse = lm is not None and bool(lm_weight)
     valid_lens = valid_lens.to(device=dev, dtype=torch.int64)
-    t_end = min(T, int(valid_lens.max())) if B else 0
+    if all_frames:
+        t_end = T
+    else:
+        t_end = min(T, int(valid_lens.max())) if B else 0
     topv, topi = stable_top_k(lp[:, :t_end], K)  # [B, t_end, K]
     lp_blank = lp[:, :t_end, blank_id]  # [B, t_end]
 

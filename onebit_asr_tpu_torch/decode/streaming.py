@@ -15,9 +15,11 @@ accuracy one.
 `params` is the training-form parameter tree in the JAX layout (nested
 dicts of numpy arrays or CPU tensors), as `Transcriber` takes it; the step
 is built from it once per session or server (`convert.streaming_step_from_jax`),
-or handed in built (`modules`) to share it across sessions. The step runs
-on CUDA unless `device="cpu"`; the buffers and the CTC collapse stay on the
-host, as in JAX.
+or handed in built (`modules`) to share it across sessions. In place of
+both, a session takes `step_fn` and a server `batch_step_fn`: a loaded
+streaming artifact (export.py), so that no weights or modules are on the
+serving host. The step runs on CUDA unless `device="cpu"`; the buffers and
+the CTC collapse stay on the host, as in JAX.
 """
 
 from __future__ import annotations
@@ -62,11 +64,12 @@ def streaming_modules(cfg: ModelConfig, params, device: str = "cuda"):
 
 class _Runtime:
     """What a session and a server share: the config's geometry, the step
-    and its head on the device, the precision's layer mask, and
-    `_step(windows, caches, cache_valid, cur_valid) -> (f32 logits,
-    new caches)`."""
+    and its head on the device (or an artifact's `step_fn` with that
+    signature), the precision's layer mask, and `_step(windows, caches,
+    cache_valid, cur_valid) -> (f32 logits, new caches)`."""
 
-    def __init__(self, cfg: ModelConfig, params, precision: int, device: str, modules):
+    def __init__(self, cfg: ModelConfig, params, precision: int, device: str, modules,
+                 step_fn=None):
         validate_streaming_cfg(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -76,13 +79,16 @@ class _Runtime:
         self.cache_chunks = streaming_cache_chunks(cfg.enc_conv_kernel, self.cs,
                                                    cfg.attn_left_chunks)
         self.blank_id = cfg.specials.blank_id
+        self._cache_dtype = getattr(torch, cfg.compute_dtype)
+        self._step_fn = step_fn
+        if step_fn is not None:
+            return
         if modules is None:
             if params is None:
-                raise ValueError("need params or modules")
+                raise ValueError("need params, modules or a step function")
             modules = streaming_modules(cfg, params, device)
         self._encoder, self._head = modules
         self._bm = precision_to_binary_mask(precision, cfg.enc_layers)
-        self._cache_dtype = getattr(torch, cfg.compute_dtype)
 
     def _zero_caches(self, n: int) -> torch.Tensor:
         cfg = self.cfg
@@ -91,6 +97,8 @@ class _Runtime:
 
     @torch.no_grad()  # not inference_mode: open() zeroes a slot's caches in place
     def _step(self, windows, caches, cache_valid, cur_valid):
+        if self._step_fn is not None:
+            return self._step_fn(windows, caches, cache_valid, cur_valid)
         enc, new_caches = self._encoder(windows, caches, cache_valid, cur_valid, self._bm)
         return self._head(enc).to(torch.float32), new_caches
 
@@ -105,11 +113,13 @@ class StreamingSession(_Runtime):
     `causal_conv=True`, `conv_norm="layer_norm"` (the streaming-trained
     configuration). params: the trained model's JAX-layout tree (its
     decoder is ignored), or None when `modules` (from `streaming_modules`)
-    is given. precision: 1 | 2 | 32."""
+    is given. precision: 1 | 2 | 32. `step_fn` (a loaded single-stream
+    artifact, `(window [1, W, F], caches, cache_valid [1], cur_valid [1]) ->
+    (f32 logits, new caches)`) takes the place of params and modules."""
 
     def __init__(self, cfg: ModelConfig, params=None, precision: int = 2,
-                 device: str = "cuda", modules=None):
-        super().__init__(cfg, params, precision, device, modules)
+                 device: str = "cuda", modules=None, step_fn=None):
+        super().__init__(cfg, params, precision, device, modules, step_fn)
         self._caches = self._zero_caches(1)
         self._cache_valid = 0
         self._buf = np.zeros((0, cfg.input_dim), np.float32)
@@ -192,12 +202,17 @@ class StreamingServer(_Runtime):
 
     `max_buffer_frames`: per-slot backpressure bound; `feed` raises
     `BufferOverflow` once a slot would hold more undecoded frames (<= 0
-    selects the default, 64 windows' worth). The slot stays usable."""
+    selects the default, 64 windows' worth). The slot stays usable.
+
+    `batch_step_fn` (a loaded batched artifact of `max_streams` slots,
+    `(windows, caches, cache_valid, cur_valid, active [N] bool) -> (f32
+    logits, new caches)`, inactive slots' caches passed through) takes the
+    place of params and modules."""
 
     def __init__(self, cfg: ModelConfig, params=None, precision: int = 2,
                  max_streams: int = 8, max_buffer_frames: int = 0, device: str = "cuda",
-                 modules=None):
-        super().__init__(cfg, params, precision, device, modules)
+                 modules=None, batch_step_fn=None):
+        super().__init__(cfg, params, precision, device, modules, batch_step_fn)
         self.n = int(max_streams)
         self.max_buffer_frames = (int(max_buffer_frames) if max_buffer_frames > 0
                                   else 64 * self.window_raw)
@@ -286,11 +301,15 @@ class StreamingServer(_Runtime):
                 out[sid] = []
             return out
 
-        logits, new_caches = self._step(self._to_device(windows), self._caches,
-                                        self._to_device(self._cache_valid),
-                                        self._to_device(cur_valid))
-        keep = self._to_device(active)[None, :, None, None]
-        self._caches = torch.where(keep, new_caches, self._caches)
+        args = (self._to_device(windows), self._caches, self._to_device(self._cache_valid),
+                self._to_device(cur_valid))
+        if self._step_fn is not None:  # the artifact keeps inactive caches itself
+            with torch.no_grad():
+                logits, self._caches = self._step_fn(*args, self._to_device(active))
+        else:
+            logits, new_caches = self._step(*args)
+            keep = self._to_device(active)[None, :, None, None]
+            self._caches = torch.where(keep, new_caches, self._caches)
         labels_all = logits.argmax(dim=-1).cpu().numpy()  # [N, cs]
         out = {}
         for sid in range(self.n):

@@ -51,6 +51,25 @@ from onebit_asr_tpu_torch.ops.subsampler import fused_subsample
 NEG_INF = -1e9  # finite mask fill: softmax stays NaN-free even for all-pad rows
 
 
+def mask_shape(binary_mask) -> tuple:
+    """The shape of a layer mask given as a tensor or as a list of bools."""
+    if isinstance(binary_mask, torch.Tensor):
+        return tuple(binary_mask.shape)
+    return (len(binary_mask),)
+
+
+def mask_bits(binary_mask, num_layers: int) -> List:
+    """Per-layer `bits` of the QAT projections from a layer mask ([L] bool
+    tensor or list of bools; None = full precision): 32 for every layer
+    without a mask, else each layer's bool (True = binary). A list is read
+    as it is, so tracing reads no tensor's value."""
+    if binary_mask is None:
+        return [32] * num_layers
+    if isinstance(binary_mask, torch.Tensor):
+        binary_mask = binary_mask.tolist()
+    return [bool(b) for b in binary_mask]
+
+
 def subsampled_length(lengths: torch.Tensor) -> torch.Tensor:
     """Exact output length of two VALID k=3 s=2 convs: ((T-1)//2 - 1)//2,
     at least 1."""
@@ -355,24 +374,30 @@ class Conv2dSubsampling(nn.Module):
         """(w1 [3, 3, C] f32, b1, w2 [9C, C], b2): the JAX kernel layout of
         the conv weights. QAT: w2 in f32, built from the parameters with
         autograd on. Serving: w2 in the compute dtype, cached until the
-        weights change."""
-        w1, w2 = self.conv1.weight, self.conv2.weight
-        C = w2.shape[0]
+        weights change (laid out in the graph while tracing: traced weights
+        have no address to key the cache)."""
         if self.qat:
-            return (w1[:, 0].permute(1, 2, 0), self.conv1.bias,  # OIHW -> [3, 3, C]
-                    w2.permute(2, 3, 1, 0).reshape(9 * C, C), self.conv2.bias)  # -> [9C, C]
+            return self._layout()
+        if torch.compiler.is_compiling():
+            return self._layout(self.compute_dtype)
+        w1, w2 = self.conv1.weight, self.conv2.weight
         key = (w2.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
         if self._fused_operands[0] != key:
             with torch.no_grad():
-                ops = (
-                    w1[:, 0].permute(1, 2, 0).contiguous(),  # OIHW -> [3, 3, C]
-                    self.conv1.bias.detach(),
-                    w2.permute(2, 3, 1, 0).reshape(9 * C, C)  # OIHW -> [9C, C]
-                    .to(self.compute_dtype).contiguous(),
-                    self.conv2.bias.detach(),
-                )
+                ops = tuple(t.detach() for t in self._layout(self.compute_dtype))
             self._fused_operands = (key, ops)
         return self._fused_operands[1]
+
+    def _layout(self, w2_dtype=None):
+        """The conv weights in the kernel layout; with `w2_dtype` (serving)
+        w2 cast to it and both weights contiguous."""
+        w1, w2 = self.conv1.weight, self.conv2.weight
+        C = w2.shape[0]
+        w1k = w1[:, 0].permute(1, 2, 0)  # OIHW -> [3, 3, C]
+        w2k = w2.permute(2, 3, 1, 0).reshape(9 * C, C)  # OIHW -> [9C, C]
+        if w2_dtype is not None:
+            w1k, w2k = w1k.contiguous(), w2k.to(w2_dtype).contiguous()
+        return w1k, self.conv1.bias, w2k, self.conv2.bias
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         if self.fused:
@@ -430,12 +455,13 @@ class ConformerEncoder(nn.Module):
         """feats [B, T, F], feat_lens [B] -> (x [B, T', D], key_mask [B, T']).
 
         `binary_mask` ([L] bool, True = 1-bit layer; None = full precision)
-        sets each QAT block's `bits`. Packed weights already hold their
-        precision, fixed when they were exported (model/packed.py), so in
-        the serving form it selects nothing."""
-        if binary_mask is not None and tuple(binary_mask.shape) != (self.num_layers,):
+        sets each QAT block's `bits`; a list of L bools does the same
+        without a tensor to read (what `torch.export` traces). Packed
+        weights already hold their precision, fixed when they were exported
+        (model/packed.py), so in the serving form it selects nothing."""
+        if binary_mask is not None and mask_shape(binary_mask) != (self.num_layers,):
             raise ValueError(
-                f"binary_mask shape {tuple(binary_mask.shape)} != ({self.num_layers},)"
+                f"binary_mask shape {mask_shape(binary_mask)} != ({self.num_layers},)"
             )
         bits = self.layer_bits(binary_mask)
         x = self.subsample(feats)
@@ -463,6 +489,4 @@ class ConformerEncoder(nn.Module):
         without a mask, else each layer's bool (True = binary)."""
         if not self.qat:
             return [None] * self.num_layers
-        if binary_mask is None:
-            return [32] * self.num_layers
-        return [bool(b) for b in binary_mask.tolist()]
+        return mask_bits(binary_mask, self.num_layers)

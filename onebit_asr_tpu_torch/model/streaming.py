@@ -30,7 +30,7 @@ on the other rows.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +40,7 @@ from onebit_asr_tpu_torch.model.conformer import (
     Conv2dSubsampling,
     Parts,
     chunk_pair_mask,
+    mask_bits,
 )
 from onebit_asr_tpu_torch.model.layers import LayerNorm, rel_positional_encoding
 
@@ -111,15 +112,14 @@ class StreamingEncoderStep(nn.Module):
         cache_valid: torch.Tensor,  # [B] int: valid frames at each cache's tail
         cur_valid: torch.Tensor,  # [B] int: valid frames of this chunk (cs but
         # for a final partial chunk)
-        binary_mask: Optional[torch.Tensor] = None,  # [L] bool; None = full precision
+        binary_mask=None,  # [L] bool tensor or list of bools; None = full precision
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (x [B, cs, D], new caches [L, B, C_len, D])."""
         cs = self.chunk_size
         L, B, C_len, D = caches.shape
         W = C_len + cs
         dev = window_feats.device
-        bits = ([32] * self.num_layers if binary_mask is None
-                else [bool(b) for b in binary_mask.tolist()])
+        bits = mask_bits(binary_mask, self.num_layers)
 
         x = self.subsample(window_feats)  # [B, cs, D]
         pos, pair_mask = self._window_tables(W, dev)

@@ -48,6 +48,14 @@ tensors it launches its kernel (bf16 operands, dh <= 64) or raises; it never
 falls back to the plain version or the unfused chain. The forward counts its
 launches in `fused_relpos_attention.launches`, the backward in
 `fused_relpos_attention_bwd.launches`.
+
+The serving forward (no gradient to take, no row statistics) is also the
+`torch.library` custom op `torch.ops.onebit.fused_relpos_attention`: the
+plain version is its CPU kernel, the launch its CUDA kernel, and a fake
+kernel gives `torch.export` v's shape and dtype. Without a gradient to
+take, `fused_relpos_attention` calls the op, so an exported serving graph
+holds one node per attention. The training forward and the backward stay
+`_RelPosAttention`'s.
 """
 
 from __future__ import annotations
@@ -353,10 +361,28 @@ def fused_relpos_attention(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_ra
     ops = (q, k, v, p, u, vb)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ops):
         return _RelPosAttention.apply(_KERNELS, *ops, key_mask, drop8, scale, dropout_rate)
-    return _fwd(*ops, key_mask, drop8, scale, dropout_rate)
+    return torch.ops.onebit.fused_relpos_attention(*ops, key_mask, drop8, scale, dropout_rate)
 
 
 fused_relpos_attention.launches = 0
+
+
+@torch.library.custom_op("onebit::fused_relpos_attention", mutates_args=(), device_types="cpu")
+def _fused_relpos_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               p: torch.Tensor, u: torch.Tensor, vb: torch.Tensor,
+                               key_mask: torch.Tensor, drop8: torch.Tensor, scale: float,
+                               dropout_rate: float) -> torch.Tensor:
+    return fused_relpos_attention_reference(q, k, v, p, u, vb, key_mask, drop8, scale,
+                                            dropout_rate)
+
+
+_fused_relpos_attention_op.register_kernel("cuda")(_fwd)
+
+
+@_fused_relpos_attention_op.register_fake
+def _(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):
+    _check_operands(q, k, v, p, u, vb, key_mask, drop8, dropout_rate)
+    return torch.empty_like(v, memory_format=torch.contiguous_format)
 
 
 def fused_relpos_attention_plain(q, k, v, p, u, vb, key_mask, drop8, scale, dropout_rate):

@@ -35,6 +35,12 @@ Each wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (bf16 compute dtype, C a multiple of 16) or
 raises; it never falls back to convolutions. The forward counts its launches
 in `fused_subsample.launches`, the backward in `fused_subsample_bwd.launches`.
+
+The forward is also the `torch.library` custom op `torch.ops.onebit.
+fused_subsample`: the plain version is its CPU kernel, the launch its CUDA
+kernel, and a fake kernel gives `torch.export` the [B, T2, F2, C] output in
+the compute dtype. Without a gradient to take, `fused_subsample` calls the
+op; with one, the autograd Function runs as before.
 """
 
 from __future__ import annotations
@@ -345,10 +351,29 @@ def fused_subsample(x, w1, b1, w2, b2, compute_dtype=torch.bfloat16):
     bf16: a caller that passes it so pays no cast per call, and one that
     trains passes it in f32, which the Function casts, so that dw2 comes
     back in f32."""
-    return _FusedSubsample.apply(_KERNELS, x, w1, b1, w2, b2, compute_dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _FusedSubsample.apply(_KERNELS, x, w1, b1, w2, b2, compute_dtype)
+    return torch.ops.onebit.fused_subsample(x, w1, b1, w2, b2, compute_dtype)
 
 
 fused_subsample.launches = 0
+
+
+@torch.library.custom_op("onebit::fused_subsample", mutates_args=(), device_types="cpu")
+def _fused_subsample_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    return fused_subsample_reference(x, w1, b1, w2, b2, compute_dtype)
+
+
+_fused_subsample_op.register_kernel("cuda")(_fwd)
+
+
+@_fused_subsample_op.register_fake
+def _(x, w1, b1, w2, b2, compute_dtype):
+    _check_operands(x, w1, b1, w2, b2)
+    B, T, F = x.shape
+    return x.new_empty((B, out_len(out_len(T)), out_len(out_len(F)), w1.shape[-1]),
+                       dtype=compute_dtype)
 
 
 def fused_subsample_plain(x, w1, b1, w2, b2, compute_dtype=torch.bfloat16):

@@ -21,6 +21,13 @@ tensors it launches the kernel or raises; it never falls back. Any M, N and
 K % 4 == 0 work: the kernels mask ragged edges themselves. Each wrapper
 counts its launches in `<wrapper>.launches`; `launch_plan` reports the tiles
 a launch of a shape takes.
+
+Each wrapper calls its `torch.library` custom op, `torch.ops.onebit.
+ternary_matmul` or `torch.ops.onebit.ternary_matmul_w2a8`: the plain
+version is its CPU kernel, the launch its CUDA kernel, and a fake kernel
+gives `torch.export` the f32 [M, N] output, so an exported graph holds one
+node per product. A launch from a loaded artifact counts in
+`<wrapper>.launches` like any other.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ def unpack_planar(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _check_operands(x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor):
+    if x.device.type not in ("cpu", "cuda"):  # the fake kernel also serves meta tensors
+        raise RuntimeError(f"no kernel for device {x.device}")
     if x.dim() != 2 or packed.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)} and packed {tuple(packed.shape)} must be 2-D")
     if packed.dtype != torch.int8:
@@ -111,14 +120,8 @@ def ternary_matmul_reference(
     return (xb @ w) * alpha.to(torch.float32)
 
 
-def ternary_matmul(
-    x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
-) -> torch.Tensor:
-    """x [M, K] @ (alpha * unpack_planar(packed [K//4, N])) -> f32 [M, N],
-    with x rounded to bf16 and the sum taken in f32."""
-    _check_operands(x, packed, alpha)
-    if x.device.type == "cpu":
-        return ternary_matmul_reference(x, packed, alpha)
+def _launch_bf16(x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The bf16 product's CUDA kernel: one launch, counted."""
     device, stream = _cuda_launch_args(x, packed, alpha)
     M, K = x.shape
     N = packed.shape[1]
@@ -134,6 +137,33 @@ def ternary_matmul(
     _build.check(err, "ternary_matmul_bf16")
     ternary_matmul.launches += 1
     return out
+
+
+@torch.library.custom_op("onebit::ternary_matmul", mutates_args=(), device_types="cpu")
+def _ternary_matmul_op(x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
+                       ) -> torch.Tensor:
+    _check_operands(x, packed, alpha)
+    return ternary_matmul_reference(x, packed, alpha)
+
+
+@_ternary_matmul_op.register_kernel("cuda")
+def _(x, packed, alpha):
+    _check_operands(x, packed, alpha)
+    return _launch_bf16(x, packed, alpha)
+
+
+@_ternary_matmul_op.register_fake
+def _(x, packed, alpha):
+    _check_operands(x, packed, alpha)
+    return x.new_empty((x.shape[0], packed.shape[1]), dtype=torch.float32)
+
+
+def ternary_matmul(
+    x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    """x [M, K] @ (alpha * unpack_planar(packed [K//4, N])) -> f32 [M, N],
+    with x rounded to bf16 and the sum taken in f32."""
+    return torch.ops.onebit.ternary_matmul(x, packed, alpha)
 
 
 ternary_matmul.launches = 0
@@ -167,15 +197,8 @@ def ternary_matmul_w2a8_reference(
     return acc.to(torch.float32) * scale * alpha.to(torch.float32)
 
 
-def ternary_matmul_w2a8(
-    x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
-) -> torch.Tensor:
-    """(per-row int8-rounded x) @ (alpha * unpack_planar(packed)) -> f32.
-    Equal to ternary_matmul_w2a8_reference bit for bit. On CUDA one launch
-    quantizes and multiplies; bf16 and f32 x are read as they are."""
-    _check_operands(x, packed, alpha)
-    if x.device.type == "cpu":
-        return ternary_matmul_w2a8_reference(x, packed, alpha)
+def _launch_w2a8(x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The W2A8 product's CUDA kernel: one launch, counted."""
     device, stream = _cuda_launch_args(x, packed, alpha)
     M, K = x.shape
     N = packed.shape[1]
@@ -193,6 +216,34 @@ def ternary_matmul_w2a8(
     _build.check(err, "ternary_matmul_w2a8")
     ternary_matmul_w2a8.launches += 1
     return out
+
+
+@torch.library.custom_op("onebit::ternary_matmul_w2a8", mutates_args=(), device_types="cpu")
+def _ternary_matmul_w2a8_op(x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
+                            ) -> torch.Tensor:
+    _check_operands(x, packed, alpha)
+    return ternary_matmul_w2a8_reference(x, packed, alpha)
+
+
+@_ternary_matmul_w2a8_op.register_kernel("cuda")
+def _(x, packed, alpha):
+    _check_operands(x, packed, alpha)
+    return _launch_w2a8(x, packed, alpha)
+
+
+@_ternary_matmul_w2a8_op.register_fake
+def _(x, packed, alpha):
+    _check_operands(x, packed, alpha)
+    return x.new_empty((x.shape[0], packed.shape[1]), dtype=torch.float32)
+
+
+def ternary_matmul_w2a8(
+    x: torch.Tensor, packed: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    """(per-row int8-rounded x) @ (alpha * unpack_planar(packed)) -> f32.
+    Equal to ternary_matmul_w2a8_reference bit for bit. On CUDA one launch
+    quantizes and multiplies; bf16 and f32 x are read as they are."""
+    return torch.ops.onebit.ternary_matmul_w2a8(x, packed, alpha)
 
 
 ternary_matmul_w2a8.launches = 0

@@ -183,3 +183,8 @@ def train_config_from_json(s: str) -> TrainConfig:
 
 def config_to_json(cfg: Any) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True)
+
+
+def model_config_from_dict(d: Dict[str, Any]) -> ModelConfig:
+    """A ModelConfig from `dataclasses.asdict` of one (an artifact's meta)."""
+    return _from_dict(ModelConfig, d)

@@ -1072,3 +1072,56 @@ def test_train_step_on_ctc_kernels_matches_plain_ctc(cuda, monkeypatch):
     scale = max(g.abs().max() for g in ref_grads.values())
     for k, g in grads.items():
         assert torch.allclose(g, ref_grads[k], rtol=1e-4, atol=1e-6 * scale), k
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (torch.ops.onebit.*) that the wrappers call and a
+# torch.export artifact calls: the launch, counted in the same place, with
+# nothing of the dispatcher changing a bit; no fallback
+
+OPS = ["ternary_matmul", "ternary_matmul_w2a8", "fused_relpos_attention", "fused_subsample"]
+
+
+def _op_case(name, device):
+    """(the wrapper, the launch the op's CUDA kernel is, its operands at a
+    Conformer-M serving shape, B=8, 16 s)."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    if name.startswith("ternary_matmul"):
+        x, packed, alpha = _case(4096, 256, 1024, seed=5, device=device)
+        if name == "ternary_matmul_w2a8":
+            return tm.ternary_matmul_w2a8, tm._launch_w2a8, (x.float(), packed, alpha)
+        return tm.ternary_matmul, tm._launch_bf16, (x, packed, alpha)
+    if name == "fused_relpos_attention":
+        ops = _attention_operands(8, 4, 512, 64, seed=7, device=device)
+        return fa.fused_relpos_attention, fa._fwd, (*ops, 0.125, 0.0)
+    ops = _subsample_operands(8, 1598, 80, 256, seed=9, device=device)
+    ops[3] = ops[3].to(torch.bfloat16)
+    return ss.fused_subsample, ss._fwd, (*ops, torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_custom_op_launches_the_kernel_and_equals_the_wrapper(cuda, name):
+    wrapper, launch, args = _op_case(name, cuda)
+    before = wrapper.launches
+    out = getattr(torch.ops.onebit, name)(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    refs = (wrapper(*args), launch(*args))  # through the op; the launch without it
+    assert wrapper.launches == before + 3
+    for ref in refs:
+        assert out.dtype == ref.dtype and out.shape == ref.shape and out.device == ref.device
+        assert torch.equal(out, ref)
+
+
+def test_custom_ops_on_the_card_raise_where_the_kernel_does_not_take(cuda):
+    ops = _attention_operands(1, 2, 37, 16, seed=3, device=cuda)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        torch.ops.onebit.fused_relpos_attention(*[t.float() for t in ops[:6]], *ops[6:], 0.25,
+                                                0.0)
+    sub = _subsample_operands(1, 43, 80, 24, seed=3, device=cuda)
+    with pytest.raises(ValueError, match="C % 16"):
+        torch.ops.onebit.fused_subsample(*sub, torch.bfloat16)
+    x, packed, alpha = _case(5, 12, 8, seed=1, device=cuda)
+    with pytest.raises(RuntimeError, match="operand on"):
+        torch.ops.onebit.ternary_matmul(x, packed.cpu(), alpha)

@@ -30,9 +30,10 @@ take the unfused subsampler's row order. Cases and tolerances:
   interleaved feeds; a slot's ids and caches do not depend on its
   neighbours (bit for bit) and an inactive slot's caches stay bit for bit;
 - `BufferOverflow` and `validate_streaming_cfg`'s four messages, as JAX's;
-- the `ServeLoop` protocol as JAX's tests/test_serve.py, `--artifact` exits
-  2, and `python -m onebit_asr_tpu_torch.serve --port 0 --device cpu` in a
-  subprocess gives the in-process loop's finals;
+- the `ServeLoop` protocol as JAX's tests/test_serve.py, `--artifact` on a
+  directory that holds no artifact exits 2 (tests/test_torch_export.py
+  serves a real one), and `python -m onebit_asr_tpu_torch.serve --port 0
+  --device cpu` in a subprocess gives the in-process loop's finals;
 - `evaluate --streaming` on a run the port trained (f32, `--fused_subsampler`)
   prints the lines JAX's decode of the same tree gives.
 """
@@ -347,7 +348,7 @@ def test_protocol_feed_flood_backpressure(params):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--artifact", "srv"], "ROADMAP queue A, item 7"),
+    (["--artifact", "srv"], "no streaming artifact at srv"),
     ([], "need exactly one of --checkpoint / --artifact"),
     (["--artifact", "srv", "--checkpoint", "run"], "need exactly one of"),
 ])
