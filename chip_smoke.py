@@ -6,7 +6,8 @@
 Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
-3-branch QAT train step of the same model and the train CLI, then serves and
+3-branch QAT train step of the same model, its data-parallel and ZeRO-2
+forms over nccl and the train CLI (under torchrun too), then serves and
 evaluates the runs the train CLI wrote, then trains, evaluates and serves on
 a seeded data dir through the real-data path, then under the model options
 (a streaming encoder, a quantized reference decoder, per-channel alpha),
@@ -305,6 +306,29 @@ artifacts and runs them from module.pt2 alone:
    chunk step) from each artifact beside the live forward (CUDA events; in
    (a)-(d) the median of 6 alternating rounds of 3 calls each, with the
    rounds' range of artifact/live ratios).
+
+20. data parallel (run after step 7, before step 8): Conformer-M with both
+   fused flags at dropout 0, B=16, 1,024 frames, U <= 48, over an nccl
+   process group of world 1 made in this process (MASTER_ADDR=127.0.0.1, a
+   free port): 1 + 3 steps each of the one-process step, the data-parallel
+   step (`make_sharded_train_step`) and the ZeRO-2 step
+   (`make_fsdp_train_step`, its state sharded and gathered back), each from
+   a fresh copy of the same state, and the one-process step once more (its
+   run-to-run spread on the card), AdamW at a one-step warm-up (the LR is
+   0 at step 0 and 5e-4 after). Each parallel step's launches of rows 3-8
+   must equal the one-process step's, and its distance to the one-process
+   step stay within DP_TOL, set from that spread (scripts/dp_probe.py):
+   loss and aux terms relative 5e-3, grad_norm relative 3e-2, parameters
+   |p - p_ref| / |p_ref - p_0| <= 0.1 (1 for a step that does not move
+   them), moments |d| / |ref| <= 3e-2 over all leaves; over one rank it is
+   bit-equal when the card repeats the step bit for bit, which the
+   one-process step itself does not always do (PERF.md §6). Each distance,
+   max |d| of loss, grad_norm, parameters and moments, whether they are
+   bit-equal, ms per step (CUDA events over the 3 steps) and peak memory
+   are printed. Then
+   `python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+   onebit_asr_tpu_torch.train --fsdp --dummy_data` at a small width for 2
+   epochs, and its `--resume` to a third; both must exit 0.
 
 `device_ms` opens each profile with 64 short spins of the card: after a
 process's first profiler session, each later session drops its first few
@@ -2043,6 +2067,230 @@ def train_step_phase(cfg, seed, rows, kernels):
             (f"the optimizer update of one {label} (clip + AdamW over every parameter)",
              lambda: optimizer.update(state.params, grads_k, state.mu, state.nu, state.count),
              5)]
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+DP_STEPS = 3
+# step 20's limits on a parallel path's distance to the one-process step:
+# loss and aux terms, max relative |d|; grad_norm, max relative |d|;
+# parameters, |p - p_ref| / |p_ref - p_0| over all leaves (0 when equal, 1
+# for a step that leaves them where they were); moments, |d| / |ref| over
+# all leaves. Set from the card's run-to-run spread of the one-process step,
+# whose largest readings in 13 runs (scripts/dp_probe.py and this step; the
+# parallel paths fell on the same outcomes) were 1.16e-3, 2.66e-3, 1.88e-2
+# and 5.29e-3 (grad_norm 6.54e-3 and moments 9.44e-3 at an LR below 4e-7):
+# each limit is 3-5x that, the parameters' a tenth of a step that does not
+# move them
+DP_TOL = (5e-3, 3e-2, 0.1, 3e-2)
+
+
+def dp_setup(seed):
+    """Step 20's model config (Conformer-M, both fused flags, dropout 0), its
+    random parameters from `seed`, and bench.py's batch."""
+    from onebit_asr_tpu_torch.convert import init_params
+    from onebit_asr_tpu_torch.utils.config import ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig(), dropout=0.0, fused_attention=True,
+                              fused_subsampler=True)
+    return cfg, init_params(cfg, seed), bench_batch(cfg, seed)
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """An nccl process group of this process alone (MASTER_ADDR=127.0.0.1,
+    a free port), and the mesh over it."""
+    import torch.distributed as dist
+
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh
+
+    saved_env = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    dist.init_process_group("nccl", rank=0, world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_mesh()
+        if mesh.group is None or mesh.size != 1:
+            raise AssertionError(f"data parallel: mesh {mesh}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_step(kind, cfg, params, mesh, seed):
+    """A fresh state from `params` and the step of `kind` ("one process",
+    "data parallel" or "zero-2") over `mesh`, with AdamW at a one-step
+    warm-up (the LR is 0 at step 0 and full from step 1 on): (step, state,
+    the full layout's dims or None). Under zero-2 the state is this rank's
+    shard and the model keeps no weights, as in the CLI."""
+    from onebit_asr_tpu_torch.convert import qat_model_from_jax
+    from onebit_asr_tpu_torch.parallel.fsdp import (
+        make_fsdp_train_step,
+        shard_dims,
+        shard_state_fsdp,
+    )
+    from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_train_step
+    from onebit_asr_tpu_torch.train.step import make_sharded_train_step
+    from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
+
+    model = qat_model_from_jax(cfg, params, device=DEVICE)
+    state = create_train_state(model, seed)
+    optimizer = AdamW(OptimConfig(warmup_steps=1), 100_000)
+    args = (model, optimizer, LossConfig(), SpecialTokens(), cfg.enc_layers)
+    if kind == "one process":
+        return make_train_step(*args), state, None
+    if kind == "data parallel":
+        return make_sharded_train_step(*args, mesh), state, None
+    step = make_fsdp_train_step(*args, mesh, state)
+    dims = shard_dims(state.params, mesh.size)
+    state = shard_state_fsdp(state, mesh)
+    for p in model.parameters():  # as the CLI does: the step passes params in
+        p.data = p.data.new_empty(0)
+    return step, state, dims
+
+
+def dp_run(kind, cfg, params, batch, mesh, kernels, seed):
+    """1 + DP_STEPS steps of `kind` (`dp_step`) on `batch`: each step's aux,
+    the launches and the ms per step (CUDA events) of the last DP_STEPS, the
+    peak memory over them, the parameters before the first step (None
+    under zero-2) and the full parameters and moments after the last, on
+    the host."""
+    from onebit_asr_tpu_torch.parallel.fsdp import gather_state_fsdp
+    from onebit_asr_tpu_torch.parallel.mesh import shard_batch
+
+    base = torch.cuda.memory_allocated()
+    step, state, dims = dp_step(kind, cfg, params, mesh, seed)
+    start_params = (None if dims is not None else
+                    {k: v.detach().to("cpu", copy=True) for k, v in state.params.items()})
+    local = shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, aux = step(state, local)  # warm-up
+    auxes = [aux]
+    _reset(kernels)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(DP_STEPS):
+        state, aux = step(state, local)
+        auxes.append(aux)
+    end.record()
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    if dims is not None:
+        state = gather_state_fsdp(state, mesh, dims)
+    run = dict(aux=[{k: float(v) for k, v in a.items()} for a in auxes], counts=counts,
+               ms=start.elapsed_time(end) / DP_STEPS,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, start=start_params,
+               **{part: {k: v.detach().cpu() for k, v in getattr(state, part).items()}
+                  for part in ("params", "mu", "nu")})
+    del step, state, local, auxes, aux
+    torch.cuda.empty_cache()
+    return run
+
+
+def dp_distance(run, ref):
+    """`run`'s distances to `ref` in DP_TOL's order, whether it is
+    bit-equal, and a line of them beside max |d| of each part."""
+    pairs = list(zip(run["aux"], ref["aux"]))
+    d_aux = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in pairs for k in b
+                if k != "grad_norm" and b[k])
+    d_norm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"] for a, b in pairs)
+
+    def norm(tensors):
+        return sum(float(t.double().square().sum()) for t in tensors) ** 0.5
+
+    update = norm(v - ref["start"][k] for k, v in ref["params"].items())
+    d_params = norm(run["params"][k] - v for k, v in ref["params"].items()) / update
+    d_mom = max(norm(run[part][k] - v for k, v in ref[part].items()) / norm(ref[part].values())
+                for part in ("mu", "nu"))
+    bit_equal = run["aux"] == ref["aux"] and all(
+        torch.equal(run[part][k], v) for part in ("params", "mu", "nu")
+        for k, v in ref[part].items())
+    abs_d = {"loss": max(abs(a["loss"] - b["loss"]) for a, b in pairs),
+             "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"]) for a, b in pairs),
+             **{part: max(float((run[part][k] - v).abs().max())
+                          for k, v in ref[part].items()) for part in ("params", "mu", "nu")}}
+    text = (f"max |d| {' '.join(f'{k}={v:.3g}' for k, v in abs_d.items())}; loss/aux max "
+            f"relative |d|={d_aux:.3g} grad_norm {d_norm:.3g} params |d|/|update| "
+            f"{d_params:.3g} (|update|={update:.4g}) moments |d|/|ref| {d_mom:.3g} "
+            f"bit_equal={bit_equal} losses={[round(a['loss'], 6) for a in run['aux']]}")
+    return (d_aux, d_norm, d_params, d_mom), bit_equal, text
+
+
+def data_parallel_phase(kernels, seed, smi):
+    """Step 20: the data-parallel and ZeRO-2 steps over an nccl world of 1
+    against the one-process step, then the train CLI under torchrun with
+    --fsdp and its --resume."""
+    t_phase = time.perf_counter()
+    cfg, params, batch = dp_setup(seed)
+    with nccl_world_of_one() as mesh:
+        runs = {kind: dp_run(kind.replace(" again", ""), cfg, params, batch, mesh, kernels,
+                             seed)
+                for kind in ("one process", "one process again", "data parallel", "zero-2")}
+    ref = runs["one process"]
+    per_step = {"ctc_alpha": 1, "ctc_beta": 1, "fused_relpos_attention": 3 * cfg.enc_layers,
+                "fused_relpos_attention_bwd": 3 * cfg.enc_layers, "fused_subsample": 3,
+                "fused_subsample_bwd": 3}
+    want = {k: DP_STEPS * n for k, n in per_step.items()}
+    log(f"data parallel: one process: Conformer-M both fused flags, dropout 0, B=16, T=1024, "
+        f"U<=48: ms_per_step={ref['ms']:.2f} peak_mem_gb={ref['peak_gb']:.3f} "
+        f"launches={ref['counts']} [{smi}]")
+    if ref["counts"] != want:
+        raise AssertionError(f"data parallel: one-process launches {ref['counts']}, want {want}")
+    _, _, text = dp_distance(runs["one process again"], ref)
+    log(f"data parallel: one process vs itself (run to run): {text}")
+    for kind in ("data parallel", "zero-2"):
+        run = runs[kind]
+        dist_, _, text = dp_distance(run, ref)
+        log(f"data parallel: {kind} (nccl, world 1): ms_per_step={run['ms']:.2f} "
+            f"peak_mem_gb={run['peak_gb']:.3f} launches={run['counts']} vs one process: {text}")
+        if run["counts"] != ref["counts"]:
+            raise AssertionError(f"data parallel: {kind} launches {run['counts']}, "
+                                 f"one process {ref['counts']}")
+        if any(d > t for d, t in zip(dist_, DP_TOL)):
+            raise AssertionError(f"data parallel: {kind} strays from the one-process step: "
+                                 f"{dist_} beyond {DP_TOL}")
+    del runs, ref
+
+    # the CLI under torchrun: --fsdp for 2 epochs, then --resume to a third
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "onebit_asr_tpu_torch",
+                                                      "_build")) as root:
+        argv = ["--fsdp", "--dummy_data", "--steps_per_epoch", "2", "--batch_size", "4",
+                "--eval_batches", "1", "--dummy_frames", "160", "--enc_layers", "2",
+                "--enc_d_model", "64", "--enc_heads", "2", "--enc_d_ff", "128",
+                "--enc_conv_kernel", "7", "--dec_layers", "1", "--dec_d_ff", "64",
+                "--save_dir", root, "--run_name", "fsdp", "--device", DEVICE]
+        for epochs, extra in ((2, []), (3, ["--resume"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "1", "-m", "onebit_asr_tpu_torch.train", *argv,
+                 "--epochs", str(epochs), *extra],
+                cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, capture_output=True, text=True,
+                timeout=300)
+            for line in proc.stdout.splitlines():
+                log(f"torchrun --fsdp{' --resume' if extra else ''}: {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun --fsdp {' '.join(extra)}: rc={proc.returncode} "
+                                     f"{proc.stderr[-2000:]}")
+            ckpt = os.path.join(root, "fsdp", "ckpt", f"step_{2 * epochs}.pt")
+            if not os.path.exists(ckpt) or (extra and "resumed at step 4 (epoch 2)"
+                                            not in proc.stdout):
+                raise AssertionError(f"torchrun --fsdp {' '.join(extra)}: no {ckpt} or no resume")
+            log(f"torchrun --fsdp{' --resume' if extra else ''}: rc=0 wall_s="
+                f"{time.perf_counter() - t0:.2f} ({epochs} epochs, step_{2 * epochs}.pt)")
+    log(f"data parallel: step 20 in {time.perf_counter() - t_phase:.2f} s")
 
 
 def train_cli_phase(kernels, root):
@@ -3985,6 +4233,9 @@ def main(argv=None) -> int:
                                      rows, kernels)
     build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
+    data_parallel_phase(kernels, args.seed, smi)  # times steps: before any profiler run
+    log("data parallel: the data-parallel and ZeRO-2 steps over nccl ran rows 3-8 as the "
+        "one-process step does and matched it; torchrun --fsdp trained and resumed")
     with tempfile.TemporaryDirectory(dir=build_root) as runs:
         train_cli_phase(kernels, runs)
         log("train: the QAT step and the train CLI ran on the CTC kernels, under "

@@ -16,7 +16,9 @@ Examples:
         --features feats.npz
 
 Every subcommand runs on the card unless `--device cpu` (an artifact runs on
-the device it was exported for).
+the device it was exported for). `offline --packed` under
+ONEBIT_PACKED_INT8_ACT=1 (the JAX package's switch) exports the W2A8
+kernel, as `--int8_act` does.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ def _platforms(args):
 
 def _cmd_offline(args) -> int:
     from onebit_asr_tpu_torch.export import artifact_meta, export_offline, save_artifact
+    from onebit_asr_tpu_torch.ops.ternary_matmul import int8_act_enabled
 
     cfg, params = _restore(args.checkpoint)
     batch = None if args.symbolic_batch else args.batch
@@ -62,17 +65,19 @@ def _cmd_offline(args) -> int:
             print(f"baking n-gram LM tables from {args.lm} into the artifact")
         decode_kwargs = dict(beam_size=args.beam_size, lm=lm, lm_weight=args.lm_weight,
                              length_bonus=args.length_bonus)
+    # JAX's switch routes the packed path to W2A8 (ops/ternary_matmul.py)
+    int8_act = args.int8_act or (args.packed and int8_act_enabled())
     t0 = time.perf_counter()
     exported = export_offline(
         cfg.model, params, args.precision, args.frames, batch, packed=args.packed,
         emit=args.emit, platforms=_platforms(args), device=args.device,
-        int8_act=args.int8_act, **decode_kwargs,
+        int8_act=int8_act, **decode_kwargs,
     )
     meta = artifact_meta(
         cfg.model, args.precision, "offline", emit=args.emit, packed=args.packed,
         extra={"num_frames": args.frames,
                "batch_size": batch if batch is not None else "symbolic",
-               "int8_act": args.int8_act,
+               "int8_act": int8_act,
                **({"beam_size": args.beam_size, "lm": bool(args.lm),
                    "lm_weight": args.lm_weight, "length_bonus": args.length_bonus}
                   if args.emit == "beam" else {})},

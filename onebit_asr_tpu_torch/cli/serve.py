@@ -22,9 +22,10 @@ trained (`--checkpoint`: config.json + ckpt/), streaming-trained
 `--conv_norm layer_norm`), served unpacked at `--precision`. `--artifact`
 serves a batched streaming artifact instead (`python -m
 onebit_asr_tpu_torch.cli.export streaming --n_streams N`): its step, its N
-slots, its precision and its device come from the artifact (`--precision`,
-`--max_streams` and `--device` beside it are refused), and `feed_wav`
-takes the default frontend (with `--data_dir`, that dir's tokenizer and
+slots, its precision and its device come from the artifact (as in JAX,
+`--precision` and `--max_streams` beside it are accepted and the
+artifact's values taken, with a note on stderr when they differ;
+`--device` is refused), and `feed_wav` takes the default frontend (with `--data_dir`, that dir's tokenizer and
 cmvn_stats.npz).
 
 Run:  python -m onebit_asr_tpu_torch.serve --checkpoint runs/stream --port 7600
@@ -49,12 +50,12 @@ def build_argparser():
                    help="run dir (config.json + ckpt/), streaming-trained")
     p.add_argument("--artifact", default="",
                    help="an exported batched streaming artifact (cli.export streaming "
-                        "--n_streams N); sets the slots, precision and device")
+                        "--n_streams N); its values override --max_streams/--precision")
     p.add_argument("--precision", type=int, default=None, choices=(32, 2, 1),
-                   help="with --checkpoint (default 2); an artifact has its own")
+                   help="with --checkpoint (default 2); an artifact's own overrides it")
     p.add_argument("--max_streams", type=int, default=None,
                    help="concurrent stream slots (one batched step serves all ready slots); "
-                        "with --checkpoint (default 8), an artifact has its own")
+                        "with --checkpoint (default 8), an artifact's own overrides it")
     p.add_argument("--port", type=int, default=0,
                    help="TCP port to listen on (localhost); 0 = stdio")
     p.add_argument("--data_dir", default="",
@@ -169,15 +170,18 @@ def build_loop(args):
 
         if not os.path.isfile(os.path.join(args.artifact, "meta.json")):
             return None, f"no streaming artifact at {args.artifact} (module.pt2 + meta.json)"
-        given = [f"--{k}" for k in ("precision", "max_streams", "device")
-                 if getattr(args, k) is not None]
-        if given:
-            return None, (f"{', '.join(given)}: the artifact fixes its precision, slots and "
-                          "device (set them when exporting it)")
+        if args.device is not None:
+            return None, "--device: the artifact fixes its device (set it when exporting it)"
         try:
             server = streaming_server_from_artifact(args.artifact)
         except ValueError as e:
             return None, str(e)
+        with open(os.path.join(args.artifact, "meta.json")) as f:
+            fixed = {"precision": json.load(f)["precision"], "max_streams": server.n}
+        for k, v in fixed.items():
+            if getattr(args, k) not in (None, v):
+                print(f"note: --{k} {getattr(args, k)} is the artifact's {v} (fixed when it "
+                      "was exported)", file=sys.stderr)
         # frontend defaults for the feed_wav helper; no checkpoint config
         cfg = TrainConfig(model=server.cfg, frontend=FrontendConfig())
         device = str(server.device)

@@ -39,6 +39,27 @@ single step; not with `--fp32_control`: exit 1); `--profile_dir` writes a
 torch.profiler Chrome trace of this run's first epoch. Each epoch logs
 `host_rss_gb` after giving glibc's retained heap pages back.
 
+Data parallelism, as the JAX CLI trains over every device: under
+`python -m torch.distributed.run --nproc_per_node N -m
+onebit_asr_tpu_torch.train ...` (WORLD_SIZE set) each rank joins one
+process group (nccl on `cuda:LOCAL_RANK`, gloo with `--device cpu`), and the
+largest rank count that divides `--batch_size` trains; the others print the
+same "using n/N ranks" line and leave with 0. Every rank draws the same
+global batch from the seed and keeps its rows before featurizing them;
+each runs the step on its rows (sync-BN, global-batch losses, averaged
+gradients: `train/step.py::make_sharded_train_step`), so at dropout 0 a step
+equals the one-process step on the whole batch. `--fsdp` shards the
+parameters and both AdamW moments over the ranks instead (ZeRO-2:
+`parallel/fsdp.py::make_fsdp_train_step`; not with `--fp32_control`: exit
+1); without torchrun it runs on one rank. `--multistep` needs one rank and
+no `--fsdp` (exit 1). Only rank 0 logs, writes `metrics.jsonl` and the
+checkpoints (the full state, in a one-process run's format, under `--fsdp`
+too) and evaluates, on the full parameters over whole eval batches; the
+others wait on a gloo group of their own, whose limit (`EVAL_WAIT`) covers a
+whole dev split, while a collective of the step fails after
+`--dist_timeout` seconds. `--resume` restores the full state, then shards it.
+`utt_per_sec` counts the utterances of all ranks.
+
 The model options are JAX's too: `--quant_per_channel` (an alpha per output
 channel), `--quant_decoder` (the decoder's projections quantized at each
 branch's base precision), `--reference_decoder` (position-blind, post-LN
@@ -49,7 +70,7 @@ layer_norm` the streaming-trained encoder). The run's `config.json` carries
 them, and the evaluate and transcribe CLIs read them back.
 
 Not ported yet, and refused with exit code 2 and a message naming what is
-missing: `--fsdp`, `--tensor_parallel`, `--pipeline_stages`, `--wandb`.
+missing: `--tensor_parallel`, `--pipeline_stages`, `--wandb`.
 Flags of the JAX CLI that have no counterpart here (its memory and compile
 knobs `--no_remat`, `--remat_policy`, `--scan_unroll`) are accepted and
 change nothing.
@@ -59,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
 import itertools
 import os
 import sys
@@ -66,6 +88,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -135,14 +158,22 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--fp32_control", action="store_true")
     p.add_argument("--prefetch_depth", type=int, default=4)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist_timeout", type=float, default=600.0,
+                   help="under torchrun: seconds a collective of the step waits for the "
+                        "other ranks")
     return p
+
+
+# under torchrun, how long the other ranks wait while rank 0 evaluates and
+# saves (a whole dev split at three precisions, the device beam too); if
+# rank 0 fails, torchrun stops them sooner
+EVAL_WAIT = datetime.timedelta(hours=24)
 
 
 def refusal(args) -> str:
     """What of `args` this package does not implement yet, or ""."""
     later = "not ported yet (later slice)"
     checks = [
-        (args.fsdp, f"--fsdp: {later}"),
         (args.tensor_parallel > 1, f"--tensor_parallel: {later}"),
         (args.pipeline_stages > 1, f"--pipeline_stages: {later}"),
         (args.wandb, f"--wandb: {later}"),
@@ -156,10 +187,62 @@ def main(argv=None) -> int:
     if why:
         print(f"FATAL: {why}", file=sys.stderr)
         return 2
-    if args.multistep > 1 and args.fp32_control:
+    if args.fsdp and args.fp32_control:
+        print("FATAL: --fsdp does not compose with --fp32_control "
+              "(the control run is a single-branch diagnostic)")
+        return 1
+    if args.multistep > 1 and (args.fp32_control or args.fsdp):
         print("FATAL: --multistep composes only with the plain QAT path "
               "(not fsdp/tp/pp/fp32_control)")
         return 1
+    device = torch.device(args.device)
+    distributed = "WORLD_SIZE" in os.environ
+    if distributed:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                timeout=datetime.timedelta(seconds=args.dist_timeout))
+    try:
+        return _train(args, device, distributed)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, distributed: bool) -> int:
+    from onebit_asr_tpu_torch.parallel.mesh import (
+        local_rows,
+        make_mesh,
+        replicate,
+        shard_batch,
+        world,
+    )
+
+    # the largest rank count that divides the batch trains, as JAX's CLI
+    # takes the largest device count (cli/train.py:469-475)
+    _, n_world = world()
+    n = n_world
+    while args.batch_size % n:
+        n -= 1
+    mesh = make_mesh(ranks=range(n))
+    # the end of an epoch's wait, on a group whose limit is not the step's
+    wait_group = (dist.new_group(list(mesh.ranks), timeout=EVAL_WAIT, backend="gloo")
+                  if distributed else None)
+    if n < n_world:
+        print(f"using {n}/{n_world} ranks (batch divisibility)")
+    if not mesh.member:
+        return 0
+    if args.multistep > 1 and mesh.size > 1:
+        print("FATAL: --multistep is the single-chip dispatch-amortization knob; "
+              "use data parallelism on multi-chip")
+        return 1
+    main_rank = mesh.index("data") == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    # under --fsdp each rank's rows stay contiguous and the step splits them;
+    # the data-parallel step's micro-batch i spans every rank's i-th part
+    micro = 1 if args.fsdp else args.grad_accum
+
     from onebit_asr_tpu_torch.utils.profiling import debug_nans, host_rss_gb, malloc_trim, trace
 
     if args.debug_nans:
@@ -174,6 +257,7 @@ def main(argv=None) -> int:
         create_train_state,
         make_fp32_train_step,
         make_multi_train_step,
+        make_sharded_train_step,
         make_train_step,
         stack_batches,
     )
@@ -200,6 +284,9 @@ def main(argv=None) -> int:
         first_epoch = list(dm.train_batches(0))
         get_train = lambda epoch: first_epoch  # noqa: E731
         get_valid = dm.valid_batches
+        # this rank's rows, kept on the host
+        to_device = lambda b: batch_to_device(  # noqa: E731
+            shard_batch(b, mesh, micro=micro), device)
     else:
         from onebit_asr_tpu_torch.data.librispeech import LibriSpeechDataModule
         from onebit_asr_tpu_torch.data.text import AsrTokenizer
@@ -217,9 +304,14 @@ def main(argv=None) -> int:
             seed=args.seed,
             frontend_cfg=FrontendConfig(time_mask_ratio=args.time_mask_ratio,
                                         spec_augment=not args.no_spec_augment),
-            device=args.device)
-        get_train = lambda epoch: dm.featurized_batches("train", epoch, augment=True)  # noqa: E731
+            device=device)
+        # the data module keeps this rank's rows before featurizing them
+        rows = None if mesh.size == 1 else (
+            lambda B: local_rows(B, mesh.index("data"), mesh.size, micro))
+        get_train = lambda epoch: dm.featurized_batches(  # noqa: E731
+            "train", epoch, augment=True, rows=rows)
         get_valid = lambda: dm.featurized_batches("dev", augment=False)  # noqa: E731
+        to_device = lambda b: batch_to_device(b, device)  # noqa: E731
     vocab_size = dm.vocab_size()
     if args.preset:
         from onebit_asr_tpu_torch.model.presets import PRESETS
@@ -264,38 +356,68 @@ def main(argv=None) -> int:
     )
     run_name = args.run_name or f"run-{int(time.time())}"
     run_dir = os.path.join(args.save_dir, run_name)
-    os.makedirs(run_dir, exist_ok=True)
-    save_config(run_dir, train_cfg)
-    logger = MetricsLogger(run_dir)
+    if main_rank:
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(run_dir, train_cfg)
+        logger = MetricsLogger(run_dir)
 
-    device = torch.device(args.device)
     t0 = time.time()
     model = qat_model_from_jax(model_cfg, init_params(model_cfg, args.seed), device=str(device))
     state = create_train_state(model, args.seed)
-    print(f"model: {param_count(state.params) / 1e6:.2f}M params, vocab {vocab_size}, "
-          f"init {time.time() - t0:.1f}s, device {device}")
+    say(f"model: {param_count(state.params) / 1e6:.2f}M params, vocab {vocab_size}, "
+        f"init {time.time() - t0:.1f}s, device {device}"
+        + (f", ranks {mesh.size}" if distributed else ""))
     if not args.dummy_data and args.time_mask_ratio != 1.0:
-        print(f"SpecAugment time masks capped at {args.time_mask_ratio}x utterance length "
-              "(reference parity needs --time_mask_ratio 1.0)")
+        say(f"SpecAugment time masks capped at {args.time_mask_ratio}x utterance length "
+            "(reference parity needs --time_mask_ratio 1.0)")
     if args.summary:
         for name, module in model.named_children():
-            n = sum(p.numel() for p in module.parameters())
-            print(f"  {name:12s} {n:>12,d}")
+            n_params = sum(p.numel() for p in module.parameters())
+            say(f"  {name:12s} {n_params:>12,d}")
 
-    ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
-    ckpt_best = CheckpointManager(os.path.join(run_dir, "ckpt_best"), max_to_keep=1)
-    start_epoch = 0
-    if args.resume and ckpt.latest_step() is not None:
-        ckpt.restore(state)
-        start_epoch = state.step // steps_per_epoch
-        print(f"resumed at step {state.step} (epoch {start_epoch})")
+    if main_rank:
+        ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+        ckpt_best = CheckpointManager(os.path.join(run_dir, "ckpt_best"), max_to_keep=1)
+        if args.resume and ckpt.latest_step() is not None:
+            ckpt.restore(state)
+    replicate(state, mesh)  # rank 0's state, restored or fresh, on every rank
+    start_epoch = state.step // steps_per_epoch
+    if state.step:
+        say(f"resumed at step {state.step} (epoch {start_epoch})")
 
     optimizer = AdamW(optim_cfg, total_steps)
-    make_step = make_fp32_train_step if args.fp32_control else make_train_step
-    step_fn = make_step(model, optimizer, loss_cfg, specials, args.enc_layers,
-                        grad_accum=args.grad_accum)
+    dims = None
+    if args.fsdp:
+        from onebit_asr_tpu_torch.parallel.fsdp import (
+            gather_state_fsdp,
+            make_fsdp_train_step,
+            shard_dims,
+            shard_state_fsdp,
+        )
+
+        # ZeRO-2: params + AdamW moments stored sharded, weights all-gathered
+        # at use, gradients reduce-scattered, the clip on the global norm
+        step_fn = make_fsdp_train_step(model, optimizer, loss_cfg, specials, args.enc_layers,
+                                       mesh, state, grad_accum=args.grad_accum)
+        dims = shard_dims(state.params, mesh.size)
+        state = shard_state_fsdp(state, mesh)
+        for p in model.parameters():  # the step and evaluation pass params in
+            p.data = p.data.new_empty(0)
+        say(f"FSDP/ZeRO-2: params + moments sharded over {mesh.size} ranks, gradients "
+            "reduce-scattered")
+    elif distributed:
+        if args.fp32_control:
+            step_fn = make_fp32_train_step(model, optimizer, loss_cfg, specials,
+                                           args.enc_layers, args.grad_accum, mesh)
+        else:
+            step_fn = make_sharded_train_step(model, optimizer, loss_cfg, specials,
+                                              args.enc_layers, mesh, grad_accum=args.grad_accum)
+    else:
+        make_step = make_fp32_train_step if args.fp32_control else make_train_step
+        step_fn = make_step(model, optimizer, loss_cfg, specials, args.enc_layers,
+                            grad_accum=args.grad_accum)
     if args.fp32_control:
-        print("fp32 control: single full-precision branch, no QAT")
+        say("fp32 control: single full-precision branch, no QAT")
     multi_step_fn = None
     if args.multistep > 1:
         multi_step_fn = make_multi_train_step(model, optimizer, loss_cfg, specials,
@@ -318,31 +440,11 @@ def main(argv=None) -> int:
             yield from bs
 
     best_val = float("inf")
-    for epoch in range(start_epoch, args.epochs):
-        t_ep = time.time()
-        losses, n_utts = [], 0
-        pf_stats: dict = {}
-        batches = itertools.islice(get_train(epoch), args.steps_per_epoch or None)
-        if multi_step_fn is not None:
-            batches = group_multistep(batches, args.multistep)
-        profiling = (trace(args.profile_dir) if args.profile_dir and epoch == start_epoch
-                     else contextlib.nullcontext())
-        with profiling:
-            for batch in prefetch(batches, transfer=lambda b: batch_to_device(b, device),
-                                  depth=args.prefetch_depth, stats=pf_stats):
-                if batch["feats"].ndim == 4:  # [K, B, T, F]
-                    state, aux = multi_step_fn(state, batch)
-                else:
-                    state, aux = step_fn(state, batch)
-                losses.append(aux["loss"])
-                n_utts += int(np.prod(batch["tokens"].shape[:-1]))
-        if args.profile_dir and epoch == start_epoch:
-            print(f"profile of epoch {epoch}: {os.path.join(args.profile_dir, 'trace.json')}")
-        train_loss = float(np.mean([float(l) for l in losses]))
-        dt = time.time() - t_ep
-        if not np.isfinite(train_loss):
-            print(f"FATAL: non-finite train loss at epoch {epoch}")
-            return 1
+
+    def end_of_epoch(epoch, state, train_loss, dt, n_utts, pf_stats):
+        """Rank 0's end of an epoch on the full state: metrics, evaluation
+        over whole eval batches, the log line, the checkpoints."""
+        nonlocal best_val
         # give retained heap pages back, so that host_rss_gb reads the live set
         malloc_trim()
         metrics = {
@@ -373,7 +475,44 @@ def main(argv=None) -> int:
         if val_loss < best_val:
             best_val = val_loss
             ckpt_best.save(state, metrics={"val_loss": best_val})
-    logger.close()
+
+    for epoch in range(start_epoch, args.epochs):
+        t_ep = time.time()
+        losses, n_utts = [], 0
+        pf_stats: dict = {}
+        batches = itertools.islice(get_train(epoch), args.steps_per_epoch or None)
+        if multi_step_fn is not None:
+            batches = group_multistep(batches, args.multistep)
+        profiling = (trace(args.profile_dir)
+                     if args.profile_dir and epoch == start_epoch and main_rank
+                     else contextlib.nullcontext())
+        with profiling:
+            for batch in prefetch(batches, transfer=to_device, depth=args.prefetch_depth,
+                                  stats=pf_stats):
+                if batch["feats"].ndim == 4:  # [K, B, T, F]
+                    state, aux = multi_step_fn(state, batch)
+                else:
+                    state, aux = step_fn(state, batch)
+                losses.append(aux["loss"])
+                # the rows of every rank
+                n_utts += int(np.prod(batch["tokens"].shape[:-1])) * mesh.size
+        if args.profile_dir and epoch == start_epoch:
+            say(f"profile of epoch {epoch}: {os.path.join(args.profile_dir, 'trace.json')}")
+        # the global loss, the same on every rank
+        train_loss = float(np.mean([float(l) for l in losses]))
+        dt = time.time() - t_ep
+        if not np.isfinite(train_loss):
+            print(f"FATAL: non-finite train loss at epoch {epoch}")
+            return 1
+        # under --fsdp every rank takes part in putting the full state together
+        full = gather_state_fsdp(state, mesh, dims) if args.fsdp else state
+        if main_rank:
+            end_of_epoch(epoch, full, train_loss, dt, n_utts, pf_stats)
+        del full
+        if wait_group is not None:
+            dist.barrier(group=wait_group)
+    if main_rank:
+        logger.close()
     if not args.dummy_data:
         dm.close()
     return 0

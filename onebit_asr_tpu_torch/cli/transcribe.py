@@ -17,7 +17,8 @@ Without `--packed` the run is served unpacked, as JAX does by default: the
 QAT model in eval mode, no dropout, at precision 32, 2 or 1. `--packed`
 serves planar-packed 2-bit weights through the packed-ternary kernels, at
 precision 2 or 1, and `--int8_act` (which needs `--packed`) through the
-W2A8 kernel. A config with `fused_subsampler` runs the fused subsampler
+W2A8 kernel; under `--packed`, ONEBIT_PACKED_INT8_ACT=1 in the environment
+(the JAX package's switch) does the same, and without it is ignored. A config with `fused_subsampler` runs the fused subsampler
 kernel, one with `fused_attention` the fused rel-pos attention kernel, in
 either form; `--no_fused_kernels` clears both flags. A run of any model
 option is served as it trained (a chunked-attention encoder offline with
@@ -61,6 +62,7 @@ from onebit_asr_tpu_torch.decode.greedy import greedy_ctc_decode
 from onebit_asr_tpu_torch.decode.longform import longform_logits
 from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
 from onebit_asr_tpu_torch.ops.frontend import LogMelFrontend, apply_cmvn, resample_linear
+from onebit_asr_tpu_torch.ops.ternary_matmul import int8_act_enabled
 from onebit_asr_tpu_torch.utils.checkpoint import load_config, restore_params
 from onebit_asr_tpu_torch.utils.config import TrainConfig, train_config_from_json
 
@@ -365,7 +367,9 @@ def main(argv=None) -> int:
         from onebit_asr_tpu_torch.decode.lm_device import DeviceLM
 
         lm = DeviceLM.pack(NGramLM.load(args.lm), args.device)
-    t = Transcriber(cfg, params, args.precision, args.int8_act, cmvn, args.device,
+    # JAX's switch routes the packed path to W2A8 (ops/ternary_matmul.py)
+    int8_act = args.int8_act or (args.packed and int8_act_enabled())
+    t = Transcriber(cfg, params, args.precision, int8_act, cmvn, args.device,
                     packed=args.packed, beam_size=args.beam_size, lm=lm,
                     lm_weight=args.lm_weight, length_bonus=args.length_bonus)
     batches = (dm.wav_batches(args.split, shuffle=False, batch_size=args.batch_size)

@@ -26,7 +26,7 @@ ONEBIT_F32_FEATS=1 ships cached features as float32 instead of float16.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -151,13 +151,27 @@ class LibriSpeechDataModule:
                    "token_lens": token_lens, "utt_ids": utt_ids}
 
     def _augment(self, feats: torch.Tensor, feat_lens: np.ndarray,
-                 rng: np.random.Generator) -> torch.Tensor:
-        """SpecAugment of a batch on its device, starts drawn from `rng`."""
+                 rng: np.random.Generator, keep: Optional[np.ndarray] = None) -> torch.Tensor:
+        """SpecAugment of a batch on its device, starts drawn from `rng`
+        for all rows of the batch (`feat_lens`); `feats` holds the rows
+        `keep` of it (all rows when None)."""
         fcfg = self.frontend.cfg
         starts = draw_starts(rng, feat_lens, feats.shape[-1], fcfg)
+        if keep is not None:
+            starts, feat_lens = starts[keep], np.asarray(feat_lens)[keep]
         return spec_augment_from_config(
             feats, torch.from_numpy(np.asarray(feat_lens)).to(feats.device),
             torch.from_numpy(starts).to(feats.device), fcfg)
+
+    @staticmethod
+    def _keep(batch: Dict, rows) -> Tuple[Dict, Optional[np.ndarray]]:
+        """(the rows `rows(B)` of a host batch, those row indices), or the
+        batch and None without `rows`."""
+        if rows is None:
+            return batch, None
+        keep = np.asarray(rows(len(batch["token_lens"])))
+        return {k: [v[int(i)] for i in keep] if isinstance(v, list) else v[keep]
+                for k, v in batch.items()}, keep
 
     def featurized_batches(
         self,
@@ -165,11 +179,19 @@ class LibriSpeechDataModule:
         epoch: int = 0,
         augment: bool = False,
         batch_size: Optional[int] = None,
+        rows: Optional[Callable[[int], np.ndarray]] = None,
     ) -> Iterator[Dict]:
         """Batches with the training contract: feats [B, T, F] and feat_lens
         [B] int32 on the device, tokens [B, U] and token_lens [B] int32 on
         the host. With `augment`, SpecAugment (if the frontend config enables
         it) and dither (if its amplitude is > 0) from per-batch draws.
+
+        `rows` (a data-parallel rank's `B -> row indices`, see
+        parallel/mesh.py::local_rows) keeps those rows of each batch on the
+        host, before the device computes anything of it: the padded length
+        stays the whole batch's, and SpecAugment's starts are drawn for the
+        whole batch, then sliced, so the rows equal the one-process batch's
+        (dither, if on, draws noise of the kept rows' shape).
 
         If the manifest carries a feature cache for every row, batches come
         from it (float16, see `_cached_feature_batches`) and the frontend
@@ -177,10 +199,11 @@ class LibriSpeechDataModule:
         utts = self._manifests[split]
         if utts and all(u.feat_shard for u in utts) and not os.environ.get(
                 "ONEBIT_NO_FEATURE_CACHE"):
-            yield from self._cached_feature_batches(split, epoch, augment, batch_size)
+            yield from self._cached_feature_batches(split, epoch, augment, batch_size, rows)
             return
         fe = self.frontend
-        for i, wb in enumerate(self.wav_batches(split, epoch, batch_size=batch_size)):
+        for i, whole in enumerate(self.wav_batches(split, epoch, batch_size=batch_size)):
+            wb, keep = self._keep(whole, rows)
             rng = np.random.default_rng((self.seed, epoch, i)) if augment else None
             generator = None
             if rng is not None and fe.cfg.dither > 0.0:
@@ -193,8 +216,8 @@ class LibriSpeechDataModule:
                 feats = apply_cmvn(feats, *self._cmvn)
             if augment and fe.cfg.spec_augment:
                 host_lens = np.minimum(fe.frames_for_samples(torch.from_numpy(
-                    wb["wav_lens"])).numpy(), feats.shape[1])
-                feats = self._augment(feats, host_lens, rng)
+                    whole["wav_lens"])).numpy(), feats.shape[1])
+                feats = self._augment(feats, host_lens, rng, keep)
             yield {"feats": feats, "feat_lens": feat_lens, "tokens": wb["tokens"],
                    "token_lens": wb["token_lens"]}
 
@@ -204,12 +227,14 @@ class LibriSpeechDataModule:
         epoch: int = 0,
         augment: bool = False,
         batch_size: Optional[int] = None,
+        rows: Optional[Callable[[int], np.ndarray]] = None,
     ) -> Iterator[Dict]:
         """Batches from the prepare-time feature cache (CMVN baked in):
         bucketed by FRAME length, [B, T_bucket, F] float16 assembled on the
         host, shipped to the device as float16 (exact, half the bytes) and
         upcast there by the consumer (train/step.py::batch_to_device).
-        SpecAugment still runs per batch on the device."""
+        SpecAugment still runs per batch on the device. `rows`: as
+        `featurized_batches`; only the kept rows' features are read."""
         utts = self._manifests[split]
         B = batch_size or self.cfg.batch_size
         U = self.cfg.max_tokens
@@ -219,6 +244,11 @@ class LibriSpeechDataModule:
         for i, (bounds, bucket, idx) in enumerate(
                 self._batch_indices(lengths, B, split == "train", epoch)):
             T = int(bounds[bucket])
+            whole_lens = np.minimum(lengths[idx], T)
+            keep = None
+            if rows is not None:
+                keep = np.asarray(rows(len(idx)))
+                idx = idx[keep]
             n = len(idx)
             feats = np.zeros((n, T, F), feat_dtype)
             feat_lens = np.zeros((n,), np.int32)
@@ -234,8 +264,8 @@ class LibriSpeechDataModule:
                 token_lens[r] = len(ids)
             dev_feats = torch.from_numpy(feats).to(self.device)
             if augment and self.frontend.cfg.spec_augment:
-                dev_feats = self._augment(dev_feats, feat_lens,
-                                          np.random.default_rng((self.seed, epoch, i)))
+                dev_feats = self._augment(dev_feats, whole_lens,
+                                          np.random.default_rng((self.seed, epoch, i)), keep)
             yield {"feats": dev_feats, "feat_lens": torch.from_numpy(feat_lens).to(self.device),
                    "tokens": tokens, "token_lens": token_lens}
 

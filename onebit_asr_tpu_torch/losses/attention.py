@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from onebit_asr_tpu_torch.utils.collectives import all_sum
 from onebit_asr_tpu_torch.utils.config import SpecialTokens
 
 
@@ -30,12 +31,24 @@ def make_att_targets(tokens: torch.Tensor, token_lens: torch.Tensor,
             torch.where(valid, tgt_out, specials.pad_id), valid)
 
 
+def _masked_mean(values: torch.Tensor, valid: torch.Tensor, group) -> torch.Tensor:
+    """sum(values * valid) / max(sum(valid), 1); with a process `group`
+    both sums run over the global batch (one differentiable all-reduce)."""
+    m = valid.to(torch.float32)
+    num, den = (values * m).sum(), m.sum()
+    if group is not None:
+        num, den = all_sum(torch.stack([num, den]), group)
+    return num / torch.clamp(den, min=1.0)
+
+
 def att_ce_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
-                label_smoothing: float = 0.1, reference_smoothing: bool = False) -> torch.Tensor:
-    """Label-smoothed cross-entropy, in f32, mean over valid positions. The
-    target distribution is torch CrossEntropyLoss's ((1 - ls) * onehot +
-    ls / V), or with `reference_smoothing` the reference's own (1 - ls on
-    the target, ls / (V - 1) on each other class; attention.py:47-92)."""
+                label_smoothing: float = 0.1, reference_smoothing: bool = False,
+                group=None) -> torch.Tensor:
+    """Label-smoothed cross-entropy, in f32, mean over valid positions (of
+    the global batch with a process `group`). The target distribution is
+    torch CrossEntropyLoss's ((1 - ls) * onehot + ls / V), or with
+    `reference_smoothing` the reference's own (1 - ls on the target,
+    ls / (V - 1) on each other class; attention.py:47-92)."""
     V = logits.shape[-1]
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
@@ -46,16 +59,14 @@ def att_ce_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor
     else:
         smooth = -logp.mean(dim=-1)
         loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
-    m = valid.to(torch.float32)
-    return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return _masked_mean(loss, valid, group)
 
 
 def kl_logits(teacher_logits: torch.Tensor, student_logits: torch.Tensor,
-              valid: torch.Tensor) -> torch.Tensor:
+              valid: torch.Tensor, group=None) -> torch.Tensor:
     """KL(teacher || student) with the teacher detached, in f32, mean over
-    valid positions."""
+    valid positions (of the global batch with a process `group`)."""
     pt_log = F.log_softmax(teacher_logits.detach().to(torch.float32), dim=-1)
     ps_log = F.log_softmax(student_logits.to(torch.float32), dim=-1)
     kl = (pt_log.exp() * (pt_log - ps_log)).sum(dim=-1)
-    m = valid.to(torch.float32)
-    return (kl * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return _masked_mean(kl, valid, group)

@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from onebit_asr_tpu_torch.ops.ctc_lattice import NEG_INF, ctc_alpha, ctc_beta
+from onebit_asr_tpu_torch.utils.collectives import all_sum
 
 
 def _extended_targets(labels: torch.Tensor, blank_id: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,15 +109,22 @@ def ctc_neg_log_likelihood(logits, logit_lens, labels, label_lens, blank_id: int
 
 
 def ctc_loss(logits, logit_lens, labels, label_lens, blank_id: int,
-             groups: int = 1) -> torch.Tensor:
+             groups: int = 1, group=None) -> torch.Tensor:
     """Batch-mean CTC loss: per-utterance NLL / label length, then the mean
     over the batch; infeasible utterances count 0. With `groups` > 1 the
     batch is that many equal batches stacked (the branches of a train step,
     whose lattices then take one launch each way), and the result is their
-    [groups] losses."""
+    [groups] losses. With a process `group` the mean is over the global
+    batch: each group's numerator and the row count are summed over its
+    ranks (one differentiable all-reduce), as JAX's `axis_name` psums them."""
     nll = ctc_neg_log_likelihood(logits, logit_lens, labels, label_lens, blank_id)
     nll = torch.where(nll < -0.5 * NEG_INF, nll, 0.0)
     denom = torch.clamp(label_lens.to(torch.float32), min=1.0)
     per_utt = (nll / denom).reshape(groups, -1)
-    losses = per_utt.sum(dim=1) / per_utt.shape[1]
+    num = per_utt.sum(dim=1)
+    if group is None:
+        losses = num / per_utt.shape[1]
+    else:
+        sums = all_sum(torch.cat([num, num.new_full((1,), per_utt.shape[1])]), group)
+        losses = sums[:groups] / sums[groups]
     return losses[0] if groups == 1 else losses

@@ -104,30 +104,36 @@ class ConformerASR(nn.Module):
         tgt_inp: Optional[torch.Tensor] = None,
         tgt_valid_mask: Optional[torch.Tensor] = None,
         draws=None,
+        norm_group=None,
     ):
         """(enc_out, enc_mask, logits_ctc); with `tgt_inp` (a model with a
         decoder) also the decoder's logits, as `forward_with_decoder`."""
         if tgt_inp is not None:
             return self.forward_with_decoder(feats, feat_lens, tgt_inp, tgt_valid_mask,
-                                             binary_mask, draws)
+                                             binary_mask, draws, norm_group)
         enc_out, enc_mask = self.encoder(feats, feat_lens, binary_mask)
         # logits stay in the compute dtype, as in the JAX model
         return enc_out, enc_mask, self.ctc_head(enc_out)
 
     def forward_with_decoder(self, feats, feat_lens, tgt_inp, tgt_valid_mask,
-                             binary_mask: Optional[torch.Tensor] = None, draws=None):
+                             binary_mask: Optional[torch.Tensor] = None, draws=None,
+                             norm_group=None):
         """One training branch (asr.py:213): encoder + CTC head + decoder at
         `decoder_bits` of the branch's mask -> (enc_out, enc_mask,
         logits_ctc, dec_logits). `draws` (see layers.DropoutRng) feeds every
-        dropout site for this call; None runs without dropout."""
+        dropout site for this call; None runs without dropout. `norm_group`
+        (a process group) makes every batch norm take its statistics over
+        the group's ranks for this call (JAX's `norm_axis`)."""
         if not hasattr(self, "decoder"):
             raise RuntimeError("forward_with_decoder needs a decoder: the QAT form (qat=True) "
                                "or the serving form built with decoder=True")
         self.parts.rng.draws = draws
+        self.parts.norm_group = norm_group
         try:
             enc_out, enc_mask, logits_ctc = self(feats, feat_lens, binary_mask)
             dec_logits = self.decoder(tgt_inp, enc_out, enc_mask, tgt_valid_mask,
                                       decoder_bits(self.cfg.quant_decoder, binary_mask))
         finally:
             self.parts.rng.draws = None
+            self.parts.norm_group = None
         return enc_out, enc_mask, logits_ctc, dec_logits

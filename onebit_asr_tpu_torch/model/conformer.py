@@ -121,6 +121,9 @@ class Parts:
         self.dropout = dropout
         self.per_channel = per_channel
         self.rng = DropoutRng()
+        # the process group of sync-BN for the call in progress (set by
+        # ConformerASR.forward_with_decoder, as rng.draws is), or None
+        self.norm_group = None
 
     def proj(self, in_features: int, features: int) -> nn.Module:
         if self.qat:
@@ -275,6 +278,7 @@ class ConvModule(nn.Module):
         super().__init__()
         check_encoder_options(norm)
         compute_dtype = parts.compute_dtype
+        self.parts = parts
         self.kernel_size = kernel_size
         self.compute_dtype = compute_dtype
         self.norm = norm
@@ -305,7 +309,7 @@ class ConvModule(nn.Module):
         elif self.norm == "layer_norm":
             y = self.frame_ln(y) * keep.to(y.dtype)
         else:
-            y = self.bn(y, frame_mask)
+            y = self.bn(y, frame_mask, self.parts.norm_group)
         y = self.drop(self.pw2(F.silu(y)))
         return y * keep.to(y.dtype)
 

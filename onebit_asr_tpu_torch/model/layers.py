@@ -25,6 +25,7 @@ from onebit_asr_tpu_torch.ops.ternary_matmul import (
     ternary_matmul,
     ternary_matmul_w2a8,
 )
+from onebit_asr_tpu_torch.utils.collectives import all_sum
 
 
 class QuantDense(nn.Module):
@@ -178,7 +179,10 @@ class MaskedBatchNorm(nn.Module):
 
     Statistics come from the current batch at inference too (the reference's
     track_running_stats=False), so an utterance's output depends on which
-    utterances share its batch."""
+    utterances share its batch. With a process `group` (sync-BN under data
+    parallelism, JAX's `axis_name`) the count and the sums are summed over
+    the group's ranks, with autograd through the sums: `n` and `s1` in one
+    all-reduce, then `sq`."""
 
     def __init__(self, dim: int, epsilon: float = 1e-5):
         super().__init__()
@@ -186,13 +190,19 @@ class MaskedBatchNorm(nn.Module):
         self.weight = nn.Parameter(torch.empty(dim))  # flax "scale"
         self.bias = nn.Parameter(torch.empty(dim))
 
-    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_mask: torch.Tensor, group=None) -> torch.Tensor:
         # x: [B, T, C]; frame_mask: [B, T] (True = valid)
         x32 = x.to(torch.float32)
         m = frame_mask.to(torch.float32)[..., None]
-        n = torch.clamp(m.sum(), min=1.0)
-        mean = (x32 * m).sum(dim=(0, 1)) / n
-        var = ((x32 - mean).square() * m).sum(dim=(0, 1)) / n
+        n = m.sum()
+        s1 = (x32 * m).sum(dim=(0, 1))
+        if group is not None:
+            n_s1 = all_sum(torch.cat([n[None], s1]), group)
+            n, s1 = n_s1[0], n_s1[1:]
+        n = torch.clamp(n, min=1.0)
+        mean = s1 / n
+        sq = ((x32 - mean).square() * m).sum(dim=(0, 1))
+        var = all_sum(sq, group) / n
         y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
         return ((y * self.weight + self.bias) * m).to(x.dtype)
 

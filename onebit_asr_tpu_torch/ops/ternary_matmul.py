@@ -32,6 +32,8 @@ node per product. A launch from a loaded artifact counts in
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from onebit_asr_tpu_torch.ops import _build
@@ -247,3 +249,10 @@ def ternary_matmul_w2a8(
 
 
 ternary_matmul_w2a8.launches = 0
+
+
+def int8_act_enabled() -> bool:
+    """ONEBIT_PACKED_INT8_ACT=1: the JAX package's switch that routes every
+    packed dense to the W2A8 kernel (ops/ternary_matmul.py:299-309). The
+    port's packed serving CLIs read it as the default of `int8_act`."""
+    return os.environ.get("ONEBIT_PACKED_INT8_ACT", "0") == "1"

@@ -19,7 +19,7 @@ tensors).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -60,7 +60,10 @@ def global_norm(tensors) -> torch.Tensor:
 class AdamW:
     """clip_by_global_norm(grad_clip_norm) then AdamW with the warmup-cosine
     schedule. `update(params, grads, mu, nu, count)` changes params, mu and
-    nu in place and returns the global norm of the unclipped gradients."""
+    nu in place and returns the global norm of the unclipped gradients.
+    Given `g_norm`, the clip uses it instead of the norm of `grads`: the
+    ZeRO-2 step passes shards of every leaf, whose own norm is local, with
+    the global norm (parallel/fsdp.py)."""
 
     def __init__(self, cfg: OptimConfig, total_steps: int):
         self.cfg = cfg
@@ -69,10 +72,11 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor],
-               count: int) -> torch.Tensor:
+               count: int, g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b1, b2 = cfg.betas
-        g_norm = global_norm(grads.values())
+        if g_norm is None:
+            g_norm = global_norm(grads.values())
         # where(|g| < max, g, g / |g| * max) without a host sync
         clip = torch.where(g_norm < cfg.grad_clip_norm, torch.ones_like(g_norm), torch.zeros_like(g_norm))
         f32 = torch.float32

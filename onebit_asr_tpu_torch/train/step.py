@@ -30,6 +30,12 @@ QAT step: the no-QAT control (`make_fp32_train_step`: one full-precision
 branch, its own lattice launch per micro-batch and the 1 x L attention and
 1 subsampler launches of one branch) and K steps on a stacked batch
 (`make_multi_train_step`, `stack_batches`).
+
+Data parallelism (JAX's `make_sharded_train_step`): each rank runs the
+step on its rows of the batch, every launch count above per rank at its
+local shapes, with sync-BN and the losses' means over the process group's
+global batch, and the ranks average their gradients
+(`make_sharded_train_step`; ZeRO-2 in parallel/fsdp.py).
 """
 
 from __future__ import annotations
@@ -77,11 +83,16 @@ def batch_to_device(batch, device) -> Batch:
     return out
 
 
-def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_enc_layers: int):
+def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_enc_layers: int,
+                    group=None):
     """batch_loss(params, b, sp_mask, branch_rngs) -> (total, aux): the
     composite loss of the three branches [teacher, student, sp] at `params`
     (a {state-dict name: tensor} mapping of `model`); `branch_rngs` are three
-    torch.Generators on the batch's device, or Nones for no dropout."""
+    torch.Generators on the batch's device, or Nones for no dropout. With a
+    process `group` (JAX's `axis_name`) `b` is this rank's rows: the batch
+    norms take their statistics and every loss its mean over the group's
+    global batch, so each rank's loss is the global one and its raw
+    gradient is world x its rows' share of the global gradient."""
     L = num_enc_layers
 
     def batch_loss(params, b: Batch, sp_mask: torch.Tensor,
@@ -93,18 +104,18 @@ def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_en
             _, enc_mask, logits_ctc, dec_logits = functional_call(
                 model, params, (b["feats"], b["feat_lens"]),
                 dict(binary_mask=bm, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid,
-                     draws=None if rng is None else generator_draws(rng)))
+                     draws=None if rng is None else generator_draws(rng), norm_group=group))
             enc_lens.append(enc_mask.sum(dim=-1))
             logits.append(logits_ctc)
             dec.append(dec_logits)
         lc = ctc_loss(torch.cat(logits), torch.cat(enc_lens), b["tokens"].repeat(3, 1),
-                      b["token_lens"].repeat(3), specials.blank_id, groups=3)
+                      b["token_lens"].repeat(3), specials.blank_id, groups=3, group=group)
         la = [att_ce_loss(d, tgt_out, tgt_valid, loss_cfg.label_smoothing,
-                          loss_cfg.reference_smoothing) for d in dec]
+                          loss_cfg.reference_smoothing, group) for d in dec]
         g = loss_cfg.gamma_ctc
         li = [(1.0 - g) * la[i] + g * lc[i] for i in range(3)]
-        kl1 = kl_logits(dec[0], dec[1], tgt_valid)
-        kls = kl_logits(dec[0], dec[2], tgt_valid)
+        kl1 = kl_logits(dec[0], dec[1], tgt_valid, group)
+        kls = kl_logits(dec[0], dec[2], tgt_valid, group)
         total = li[0] + loss_cfg.lambda1 * (li[1] + li[2]) + loss_cfg.lambda2 * (kl1 + kls)
         aux = {
             "loss": total,
@@ -148,12 +159,15 @@ def _split_batch(batch: Batch, grad_accum: int):
 
 
 def accumulated_value_and_grad(batch_loss, params, batch: Batch, sp_mask: torch.Tensor,
-                               seeds: Sequence[int], dropout: bool, grad_accum: int = 1):
+                               seeds: Sequence[int], dropout: bool, grad_accum: int = 1,
+                               reduce: Optional[Callable] = None):
     """((loss, aux), grads) of `batch_loss` on `batch`. With grad_accum > 1,
     the gradients and aux of the micro-batches (one sp mask; dropout seeds
     `micro_seed(seed, i)`) are summed in order and divided by grad_accum,
-    and loss = aux["loss"]."""
+    and loss = aux["loss"]. `reduce`, if given, maps each micro-batch's
+    gradients before they are summed (the ZeRO-2 step's reduce-scatter)."""
     device = batch["feats"].device
+    reduce = reduce or (lambda g: g)
 
     def rngs(i=None):
         if not dropout:
@@ -162,10 +176,12 @@ def accumulated_value_and_grad(batch_loss, params, batch: Batch, sp_mask: torch.
                 for s in seeds]
 
     if grad_accum == 1:
-        return value_and_grad(batch_loss, params, batch, sp_mask, rngs())
+        (loss, aux), grads = value_and_grad(batch_loss, params, batch, sp_mask, rngs())
+        return (loss, aux), reduce(grads)
     grads = aux = None
     for i, mb in enumerate(_split_batch(batch, grad_accum)):
         (_, aux_i), g_i = value_and_grad(batch_loss, params, mb, sp_mask, rngs(i))
+        g_i = reduce(g_i)
         if grads is None:
             grads, aux = g_i, aux_i
             continue
@@ -177,17 +193,33 @@ def accumulated_value_and_grad(batch_loss, params, batch: Batch, sp_mask: torch.
     return (aux["loss"], aux), grads
 
 
+def step_draws(state: TrainState, loss_cfg: LossConfig, num_enc_layers: int,
+               shard: Optional[int] = None):
+    """(sp mask, the three branches' dropout seeds) of a step: the same
+    draws from the state's generator for every kind of step, so that runs
+    resume alike. A data-parallel shard folds its index into each seed
+    (`micro_seed(seed, shard)`, JAX's `fold_in(key, axis_index)`)."""
+    sp_mask = sample_sp_mask(state.generator, num_enc_layers, loss_cfg.sp_low_p,
+                             loss_cfg.sp_high_p)
+    seeds = torch.randint(0, 2 ** 62, (3,), generator=state.generator).tolist()
+    if shard is not None:
+        seeds = [micro_seed(s, shard) for s in seeds]
+    return sp_mask, seeds
+
+
 def _make_step(model, batch_loss, optimizer: AdamW, loss_cfg: LossConfig, num_enc_layers: int,
-               grad_accum: int):
+               grad_accum: int, mesh=None, axes=("data",)):
     dropout = model.cfg.dropout > 0
 
     def train_step(state: TrainState, batch: Batch):
-        # the same draws for every kind of step, so that runs resume alike
-        sp_mask = sample_sp_mask(state.generator, num_enc_layers, loss_cfg.sp_low_p,
-                                 loss_cfg.sp_high_p)
-        seeds = torch.randint(0, 2 ** 62, (3,), generator=state.generator).tolist()
+        sp_mask, seeds = step_draws(state, loss_cfg, num_enc_layers,
+                                    None if mesh is None else mesh.index(axes))
         (_, aux), grads = accumulated_value_and_grad(batch_loss, state.params, batch, sp_mask,
                                                      seeds, dropout, grad_accum)
+        if mesh is not None:
+            # each rank's gradient is world x its rows' share (the loss sums
+            # over the group): the global gradient is the mean, not the sum
+            grads = mesh.mean(grads, axes)
         aux["grad_norm"] = optimizer.update(state.params, grads, state.mu, state.nu, state.count)
         state.count += 1
         state.step += 1
@@ -212,11 +244,11 @@ def make_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: Spe
     return _make_step(model, batch_loss, optimizer, loss_cfg, num_enc_layers, grad_accum)
 
 
-def make_fp32_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens):
+def make_fp32_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, group=None):
     """batch_loss(params, b, sp_mask, branch_rngs) -> (total, aux) of the
     no-QAT control: one branch with every projection on its raw weights
     (binary_mask=None), dropout from branch_rngs[0], total = (1 - gamma)
-    L_att + gamma L_ctc. sp_mask is not read."""
+    L_att + gamma L_ctc. sp_mask is not read. `group`: as make_batch_loss."""
 
     def batch_loss(params, b: Batch, sp_mask, branch_rngs):
         del sp_mask
@@ -225,11 +257,11 @@ def make_fp32_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens):
         _, enc_mask, logits_ctc, dec_logits = functional_call(
             model, params, (b["feats"], b["feat_lens"]),
             dict(binary_mask=None, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid,
-                 draws=None if rng is None else generator_draws(rng)))
+                 draws=None if rng is None else generator_draws(rng), norm_group=group))
         l_att = att_ce_loss(dec_logits, tgt_out, tgt_valid, loss_cfg.label_smoothing,
-                            loss_cfg.reference_smoothing)
+                            loss_cfg.reference_smoothing, group)
         l_ctc = ctc_loss(logits_ctc, enc_mask.sum(dim=-1), b["tokens"], b["token_lens"],
-                         specials.blank_id)
+                         specials.blank_id, group=group)
         g = loss_cfg.gamma_ctc
         total = (1.0 - g) * l_att + g * l_ctc
         return total, {"loss": total, "loss_att_32bit": l_att, "loss_ctc_32bit": l_ctc}
@@ -238,13 +270,39 @@ def make_fp32_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens):
 
 
 def make_fp32_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: SpecialTokens,
-                         num_enc_layers: int, grad_accum: int = 1):
+                         num_enc_layers: int, grad_accum: int = 1, mesh=None,
+                         data_axis="data"):
     """The no-QAT control: make_train_step's step (the same draws from the
     state's generator, the same grad_accum path, optimizer and clip) on
     make_fp32_batch_loss. aux: loss, loss_att_32bit, loss_ctc_32bit,
-    grad_norm."""
-    return _make_step(model, make_fp32_batch_loss(model, loss_cfg, specials), optimizer,
-                      loss_cfg, num_enc_layers, grad_accum)
+    grad_norm. With a `mesh`, data-parallel as make_sharded_train_step."""
+    group = None if mesh is None else mesh.group_of(data_axis)
+    return _make_step(model, make_fp32_batch_loss(model, loss_cfg, specials, group), optimizer,
+                      loss_cfg, num_enc_layers, grad_accum, mesh, data_axis)
+
+
+def make_sharded_train_step(model, optimizer: AdamW, loss_cfg: LossConfig,
+                            specials: SpecialTokens, num_enc_layers: int, mesh,
+                            data_axis="data", grad_accum: int = 1):
+    """The data-parallel QAT step (JAX train/step.py:388-482): replicated
+    parameters and moments; each rank runs the 3-branch step on its rows of
+    the batch (`parallel.mesh.shard_batch`, at its local shapes: the
+    kernels launch per rank) with sync-BN and global-batch losses over
+    `data_axis` (a name or a tuple of names of `mesh`), and the gradients
+    are averaged over it, so every rank makes the same update. grad_norm
+    is the averaged gradients' norm. The sp mask and the seeds come from the
+    state's generator, the same on every rank; the dropout seeds fold in
+    the rank's index.
+
+    With grad_accum = k each rank splits its rows into k micro-batches; for
+    the step to equal the one-process step on the whole batch, the union of
+    the ranks' micro-batch i must be micro-batch i of the whole batch, which
+    is what `shard_batch(..., micro=k)` gives. At dropout 0 the step equals
+    make_train_step's on the whole batch up to f32 summation order."""
+    batch_loss = make_batch_loss(model, loss_cfg, specials, num_enc_layers,
+                                 mesh.group_of(data_axis))
+    return _make_step(model, batch_loss, optimizer, loss_cfg, num_enc_layers, grad_accum, mesh,
+                      data_axis)
 
 
 def make_multi_train_step(model, optimizer: AdamW, loss_cfg: LossConfig,

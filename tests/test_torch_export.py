@@ -35,8 +35,13 @@ load. Cases and tolerances:
 - the export CLI (`offline`, `streaming`, `run`) on a tiny run the port's
   train CLI wrote, and `serve --artifact` on stdio, whose finals equal
   `serve --checkpoint`'s; `run` in a fresh process imports no module of
-  `onebit_asr_tpu_torch.model` and no JAX; `serve --artifact` refuses
-  `--precision`, `--max_streams` and `--device`, which the artifact fixes.
+  `onebit_asr_tpu_torch.model` and no JAX; `serve --artifact` takes the
+  artifact's precision and slots over `--precision` and `--max_streams`, as
+  JAX does, and refuses `--device`;
+- under ONEBIT_PACKED_INT8_ACT=1, `transcribe --packed` and `export offline
+  --packed` of that run call row 2's CPU kernel and never row 1's, within
+  the W2A8 f32 bounds (max 2e-2, mean 4e-3) of JAX's packed model under the
+  same variable, on the same features.
 """
 
 import contextlib
@@ -47,6 +52,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -196,8 +202,30 @@ def test_symbolic_batch_rejects_packed(params):
         pexport.export_offline(_configs()[1], params, 2, T, 2, platforms=("cuda", "cpu"))
 
 
+def _jax_packed_outputs(tmp_path, params, flags, int8_act):
+    """JAX's packed p2 artifact (emit both, B=2) of `params` -> its outputs
+    on `_batch(2)`; ONEBIT_PACKED_INT8_ACT=1 with `int8_act`, JAX's fused
+    attention branch with `flags`."""
+    jcfg, _ = _configs(**flags)
+    with pytest.MonkeyPatch.context() as mp:
+        if int8_act:
+            mp.setenv("ONEBIT_PACKED_INT8_ACT", "1")
+        if flags:
+            assert force_jax_fused_attention(mp) is not None
+        jfn, _ = _jax_artifact(tmp_path, "j", jcfg, jexport.export_offline(
+            jcfg, params, 2, T, 2, packed=True, emit="both"), 2, emit="both", packed=True)
+        return [np.asarray(x) for x in jfn(*_jax(*_batch(2)))]
+
+
+@pytest.fixture(scope="module")
+def jax_w2a8(params, tmp_path_factory):
+    """JAX's packed W2A8 outputs, shared by the packed-artifact test and the
+    ONEBIT_PACKED_INT8_ACT case."""
+    return _jax_packed_outputs(tmp_path_factory.mktemp("jax_w2a8"), params, {}, True)
+
+
 @pytest.mark.parametrize("variant", ["bf16", "int8_act", "fused"])
-def test_packed_artifact_matches_live_and_jax_interpret(params, tmp_path, monkeypatch, variant):
+def test_packed_artifact_matches_live_and_jax_interpret(params, tmp_path, variant, request):
     int8_act = variant == "int8_act"
     flags = dict(fused_subsampler=True, fused_attention=True) if variant == "fused" else {}
     jcfg, cfg = _configs(**flags)
@@ -217,13 +245,8 @@ def test_packed_artifact_matches_live_and_jax_interpret(params, tmp_path, monkey
                                          device="cpu", int8_act=int8_act)
     with torch.no_grad():
         _equal(got, live(*_port(feats, lens)))
-    if int8_act:
-        monkeypatch.setenv("ONEBIT_PACKED_INT8_ACT", "1")
-    if flags:
-        assert force_jax_fused_attention(monkeypatch) is not None
-    jfn, jmeta = _jax_artifact(tmp_path, "j", jcfg, jexport.export_offline(
-        jcfg, params, 2, T, 2, packed=True, emit="both"), 2, emit="both", packed=True)
-    ids_j, lens_j, lp_j, _ = jfn(*_jax(feats, lens))
+    ids_j, lens_j, lp_j, _ = (request.getfixturevalue("jax_w2a8") if int8_act else
+                              _jax_packed_outputs(tmp_path, params, flags, False))
     ids_p, lens_p, lp_p, el_p = (t.numpy() for t in got)
     assert _ids(ids_p, lens_p) == _ids(ids_j, lens_j)
     _valid_close(lp_p, lp_j, el_p, 2e-2, 4e-3)
@@ -394,12 +417,126 @@ def test_export_cli_and_serve_artifact(cli_run, tmp_path, monkeypatch, capsys):
              {"op": "feed", "sid": 0, "feats": feats[0].tolist()},
              {"op": "feed", "sid": 1, "feats": feats[1, :37].tolist()},
              {"op": "close", "sid": 0}, {"op": "close", "sid": 1}]
-    got = _serve(["--artifact", stream], lines, monkeypatch)
+    capsys.readouterr()
+    # as in JAX, --precision and --max_streams beside an artifact take the
+    # artifact's values (32 and 2 here), with a note; --device stays refused
+    got = _serve(["--artifact", stream, "--precision", "1", "--max_streams", "5"], lines,
+                 monkeypatch)
+    err = capsys.readouterr().err
+    assert "--precision 1 is the artifact's 32" in err
+    assert "--max_streams 5 is the artifact's 2" in err
     want = _serve(["--checkpoint", cli_run, "--precision", "32", "--max_streams", "2",
                    "--device", "cpu"], lines, monkeypatch)
     finals = [e for e in got if e["event"] == "final"]
     assert len(finals) == 2 and got == want
+    assert serve_cli.main(["--artifact", stream, "--device", "cpu", "--port", "0"]) == 2
+    assert "--device: the artifact fixes" in capsys.readouterr().err
+
+
+@pytest.fixture
+def counted_products(monkeypatch):
+    """{kernel row: calls} of the packed products' CPU kernels (row 1, the
+    bf16 product; row 2, W2A8) while the test runs."""
+    calls = {"ternary_matmul": 0, "ternary_matmul_w2a8": 0}
+    for name in calls:
+        plain = getattr(tm, f"{name}_reference")
+
+        def counted(*a, _name=name, _plain=plain, **k):
+            calls[_name] += 1
+            return _plain(*a, **k)
+
+        monkeypatch.setattr(tm, f"{name}_reference", counted)
+    return calls
+
+
+def test_packed_int8_act_env_routes_the_clis_to_w2a8(cli_run, params, jax_w2a8, tmp_path,
+                                                     monkeypatch, counted_products, capsys):
+    """Under ONEBIT_PACKED_INT8_ACT=1 (JAX's switch, read by its packed
+    dense) `transcribe --packed` of the trained run and `export offline
+    --packed` of a run of the tiny model call row 2 and never row 1; the
+    first's log-probs match JAX's packed model under the variable on the
+    same features, the second's artifact equals the live W2A8 forward and
+    JAX's W2A8 export in ids (tests/test_torch_transcribe.py's W2A8 f32
+    bounds on log-probs)."""
+    from onebit_asr_tpu.model.asr import ConformerASR as JaxASR
+    from onebit_asr_tpu.model.asr import precision_to_binary_mask as jax_mask
+    from onebit_asr_tpu.model.packed import export_packed_params as jax_packed
+    from onebit_asr_tpu_torch.cli import transcribe as transcribe_cli
+    from onebit_asr_tpu_torch.train.state import TrainState
+    from onebit_asr_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        load_config,
+        restore_params,
+        save_config,
+    )
+    from onebit_asr_tpu_torch.utils.config import TrainConfig
+
+    import chip_smoke
+
+    monkeypatch.setenv("ONEBIT_PACKED_INT8_ACT", "1")
+    cfg = load_config(cli_run)
+    tree = convert.jax_tree_from_state_dict(restore_params(os.path.join(cli_run, "ckpt"))[1],
+                                            cfg.model)
+    jcfg = jc.train_config_from_json(open(os.path.join(cli_run, "config.json")).read())
+    jmodel = JaxASR.from_config(jcfg.model, packed=True)
+    jpacked = jax_packed(jax.tree.map(np.asarray, tree), 2)
+
+    def jax_log_probs(feats, lens):
+        _, mask, logits = jmodel.apply({"params": jpacked}, jnp.asarray(feats),
+                                       jnp.asarray(lens, jnp.int32), jax_mask(2, 2))
+        return np.asarray(jax.nn.log_softmax(logits.astype(jnp.float32), -1)), np.asarray(mask)
+
+    made = []
+
+    class Recorded(transcribe_cli.Transcriber):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(transcribe_cli, "Transcriber", Recorded)
+    data = tmp_path / "data"
+    chip_smoke.write_char_tokenizer(str(data))
+    rng = np.random.default_rng(3)
+    wavs = [0.3 * np.sin(np.arange(n) * rng.uniform(0.01, 0.2)).astype(np.float32)
+            + 0.05 * rng.standard_normal(n).astype(np.float32) for n in (8000, 6100)]
+    chip_smoke.write_wavs(str(tmp_path / "wavs"), wavs)
+    assert transcribe_cli.main(["--checkpoint", cli_run, "--wav_dir", str(tmp_path / "wavs"),
+                                "--data_dir", str(data), "--packed", "--device", "cpu",
+                                "--out", str(tmp_path / "hyp.tsv")]) == 0
+    assert counted_products["ternary_matmul_w2a8"] > 0
+    assert counted_products["ternary_matmul"] == 0
+    t = made[0]
+    batch = chip_smoke.pad_batch(wavs)
+    feats, feat_lens = t.featurize(*batch)
+    lp, enc_lens = t.log_probs(*batch)
+    lp_j, mask = jax_log_probs(feats.numpy(), feat_lens.numpy())
+    np.testing.assert_array_equal(enc_lens.numpy(), mask.sum(-1))
+    _valid_close(lp.numpy(), lp_j, enc_lens.numpy(), 2e-2, 4e-3)
+
+    # export offline --packed of a run of the tiny model: row 2 only, bit-equal
+    # to the live W2A8 forward, and JAX's W2A8 export's ids on the same batch
+    tiny = _configs()[1]
+    run = tmp_path / "tiny_run"
+    save_config(str(run), TrainConfig(model=tiny))
+    CheckpointManager(str(run / "ckpt")).save(TrainState(
+        step=1, params=convert.state_dict_from_jax(convert.to_torch(params), tiny), mu={},
+        nu={}, count=0, generator=torch.Generator()))
+    out = str(tmp_path / "w2a8")
+    assert export_cli.main(["offline", "--checkpoint", str(run), "--out", out, "--frames",
+                            str(T), "--batch", "2", "--packed", "--emit", "both", "--device",
+                            "cpu"]) == 0
     capsys.readouterr()
-    for flag in (["--precision", "32"], ["--max_streams", "2"], ["--device", "cpu"]):
-        assert serve_cli.main(["--artifact", stream, *flag, "--port", "0"]) == 2
-        assert f"{flag[0]}: the artifact fixes" in capsys.readouterr().err
+    fn, meta = pexport.load_artifact(out)
+    assert meta["int8_act"] is True and meta["packed"] is True
+    counted_products.update(ternary_matmul=0, ternary_matmul_w2a8=0)
+    got = fn(*_port(*_batch(2)))
+    assert counted_products["ternary_matmul_w2a8"] == 9 * tiny.enc_layers
+    assert counted_products["ternary_matmul"] == 0
+    live = pexport.build_offline_forward(tiny, params, 2, packed=True, emit="both",
+                                         device="cpu", int8_act=True)
+    with torch.no_grad():
+        _equal(got, live(*_port(*_batch(2))))
+    ids_j, lens_j, lp_j, _ = jax_w2a8
+    ids_p, lens_p, lp_p, el_p = (t.numpy() for t in got)
+    assert _ids(ids_p, lens_p) == _ids(ids_j, lens_j)
+    _valid_close(lp_p, lp_j, el_p, 2e-2, 4e-3)

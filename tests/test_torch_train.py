@@ -455,7 +455,10 @@ def test_eval_step_matches_jax(precision):
 
 REFUSED_FLAGS = [
     ([], "real data"),
-    (["--fsdp"], "--fsdp"), (["--tensor_parallel", "2"], "--tensor_parallel"),
+    # --fsdp is ported: beside it --tensor_parallel is still refused (the id
+    # keeps the case's name)
+    pytest.param(["--fsdp", "--tensor_parallel", "2"], "--tensor_parallel", id="flags1---fsdp"),
+    (["--tensor_parallel", "2"], "--tensor_parallel"),
     (["--pipeline_stages", "2"], "--pipeline_stages"),
     (["--wandb"], "--wandb"),
 ]
