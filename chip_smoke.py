@@ -7,7 +7,8 @@ Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
 3-branch QAT train step of the same model, its data-parallel and ZeRO-2
-forms over nccl and the train CLI (under torchrun too), then serves and
+forms over nccl, its tensor-parallel form on two ranks of the card over
+gloo, and the train CLI (under torchrun too), then serves and
 evaluates the runs the train CLI wrote, then trains, evaluates and serves on
 a seeded data dir through the real-data path, then under the model options
 (a streaming encoder, a quantized reference decoder, per-channel alpha),
@@ -215,7 +216,13 @@ artifacts and runs them from module.pt2 alone:
    with `--device cpu` into a copy (the CPU's features on the card's
    statistics), and the two are held at the CPU tests' tolerances (CMVN
    within 1e-5 |x| + 1e-5 max |x|; manifests equal; features within 2e-4
-   + 1e-4 |x| + one f16 ulp). `train --data_dir` then trains Conformer-M
+   + 1e-4 |x| + one f16 ulp). The spectrogram CLI's array
+   (`cli/spectrogram.py::log_mel`: the synthetic chirp, and the first dev
+   utterance under the card's CMVN) is held card vs CPU at the CPU test's
+   tolerance against JAX (the mel power within 1e-5 of each frame's peak,
+   the log-mel within 2e-4 + 1e-4 |x| in the bins within 10 nats of it;
+   CMVN undone); the CLI itself is not run (the card's machine has no
+   matplotlib). `train --data_dir` then trains Conformer-M
    under both fused flags with `--grad_accum 2 --multistep 2` for 4
    optimizer steps at B=16 in 2 buckets: each micro-batch of 8 launches
    rows 3-8 as step 8 counts them, at least one call goes through the
@@ -329,6 +336,24 @@ artifacts and runs them from module.pt2 alone:
    `python -m torch.distributed.run --standalone --nproc_per_node 1 -m
    onebit_asr_tpu_torch.train --fsdp --dummy_data` at a small width for 2
    epochs, and its `--resume` to a third; both must exit 0.
+21. tensor parallel (right after step 20): rows 3 and 4 at a TP rank's
+   local shape (B=16, H=2 of 4, T'=256, dh=64, dropout 0.1), each head half
+   held against their plain versions (step 4's tolerances) and against
+   the same heads' slice of one launch on all 4 heads (max |d| and whether
+   it is bit-equal printed); then two processes on the one card join a
+   gloo group (gloo sums CUDA tensors through the host; nccl takes one
+   rank a device) as a (data 1, model 2) mesh and run
+   `make_tp_train_step` on step 20's model and batch (Conformer-M, both
+   fused flags: 2 heads and d_ff 512 a rank): 1 + 3 steps at dropout 0
+   against step 20's one-process run within TP_TOL (DP_TOL, but loss and
+   aux 1.5e-2: the row-parallel sums round the bf16 activations apart,
+   and the updates grow it), and one step at dropout 0.1 from a fresh
+   state against the one-process step at 0.1 (the LR is 0 at step 0: loss,
+   aux, grad_norm and moments) within DP_TOL. Each rank must launch
+   rows 3-8 as often as the one-process step (36/36/3/3/1/1 a step), rows
+   3-4 on 2 heads only, and gather the same full state (a hash); ms per
+   step and peak memory per rank are printed beside the one-process
+   step's.
 
 `device_ms` opens each profile with 64 short spins of the card: after a
 process's first profiler session, each later session drops its first few
@@ -2160,7 +2185,7 @@ def dp_step(kind, cfg, params, mesh, seed):
     return step, state, dims
 
 
-def dp_run(kind, cfg, params, batch, mesh, kernels, seed):
+def dp_run(kind, cfg, params, batch, mesh, kernels, seed, steps=DP_STEPS, warmup=True):
     """1 + DP_STEPS steps of `kind` (`dp_step`) on `batch`: each step's aux,
     the launches and the ms per step (CUDA events) of the last DP_STEPS, the
     peak memory over them, the parameters before the first step (None
@@ -2173,30 +2198,40 @@ def dp_run(kind, cfg, params, batch, mesh, kernels, seed):
     step, state, dims = dp_step(kind, cfg, params, mesh, seed)
     start_params = (None if dims is not None else
                     {k: v.detach().to("cpu", copy=True) for k, v in state.params.items()})
-    local = shard_batch(batch, mesh)
+    state, run = timed_steps_run(step, state, shard_batch(batch, mesh), kernels, base, steps,
+                                 warmup)
+    if dims is not None:
+        state = gather_state_fsdp(state, mesh, dims)
+    run.update(start=start_params, **{part: {k: v.detach().cpu() for k, v in
+                                             getattr(state, part).items()}
+                                      for part in ("params", "mu", "nu")})
+    del step, state
+    torch.cuda.empty_cache()
+    return run
+
+
+def timed_steps_run(step, state, batch, kernels, base, steps=DP_STEPS, warmup=True):
+    """A warm-up step (with `warmup`), then `steps` steps of `step` on
+    `batch`: (state, {aux of each step, the launches and the ms per step
+    (CUDA events) of the last `steps`, the peak memory over them above
+    `base`})."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    state, aux = step(state, local)  # warm-up
-    auxes = [aux]
+    auxes = []
+    if warmup:
+        state, aux = step(state, batch)
+        auxes.append(aux)
     _reset(kernels)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(DP_STEPS):
-        state, aux = step(state, local)
+    for _ in range(steps):
+        state, aux = step(state, batch)
         auxes.append(aux)
     end.record()
     torch.cuda.synchronize()
-    counts = _counts(kernels)
-    if dims is not None:
-        state = gather_state_fsdp(state, mesh, dims)
-    run = dict(aux=[{k: float(v) for k, v in a.items()} for a in auxes], counts=counts,
-               ms=start.elapsed_time(end) / DP_STEPS,
-               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9, start=start_params,
-               **{part: {k: v.detach().cpu() for k, v in getattr(state, part).items()}
-                  for part in ("params", "mu", "nu")})
-    del step, state, local, auxes, aux
-    torch.cuda.empty_cache()
-    return run
+    return state, dict(aux=[{k: float(v) for k, v in a.items()} for a in auxes],
+                       counts=_counts(kernels), ms=start.elapsed_time(end) / steps,
+                       peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
 
 
 def dp_distance(run, ref):
@@ -2231,7 +2266,7 @@ def dp_distance(run, ref):
 def data_parallel_phase(kernels, seed, smi):
     """Step 20: the data-parallel and ZeRO-2 steps over an nccl world of 1
     against the one-process step, then the train CLI under torchrun with
-    --fsdp and its --resume."""
+    --fsdp and its --resume. Returns the one-process step's run."""
     t_phase = time.perf_counter()
     cfg, params, batch = dp_setup(seed)
     with nccl_world_of_one() as mesh:
@@ -2261,7 +2296,7 @@ def data_parallel_phase(kernels, seed, smi):
         if any(d > t for d, t in zip(dist_, DP_TOL)):
             raise AssertionError(f"data parallel: {kind} strays from the one-process step: "
                                  f"{dist_} beyond {DP_TOL}")
-    del runs, ref
+    del runs
 
     # the CLI under torchrun: --fsdp for 2 epochs, then --resume to a third
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "onebit_asr_tpu_torch",
@@ -2291,6 +2326,310 @@ def data_parallel_phase(kernels, seed, smi):
             log(f"torchrun --fsdp{' --resume' if extra else ''}: rc=0 wall_s="
                 f"{time.perf_counter() - t0:.2f} ({epochs} epochs, step_{2 * epochs}.pt)")
     log(f"data parallel: step 20 in {time.perf_counter() - t_phase:.2f} s")
+    return ref
+
+
+TP_SIZE = 2  # step 21's model axis: two ranks on one card
+# step 21's limits on the TP step's distance to the one-process step, in
+# DP_TOL's order: DP_TOL's, but loss and aux terms 1.5e-2. The TP step sums
+# each row-parallel product's halves in another f32 order, so its bf16
+# activations round apart from the one-process step's even on identical
+# parameters (on the CPU at bf16, d=256: the KL terms 1.1e-3 relative at
+# the first step), and the 3 updates grow that: three runs on the card read
+# 4.03e-3, 4.08e-3 and 5.21e-3, each in a KL term (0.05-0.13), against
+# 9.32e-4 for the one-process step against itself (PERF.md §6, tensor parallelism); the
+# limit is 3x the largest, as DP_TOL's are 3-5x the readings they came from
+TP_TOL = (1.5e-2,) + DP_TOL[1:]
+
+
+def smoke_kernels():
+    """{name: wrapper} of the eight kernel rows, whose `launches` the
+    phases read."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.ops import ctc_lattice as cl
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+    from onebit_asr_tpu_torch.ops import ternary_matmul as tm
+
+    return {"ternary_matmul_bf16": tm.ternary_matmul,
+            "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
+            "fused_subsample": ss.fused_subsample,
+            "fused_subsample_bwd": ss.fused_subsample_bwd,
+            "fused_relpos_attention": fa.fused_relpos_attention,
+            "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd,
+            "ctc_alpha": cl.ctc_alpha, "ctc_beta": cl.ctc_beta}
+
+
+def _digest(state):
+    """A hash of every tensor of a TrainState's params, mu and nu, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for part in ("params", "mu", "nu"):
+        for k, v in getattr(state, part).items():
+            h.update(k.encode())
+            h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_rank_work(seed):
+    """One rank of step 21: the TP step at dropout 0 (a warm-up + DP_STEPS
+    steps) and at 0.1 (one step from a fresh state), each with the rows 3-4
+    launches' head counts; rank 0 also returns the gathered state of the
+    first."""
+    import torch.distributed as dist
+
+    from onebit_asr_tpu_torch.convert import qat_model_from_jax
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh
+    from onebit_asr_tpu_torch.parallel.sharding_rules import gather_state_tp, shard_state_tp
+    from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_tp_train_step
+    from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
+
+    kernels = smoke_kernels()
+    heads = {"fused_relpos_attention": set(), "fused_relpos_attention_bwd": set()}
+
+    def recorded(name, fn):
+        def call(q, *args, **kwargs):
+            heads[name].add(int(q.shape[1]))
+            return fn(q, *args, **kwargs)
+        return call
+
+    fa._KERNELS = (recorded("fused_relpos_attention", fa._KERNELS[0]),
+                   recorded("fused_relpos_attention_bwd", fa._KERNELS[1]))
+    mesh = make_mesh((1, TP_SIZE), ("data", "model"))
+    cfg, params, batch = dp_setup(seed)
+    out = {"coords": mesh.coords}
+    for dropout in (0.0, 0.1):
+        c = dataclasses.replace(cfg, dropout=dropout)
+        model = qat_model_from_jax(c, params, device=DEVICE)
+        state = create_train_state(model, seed)
+        optimizer = AdamW(OptimConfig(warmup_steps=1), 100_000)
+        step = make_tp_train_step(model, optimizer, LossConfig(), SpecialTokens(), c.enc_layers,
+                                  mesh)
+        state = shard_state_tp(state, mesh)
+        for p in model.parameters():  # as the CLI does: the step passes params in
+            p.data = p.data.new_empty(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        for h in heads.values():
+            h.clear()
+        state, run = timed_steps_run(step, state, batch, kernels, base,
+                                     *((DP_STEPS, True) if dropout == 0 else (1, False)))
+        run["heads"] = {k: sorted(v) for k, v in heads.items()}
+        full = gather_state_tp(state, mesh)
+        run["digest"] = _digest(full)
+        if dist.get_rank() == 0:  # numpy: a tensor crosses the queue as a handle
+            run.update({part: {k: v.detach().cpu().numpy() for k, v in
+                               getattr(full, part).items()} for part in ("params", "mu", "nu")})
+        out[dropout] = run
+        del model, state, full, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank, port, seed, outbox):
+    """Step 21's rank `rank` of TP_SIZE on cuda:0, in a gloo group at
+    127.0.0.1:`port`: its results, or its traceback, into `outbox`."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=TP_SIZE)
+        try:
+            outbox.put((rank, True, tp_rank_work(seed)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        outbox.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def tp_ranks(seed, timeout=900):
+    """Step 21's TP_SIZE ranks, each a spawned process on cuda:0: their
+    results in rank order; raises with a rank's traceback if one failed."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    outbox = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=tp_rank, args=(r, port, seed, outbox)) for r in range(TP_SIZE)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    got = []
+    try:
+        while len(got) < len(procs):
+            try:
+                got.append(outbox.get(timeout=5))
+                continue
+            except queue.Empty:
+                pass
+            done = {r for r, _, _ in got}
+            dead = {r: p.exitcode for r, p in enumerate(procs)
+                    if r not in done and p.exitcode is not None}
+            if dead:  # a rank that died without a word: one last look, then fail
+                try:
+                    got.append(outbox.get(timeout=10))
+                    continue
+                except queue.Empty:
+                    raise AssertionError(f"tensor parallel: ranks {dead} (rank: exit code) "
+                                         "ended without a result") from None
+            if time.monotonic() > deadline:
+                raise AssertionError(f"tensor parallel: no result in {timeout} s")
+        got.sort(key=lambda r: r[0])
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank, ok, value in got:
+        if not ok:
+            raise AssertionError(f"tensor parallel: rank {rank} failed:\n{value}")
+    return [value for _, _, value in got]
+
+
+def as_tensors(run):
+    """A rank's run with its params, mu and nu as tensors again."""
+    return {**run, **{part: {k: torch.from_numpy(v) for k, v in run[part].items()}
+                      for part in ("params", "mu", "nu")}}
+
+
+def _heads_slice(t, h0, h1, dim=1):
+    return t.narrow(dim, h0, h1 - h0).contiguous()
+
+
+def tp_attention_check(cfg, seed):
+    """Rows 3 and 4 at a TP rank's local shape [16, H/TP, 256, 64] (the
+    train step's, dropout 0.1): each head half against the plain versions
+    and against the same heads' slice of one launch on all H heads.
+    Returns (max |d| to the plain versions, max |d| to the full launch's
+    slice, whether that slice is bit-equal)."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed + 21)
+    B, H, T, dh, rate = 16, cfg.enc_heads, 256, cfg.enc_d_model // cfg.enc_heads, 0.1
+    lens = np.concatenate([[255], rng.integers(128, 256, B - 1)])
+    key_mask = torch.from_numpy(
+        (np.arange(T)[None] < lens[:, None]).astype(np.float32)).to(dev)
+    q, k, v, g = (rng.standard_normal((B, H, T, dh)) for _ in range(4))
+    p = rng.standard_normal((H, 2 * T - 1, dh))
+    u, vb = (0.1 * rng.standard_normal((H, dh)) for _ in range(2))
+    q, k, v, g, p, u, vb = (torch.from_numpy(a.astype(np.float32)).to(dev).to(torch.bfloat16)
+                            for a in (q, k, v, g, p, u, vb))
+    g = g * key_mask[:, None, :, None].to(g.dtype)
+    drop8 = torch.from_numpy(rng.integers(0, 256, size=(B, H, T, T), dtype=np.uint8)).to(dev)
+    scale = 1.0 / float(np.sqrt(dh))
+    full_out, full_stats = fa._fwd(q, k, v, p, u, vb, key_mask, drop8, scale, rate, stats=True)
+    full_grads = fa.fused_relpos_attention_bwd(q, k, v, p, u, vb, key_mask, drop8, g, scale,
+                                               rate, stats=full_stats)
+    err_plain = err_full = 0.0
+    bit_equal = True
+    n = H // TP_SIZE
+    for h0 in range(0, H, n):
+        h1 = h0 + n
+        ops = (*(_heads_slice(t, h0, h1) for t in (q, k, v)),
+               *(_heads_slice(t, h0, h1, 0) for t in (p, u, vb)), key_mask,
+               _heads_slice(drop8, h0, h1))
+        gl = _heads_slice(g, h0, h1)
+        out, stats = fa._fwd(*ops, scale, rate, stats=True)
+        grads = fa.fused_relpos_attention_bwd(*ops, gl, scale, rate, stats=stats)
+        ref = fa.fused_relpos_attention_reference(*ops, scale, rate).float()
+        d = (out.float() - ref).abs()
+        if not bool((d <= 1e-2 + 2.0 ** -7 * ref.abs()).all()):
+            raise AssertionError(f"tensor parallel: row 3 on heads {h0}:{h1}: max |d| "
+                                 f"{d.max().item()} to the plain version over tolerance")
+        err_plain = max(err_plain, d.max().item())
+        refs = fa.fused_relpos_attention_bwd_reference(*ops, gl, scale, rate)
+        for name, a, r in zip(GRADS, grads, refs):
+            a, r = a.float(), r.float()
+            d = (a - r).abs()
+            if not bool((d <= 2.0 ** -7 * (r.abs() + r.abs().max())).all()):
+                raise AssertionError(f"tensor parallel: row 4 {name} on heads {h0}:{h1}: "
+                                     f"max |d| {d.max().item()} to the plain version")
+            err_plain = max(err_plain, d.max().item())
+        sliced = [_heads_slice(full_out, h0, h1)]
+        sliced += [_heads_slice(t, h0, h1, 1 if i < 3 else 0) for i, t in enumerate(full_grads)]
+        for name, a, r in zip(("out", *GRADS), (out, *grads), sliced):
+            err_full = max(err_full, (a.float() - r.float()).abs().max().item())
+            bit_equal = bit_equal and torch.equal(a, r)
+    return err_plain, err_full, bit_equal
+
+
+def tensor_parallel_phase(kernels, seed, smi, ref):
+    """Step 21: rows 3-4 at a rank's local shape, then the TP step on two
+    ranks of one card over gloo against the one-process step (`ref`, step
+    20's run at dropout 0, and one step at dropout 0.1 here)."""
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    cfg, params, batch = dp_setup(seed)
+    err_plain, err_full, bit_equal = tp_attention_check(cfg, seed)
+    H = cfg.enc_heads // TP_SIZE
+    log(f"tensor parallel: rows 3-4 at the local shape [16, {H}, 256, 64], dropout 0.1, each "
+        f"head half: max |d| {err_plain:.3g} to the plain versions (within their tolerances); "
+        f"to the same heads of one [16, {cfg.enc_heads}, 256, 64] launch max |d| "
+        f"{err_full:.3g} bit_equal={bit_equal}")
+    dropped = dp_run("one process", dataclasses.replace(cfg, dropout=0.1), params, batch,
+                     make_mesh(), kernels, seed, steps=1, warmup=False)
+    del params
+    t0 = time.perf_counter()
+    ranks = tp_ranks(seed)
+    wall = time.perf_counter() - t0
+    per_step = {"ctc_alpha": 1, "ctc_beta": 1, "fused_relpos_attention": 3 * cfg.enc_layers,
+                "fused_relpos_attention_bwd": 3 * cfg.enc_layers, "fused_subsample": 3,
+                "fused_subsample_bwd": 3}
+    log(f"tensor parallel: one process (step 20's run): ms_per_step={ref['ms']:.2f} "
+        f"peak_mem_gb={ref['peak_gb']:.3f} [{smi}]")
+    for dropout, steps, want in ((0.0, DP_STEPS, ref), (0.1, 1, dropped)):
+        for r in ranks:
+            run = r[dropout]
+            log(f"tensor parallel: rank {r['coords']} (data, model) dropout {dropout}: "
+                f"ms_per_step={run['ms']:.2f} peak_mem_gb={run['peak_gb']:.3f} launches="
+                f"{run['counts']} heads a launch of rows 3-4 {run['heads']} [{smi}]")
+            if run["counts"] != {k: steps * n for k, n in per_step.items()}:
+                raise AssertionError(f"tensor parallel: rank {r['coords']} launches "
+                                     f"{run['counts']}, want {per_step} x {steps}")
+            if set(map(tuple, run["heads"].values())) != {(H,)}:
+                raise AssertionError(f"tensor parallel: rows 3-4 ran on heads {run['heads']}, "
+                                     f"want {H}")
+        if len({r[dropout]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"tensor parallel: the ranks' gathered states differ "
+                                 f"(dropout {dropout})")
+        got = as_tensors(ranks[0][dropout])
+        if dropout == 0:
+            dist_, _, text = dp_distance(got, want)
+            bad = any(d > t for d, t in zip(dist_, TP_TOL))
+        else:  # the LR is 0 at step 0: the parameters do not move
+            d_aux = max(abs(got["aux"][0][k] - v) / abs(v) for k, v in want["aux"][0].items()
+                        if k != "grad_norm" and v)
+            d_norm = (abs(got["aux"][0]["grad_norm"] - want["aux"][0]["grad_norm"])
+                      / want["aux"][0]["grad_norm"])
+
+            def norm(tensors):
+                return sum(float(t.double().square().sum()) for t in tensors) ** 0.5
+
+            d_mom = max(norm(got[part][k] - v for k, v in want[part].items())
+                        / norm(want[part].values()) for part in ("mu", "nu"))
+            dist_ = (d_aux, d_norm, d_mom)
+            bad = any(d > t for d, t in zip(dist_, (DP_TOL[0], DP_TOL[1], DP_TOL[3])))
+            text = (f"loss/aux max relative |d|={d_aux:.3g} grad_norm {d_norm:.3g} moments "
+                    f"|d|/|ref| {d_mom:.3g} loss={got['aux'][0]['loss']:.6f} vs "
+                    f"{want['aux'][0]['loss']:.6f}")
+        log(f"tensor parallel: dropout {dropout}, ranks bit-equal, vs one process: {text}")
+        if bad:
+            raise AssertionError(f"tensor parallel: dropout {dropout} strays from the "
+                                 f"one-process step: {dist_} beyond "
+                                 f"{TP_TOL if dropout == 0 else DP_TOL}")
+    log(f"tensor parallel: step 21 in {time.perf_counter() - t_phase:.2f} s (the two ranks "
+        f"{wall:.2f} s)")
 
 
 def train_cli_phase(kernels, root):
@@ -3150,6 +3489,37 @@ def _assert_features_close(what, got, ref):
         raise AssertionError(f"{what}: the card's features differ from the CPU's")
 
 
+def spectrogram_check(data_dir):
+    """The spectrogram CLI's [F, T] array on the card against the CPU: the
+    synthetic chirp, and the first dev utterance of `data_dir` under its
+    cmvn_stats.npz (undone before comparing). Tolerance: the CPU test's
+    against JAX (tests/test_torch_spectrogram.py): the FFTs round apart
+    relative to each frame's largest bin, which the log magnifies far below
+    it (the chirp is a pure tone), so the mel power within 1e-5 of the
+    frame's peak everywhere, the log-mel within 2e-4 + 1e-4 |x| in the bins
+    within 10 nats of the peak."""
+    from onebit_asr_tpu_torch.cli.spectrogram import log_mel
+
+    with np.load(os.path.join(data_dir, "cmvn_stats.npz")) as z:
+        mean, std = z["mean"][:, None], z["std"][:, None]
+    for what, kw, cmvn in (("chirp", dict(data_dir=os.path.join(data_dir, "no_dir"),
+                                          synthetic=True), False),
+                           ("dev utterance 0", dict(data_dir=data_dir, split="dev"), True)):
+        (got, _), (want, _) = (log_mel(device=d, **kw) for d in (DEVICE, "cpu"))
+        if cmvn:
+            got, want = got * std + mean, want * std + mean
+        peak = want.max(axis=0, keepdims=True)
+        d_pow = float(np.abs(np.exp(got - peak) - np.exp(want - peak)).max())
+        near = want >= peak - 10.0
+        d_log = np.abs(got - want)[near] - 1e-4 * np.abs(want[near])
+        log(f"spectrogram {what}{' (CMVN)' if cmvn else ''} [F, T]={list(got.shape)}: card vs "
+            f"CPU power max |d|/peak={d_pow:.3g} (tolerance 1e-5), log-mel within 10 nats of "
+            f"the peak max |d|={float(np.abs(got - want)[near].max()):.3g} (tolerance 2e-4 + "
+            f"1e-4 |x|)")
+        if got.shape != want.shape or d_pow > 1e-5 or not (d_log <= 2e-4).all():
+            raise AssertionError(f"spectrogram {what}: the card's array differs from the CPU's")
+
+
 def train_launches(L, steps, evals, branches=3, micro=1, precisions=3, attention=True,
                    subsampler=True):
     """Rows 3-8 of `steps` optimizer steps of `micro` micro-batches of
@@ -3229,6 +3599,7 @@ def prepare_options_phase(kernels, seed, smi):
             _assert_features_close(f"prepare features {split} card vs CPU",
                                    np.load(os.path.join(data, f"{split}_feats.npy")),
                                    np.load(os.path.join(cpu, f"{split}_feats.npy")))
+        spectrogram_check(data)
         prepare("lm", "--out_dir", data)
         tok = AsrTokenizer.find_and_load(data)
 
@@ -4215,27 +4586,21 @@ def main(argv=None) -> int:
     log("path: transcribe ran on the kernels and agrees with the plain path")
     del params
 
-    from onebit_asr_tpu_torch.ops import attention as fa
-    from onebit_asr_tpu_torch.ops import ctc_lattice as cl
-    from onebit_asr_tpu_torch.ops import subsampler as ss
-    from onebit_asr_tpu_torch.ops import ternary_matmul as tm
-
-    kernels = {"ternary_matmul_bf16": tm.ternary_matmul,
-               "ternary_matmul_w2a8": tm.ternary_matmul_w2a8,
-               "fused_subsample": ss.fused_subsample,
-               "fused_subsample_bwd": ss.fused_subsample_bwd,
-               "fused_relpos_attention": fa.fused_relpos_attention,
-               "fused_relpos_attention_bwd": fa.fused_relpos_attention_bwd,
-               "ctc_alpha": cl.ctc_alpha, "ctc_beta": cl.ctc_beta}
+    kernels = smoke_kernels()
     profiles += train_step_phase(cfg, args.seed, rows, kernels)
     for flag in ("fused_attention", "fused_subsampler"):
         profiles += train_step_phase(dataclasses.replace(cfg, **{flag: True}), args.seed,
                                      rows, kernels)
     build_root = os.path.join(REPO, "onebit_asr_tpu_torch", "_build")
     os.makedirs(build_root, exist_ok=True)
-    data_parallel_phase(kernels, args.seed, smi)  # times steps: before any profiler run
+    one_process = data_parallel_phase(kernels, args.seed, smi)  # times steps: before any
     log("data parallel: the data-parallel and ZeRO-2 steps over nccl ran rows 3-8 as the "
         "one-process step does and matched it; torchrun --fsdp trained and resumed")
+    tensor_parallel_phase(kernels, args.seed, smi, one_process)  # profiler run too
+    del one_process
+    log("tensor parallel: two ranks on the card over gloo ran rows 3-4 on half the heads and "
+        "rows 5-8 whole, as often as the one-process step, and matched it at dropout 0 and "
+        "0.1; rows 3-4 at the local shape agree with their plain versions")
     with tempfile.TemporaryDirectory(dir=build_root) as runs:
         train_cli_phase(kernels, runs)
         log("train: the QAT step and the train CLI ran on the CTC kernels, under "

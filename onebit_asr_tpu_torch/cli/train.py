@@ -60,6 +60,20 @@ whole dev split, while a collective of the step fails after
 `--dist_timeout` seconds. `--resume` restores the full state, then shards it.
 `utt_per_sec` counts the utterances of all ranks.
 
+`--tensor_parallel TP` (under torchrun; composes with data parallelism and
+`--grad_accum`): the ranks form a (world / TP, TP) ("data", "model") mesh,
+consecutive ranks one model group; the encoder's quantized projections and
+their AdamW moments shard over "model" (`parallel/sharding_rules.py`,
+Megatron column/row parallel: attention on H / TP heads, d_ff / TP
+feed-forward columns), the batch over "data"
+(`train/step.py::make_tp_train_step`). Exit 1, with JAX's messages, beside
+`--pipeline_stages` or `--fsdp`, for a world TP does not divide, for a batch
+the data axis does not divide, and with `--multistep`; also beside
+`--fp32_control` (JAX trains the QAT step there) and for a TP that does not
+divide enc_heads and enc_d_ff (the port shards whole heads; JAX's
+partitioner takes any TP). Rank 0 writes the full state, in a one-process
+run's format; `--resume` shards it again.
+
 The model options are JAX's too: `--quant_per_channel` (an alpha per output
 channel), `--quant_decoder` (the decoder's projections quantized at each
 branch's base precision), `--reference_decoder` (position-blind, post-LN
@@ -70,7 +84,7 @@ layer_norm` the streaming-trained encoder). The run's `config.json` carries
 them, and the evaluate and transcribe CLIs read them back.
 
 Not ported yet, and refused with exit code 2 and a message naming what is
-missing: `--tensor_parallel`, `--pipeline_stages`, `--wandb`.
+missing: `--pipeline_stages`, `--wandb`.
 Flags of the JAX CLI that have no counterpart here (its memory and compile
 knobs `--no_remat`, `--remat_policy`, `--scan_unroll`) are accepted and
 change nothing.
@@ -174,7 +188,6 @@ def refusal(args) -> str:
     """What of `args` this package does not implement yet, or ""."""
     later = "not ported yet (later slice)"
     checks = [
-        (args.tensor_parallel > 1, f"--tensor_parallel: {later}"),
         (args.pipeline_stages > 1, f"--pipeline_stages: {later}"),
         (args.wandb, f"--wandb: {later}"),
     ]
@@ -183,6 +196,11 @@ def refusal(args) -> str:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.tensor_parallel > 1 and (args.pipeline_stages > 1 or args.fsdp):
+        print("FATAL: --tensor_parallel composes with data parallelism and "
+              "--grad_accum, not with --pipeline_stages/--fsdp (pick one "
+              "model-axis strategy)")
+        return 1
     why = refusal(args)
     if why:
         print(f"FATAL: {why}", file=sys.stderr)
@@ -191,7 +209,11 @@ def main(argv=None) -> int:
         print("FATAL: --fsdp does not compose with --fp32_control "
               "(the control run is a single-branch diagnostic)")
         return 1
-    if args.multistep > 1 and (args.fp32_control or args.fsdp):
+    if args.tensor_parallel > 1 and args.fp32_control:
+        print("FATAL: --tensor_parallel does not compose with --fp32_control "
+              "(the control run is a single-branch diagnostic)")
+        return 1
+    if args.multistep > 1 and (args.fp32_control or args.fsdp or args.tensor_parallel > 1):
         print("FATAL: --multistep composes only with the plain QAT path "
               "(not fsdp/tp/pp/fp32_control)")
         return 1
@@ -219,13 +241,38 @@ def _train(args, device: torch.device, distributed: bool) -> int:
         world,
     )
 
-    # the largest rank count that divides the batch trains, as JAX's CLI
-    # takes the largest device count (cli/train.py:469-475)
+    if args.preset:
+        from onebit_asr_tpu_torch.model.presets import PRESETS
+
+        for k, v in PRESETS[args.preset].items():
+            setattr(args, k, v)
     _, n_world = world()
-    n = n_world
-    while args.batch_size % n:
-        n -= 1
-    mesh = make_mesh(ranks=range(n))
+    TP = args.tensor_parallel
+    if TP > 1:
+        from onebit_asr_tpu_torch.parallel.sharding_rules import check_tp
+
+        # JAX's checks (cli/train.py:418-426), then the port's own
+        if n_world % TP:
+            print(f"FATAL: {n_world} devices not divisible by --tensor_parallel {TP}")
+            return 1
+        if args.batch_size % (n_world // TP):
+            print(f"FATAL: batch {args.batch_size} not divisible by data axis "
+                  f"{n_world // TP}")
+            return 1
+        why = check_tp(args, TP)
+        if why:
+            print(f"FATAL: {why}")
+            return 1
+        mesh = make_mesh((n_world // TP, TP), ("data", "model"))
+        n = n_world
+    else:
+        # the largest rank count that divides the batch trains, as JAX's CLI
+        # takes the largest device count (cli/train.py:469-475)
+        n = n_world
+        while args.batch_size % n:
+            n -= 1
+        mesh = make_mesh(ranks=range(n))
+    n_data = mesh.axis_size("data")
     # the end of an epoch's wait, on a group whose limit is not the step's
     wait_group = (dist.new_group(list(mesh.ranks), timeout=EVAL_WAIT, backend="gloo")
                   if distributed else None)
@@ -237,7 +284,7 @@ def _train(args, device: torch.device, distributed: bool) -> int:
         print("FATAL: --multistep is the single-chip dispatch-amortization knob; "
               "use data parallelism on multi-chip")
         return 1
-    main_rank = mesh.index("data") == 0
+    main_rank = mesh.index(mesh.axis_names) == 0
     say = print if main_rank else (lambda *a, **k: None)
     # under --fsdp each rank's rows stay contiguous and the step splits them;
     # the data-parallel step's micro-batch i spans every rank's i-th part
@@ -306,18 +353,13 @@ def _train(args, device: torch.device, distributed: bool) -> int:
                                         spec_augment=not args.no_spec_augment),
             device=device)
         # the data module keeps this rank's rows before featurizing them
-        rows = None if mesh.size == 1 else (
-            lambda B: local_rows(B, mesh.index("data"), mesh.size, micro))
+        rows = None if n_data == 1 else (
+            lambda B: local_rows(B, mesh.index("data"), n_data, micro))
         get_train = lambda epoch: dm.featurized_batches(  # noqa: E731
             "train", epoch, augment=True, rows=rows)
         get_valid = lambda: dm.featurized_batches("dev", augment=False)  # noqa: E731
         to_device = lambda b: batch_to_device(b, device)  # noqa: E731
     vocab_size = dm.vocab_size()
-    if args.preset:
-        from onebit_asr_tpu_torch.model.presets import PRESETS
-
-        for k, v in PRESETS[args.preset].items():
-            setattr(args, k, v)
     model_cfg = ModelConfig(
         input_dim=args.input_dim, vocab_size=vocab_size, enc_d_model=args.enc_d_model,
         enc_layers=args.enc_layers, enc_heads=args.enc_heads, enc_d_ff=args.enc_d_ff,
@@ -405,6 +447,18 @@ def _train(args, device: torch.device, distributed: bool) -> int:
             p.data = p.data.new_empty(0)
         say(f"FSDP/ZeRO-2: params + moments sharded over {mesh.size} ranks, gradients "
             "reduce-scattered")
+    elif TP > 1:
+        from onebit_asr_tpu_torch.parallel.sharding_rules import gather_state_tp, shard_state_tp
+        from onebit_asr_tpu_torch.train import make_tp_train_step
+
+        # Megatron TP: the encoder's projections and their moments shard
+        # over "model", the batch over "data"
+        step_fn = make_tp_train_step(model, optimizer, loss_cfg, specials, args.enc_layers, mesh,
+                                     grad_accum=args.grad_accum)
+        state = shard_state_tp(state, mesh)
+        for p in model.parameters():  # the step and evaluation pass params in
+            p.data = p.data.new_empty(0)
+        say(f"tensor parallelism: {TP}-way model axis x {n_data} data")
     elif distributed:
         if args.fp32_control:
             step_fn = make_fp32_train_step(model, optimizer, loss_cfg, specials,
@@ -495,7 +549,7 @@ def _train(args, device: torch.device, distributed: bool) -> int:
                     state, aux = step_fn(state, batch)
                 losses.append(aux["loss"])
                 # the rows of every rank
-                n_utts += int(np.prod(batch["tokens"].shape[:-1])) * mesh.size
+                n_utts += int(np.prod(batch["tokens"].shape[:-1])) * n_data
         if args.profile_dir and epoch == start_epoch:
             say(f"profile of epoch {epoch}: {os.path.join(args.profile_dir, 'trace.json')}")
         # the global loss, the same on every rank
@@ -504,8 +558,13 @@ def _train(args, device: torch.device, distributed: bool) -> int:
         if not np.isfinite(train_loss):
             print(f"FATAL: non-finite train loss at epoch {epoch}")
             return 1
-        # under --fsdp every rank takes part in putting the full state together
-        full = gather_state_fsdp(state, mesh, dims) if args.fsdp else state
+        # under --fsdp and --tensor_parallel every rank takes part in putting
+        # the full state together
+        full = state
+        if args.fsdp:
+            full = gather_state_fsdp(state, mesh, dims)
+        elif TP > 1:
+            full = gather_state_tp(state, mesh)
         if main_rank:
             end_of_epoch(epoch, full, train_loss, dt, n_utts, pf_stats)
         del full

@@ -105,30 +105,34 @@ class ConformerASR(nn.Module):
         tgt_valid_mask: Optional[torch.Tensor] = None,
         draws=None,
         norm_group=None,
+        tp=None,
     ):
         """(enc_out, enc_mask, logits_ctc); with `tgt_inp` (a model with a
         decoder) also the decoder's logits, as `forward_with_decoder`."""
         if tgt_inp is not None:
             return self.forward_with_decoder(feats, feat_lens, tgt_inp, tgt_valid_mask,
-                                             binary_mask, draws, norm_group)
+                                             binary_mask, draws, norm_group, tp)
         enc_out, enc_mask = self.encoder(feats, feat_lens, binary_mask)
         # logits stay in the compute dtype, as in the JAX model
         return enc_out, enc_mask, self.ctc_head(enc_out)
 
     def forward_with_decoder(self, feats, feat_lens, tgt_inp, tgt_valid_mask,
                              binary_mask: Optional[torch.Tensor] = None, draws=None,
-                             norm_group=None):
+                             norm_group=None, tp=None):
         """One training branch (asr.py:213): encoder + CTC head + decoder at
         `decoder_bits` of the branch's mask -> (enc_out, enc_mask,
         logits_ctc, dec_logits). `draws` (see layers.DropoutRng) feeds every
         dropout site for this call; None runs without dropout. `norm_group`
         (a process group) makes every batch norm take its statistics over
-        the group's ranks for this call (JAX's `norm_axis`)."""
+        the group's ranks for this call (JAX's `norm_axis`). `tp` (a
+        layers.ModelShard) runs the encoder's blocks tensor-parallel on the
+        parameters' shards (parallel/sharding_rules.py) for this call."""
         if not hasattr(self, "decoder"):
             raise RuntimeError("forward_with_decoder needs a decoder: the QAT form (qat=True) "
                                "or the serving form built with decoder=True")
         self.parts.rng.draws = draws
         self.parts.norm_group = norm_group
+        self.parts.tp = self.parts.rng.shard = tp
         try:
             enc_out, enc_mask, logits_ctc = self(feats, feat_lens, binary_mask)
             dec_logits = self.decoder(tgt_inp, enc_out, enc_mask, tgt_valid_mask,
@@ -136,4 +140,5 @@ class ConformerASR(nn.Module):
         finally:
             self.parts.rng.draws = None
             self.parts.norm_group = None
+            self.parts.tp = self.parts.rng.shard = None
         return enc_out, enc_mask, logits_ctc, dec_logits

@@ -111,7 +111,8 @@ class Parts:
     projections (packed serving `QuantDense`, or `QATDense`, whose alpha is
     per output channel with `per_channel`) and the dropout (rate 0 and no
     draws in the serving form), all FastDropout layers drawing from one
-    shared `DropoutRng`."""
+    shared `DropoutRng`. `tp` is the ModelShard of a tensor-parallel call
+    in progress, or None."""
 
     def __init__(self, compute_dtype: torch.dtype, int8_act: bool = False, qat: bool = False,
                  dropout: float = 0.0, per_channel: bool = False):
@@ -121,17 +122,22 @@ class Parts:
         self.dropout = dropout
         self.per_channel = per_channel
         self.rng = DropoutRng()
-        # the process group of sync-BN for the call in progress (set by
-        # ConformerASR.forward_with_decoder, as rng.draws is), or None
+        # the process group of sync-BN and the model shard for the call in
+        # progress (set by ConformerASR.forward_with_decoder, as rng.draws
+        # is), or None
         self.norm_group = None
+        self.tp = None
 
-    def proj(self, in_features: int, features: int) -> nn.Module:
+    def proj(self, in_features: int, features: int, parallel: Optional[str] = None) -> nn.Module:
+        """A quantized projection; `parallel` ("column" or "row") is its
+        part under tensor parallelism (QATDense)."""
         if self.qat:
-            return QATDense(in_features, features, self.compute_dtype, self.per_channel)
+            return QATDense(in_features, features, self.compute_dtype, self.per_channel,
+                            parallel)
         return QuantDense(in_features, features, self.compute_dtype, self.int8_act)
 
-    def drop(self) -> FastDropout:
-        return FastDropout(self.dropout, self.rng)
+    def drop(self, model_dim: Optional[int] = None) -> FastDropout:
+        return FastDropout(self.dropout, self.rng, model_dim)
 
 
 def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, dropout=None, pair_mask=None):
@@ -164,18 +170,22 @@ def relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, dropout=None, pai
 
 class FeedForward(nn.Module):
     """Macaron feed-forward: pre-LN -> quantized d->d_ff -> swish -> dropout
-    -> quantized d_ff->d -> dropout."""
+    -> quantized d_ff->d -> dropout. Under tensor parallelism w1 is
+    column-parallel and w2 row-parallel: this rank's d_ff / TP features in
+    between."""
 
     def __init__(self, d: int, d_ff: int, parts: Parts):
         super().__init__()
+        self.parts = parts
         self.ln = LayerNorm(d)
-        self.w1 = parts.proj(d, d_ff)
-        self.w2 = parts.proj(d_ff, d)
-        self.drop1, self.drop2 = parts.drop(), parts.drop()
+        self.w1 = parts.proj(d, d_ff, "column")
+        self.w2 = parts.proj(d_ff, d, "row")
+        self.drop1, self.drop2 = parts.drop(model_dim=-1), parts.drop()
 
     def forward(self, x: torch.Tensor, bits=None) -> torch.Tensor:
-        y = self.drop1(F.silu(self.w1(self.ln(x), bits)))
-        return self.drop2(self.w2(y, bits))
+        tp = self.parts.tp
+        y = self.drop1(F.silu(self.w1(self.ln(x), bits, tp)))
+        return self.drop2(self.w2(y, bits, tp))
 
 
 class RelPosMHSA(nn.Module):
@@ -191,6 +201,11 @@ class RelPosMHSA(nn.Module):
     them to the kernel with the dropout rate (rate 0 and no draw otherwise,
     as in serving).
 
+    Under tensor parallelism (`parts.tp`) q/k/v/pos are column-parallel and
+    out_proj row-parallel: this rank attends with its H / TP heads (a
+    contiguous slice of the projections' columns is whole heads) and its
+    slice of pos_bias_u/v, and keeps its heads' part of the dropout draws.
+
     `attention_fn` is a plain attribute: a function with the signature of
     `fused_relpos_attention` (its plain version, say) can take its place."""
 
@@ -199,6 +214,7 @@ class RelPosMHSA(nn.Module):
         if d % num_heads:
             raise ValueError(f"d_model {d} not divisible by heads {num_heads}")
         self.num_heads = num_heads
+        self.parts = parts
         self.compute_dtype = parts.compute_dtype
         self.fused = fused
         self.attention_fn = fused_relpos_attention
@@ -206,9 +222,10 @@ class RelPosMHSA(nn.Module):
         self.register_buffer("no_drop", torch.zeros((1, 1, 1, 1), dtype=torch.uint8),
                              persistent=False)
         self.ln = LayerNorm(d)
-        for name in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj"):
-            setattr(self, name, parts.proj(d, d))
-        self.attn_drop, self.out_drop = parts.drop(), parts.drop()
+        for name in ("q_proj", "k_proj", "v_proj", "pos_proj"):
+            setattr(self, name, parts.proj(d, d, "column"))
+        self.out_proj = parts.proj(d, d, "row")
+        self.attn_drop, self.out_drop = parts.drop(model_dim=1), parts.drop()
         dh = d // num_heads
         self.pos_bias_u = nn.Parameter(torch.empty(num_heads, dh))
         self.pos_bias_v = nn.Parameter(torch.empty(num_heads, dh))
@@ -218,16 +235,19 @@ class RelPosMHSA(nn.Module):
         # x [B, T, D]; pos [2T-1, D]; key_mask [B, T] bool (True = valid);
         # pair_mask [T, T] bool (True = may attend) or None
         B, T, D = x.shape
-        H = self.num_heads
-        dh = D // H
+        tp = self.parts.tp
+        dh = D // self.num_heads
+        H = self.num_heads // (1 if tp is None else tp.size)  # this rank's heads
         cd = self.compute_dtype
         y = self.ln(x)
-        q = self.q_proj(y, bits).reshape(B, T, H, dh)
-        k = self.k_proj(y, bits).reshape(B, T, H, dh)
-        v = self.v_proj(y, bits).reshape(B, T, H, dh)
-        p = self.pos_proj(pos.to(cd), bits).reshape(-1, H, dh)  # [2T-1, H, dh]
-        u = self.pos_bias_u.to(cd)
-        vb = self.pos_bias_v.to(cd)
+        q = self.q_proj(y, bits, tp).reshape(B, T, H, dh)
+        k = self.k_proj(y, bits, tp).reshape(B, T, H, dh)
+        v = self.v_proj(y, bits, tp).reshape(B, T, H, dh)
+        p = self.pos_proj(pos.to(cd), bits, tp).reshape(-1, H, dh)  # [2T-1, H, dh]
+        u, vb = self.pos_bias_u, self.pos_bias_v
+        if tp is not None:
+            u, vb = tp.part(u, 0), tp.part(vb, 0)
+        u, vb = u.to(cd), vb.to(cd)
         scale = 1.0 / math.sqrt(dh)
 
         # JAX takes its XLA chain whenever a pair mask is set
@@ -235,7 +255,7 @@ class RelPosMHSA(nn.Module):
         if self.fused and pair_mask is None:
             drop, rate, drop8 = self.attn_drop, 0.0, self.no_drop
             if drop.rng.draws is not None and drop_threshold(drop.rate) > 0:
-                rate, drop8 = drop.rate, drop.rng.draws((B, H, T, T), x.device)
+                rate, drop8 = drop.rate, drop.rng.draw((B, H, T, T), x.device, 1)
             out = self.attention_fn(
                 q.transpose(1, 2).contiguous(),  # [B, H, T, dh]
                 k.transpose(1, 2).contiguous(),
@@ -246,7 +266,7 @@ class RelPosMHSA(nn.Module):
         else:
             out = relpos_attention_chain(q, k, v, p, u, vb, key_mask, scale, self.attn_drop,
                                          pair_mask)
-        out = self.out_drop(self.out_proj(out.reshape(B, T, D), bits))
+        out = self.out_drop(self.out_proj(out.reshape(B, T, H * dh), bits, tp))
         return out * key_mask[..., None].to(out.dtype)  # zero padded queries
 
 

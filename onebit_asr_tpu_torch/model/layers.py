@@ -13,6 +13,7 @@ allocate them uninitialised.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -25,7 +26,7 @@ from onebit_asr_tpu_torch.ops.ternary_matmul import (
     ternary_matmul,
     ternary_matmul_w2a8,
 )
-from onebit_asr_tpu_torch.utils.collectives import all_sum
+from onebit_asr_tpu_torch.utils.collectives import all_sum, copy_to_model, reduce_from_model
 
 
 class QuantDense(nn.Module):
@@ -54,9 +55,13 @@ class QuantDense(nn.Module):
         self.register_buffer("alpha", torch.empty((), dtype=torch.float32))
         self.register_buffer("bias", torch.empty(features, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor, bits: Optional[BitSpec] = None) -> torch.Tensor:
-        """`bits` is accepted for the signature of `QATDense`: the packed
-        weights hold the precision they were exported at."""
+    def forward(self, x: torch.Tensor, bits: Optional[BitSpec] = None,
+                tp: Optional["ModelShard"] = None) -> torch.Tensor:
+        """`bits` and `tp` are accepted for the signature of `QATDense`: the
+        packed weights hold the precision they were exported at, and serving
+        has no model axis."""
+        if tp is not None:
+            raise ValueError("the packed serving form does not run tensor-parallel")
         lead = x.shape[:-1]
         y = self.matmul(
             x.reshape(-1, self.in_features).to(self.compute_dtype),
@@ -66,6 +71,27 @@ class QuantDense(nn.Module):
         return (y + self.bias).to(self.compute_dtype)
 
 
+@dataclass(frozen=True)
+class ModelShard:
+    """This rank's part of a tensor-parallel call (parallel/sharding_rules.py):
+    its heads and feature columns are part `index` of `size` along the
+    mesh's model axis, whose ranks hold the same rows and sum over `group`;
+    its rows are part `row_index` of `row_parts` of the batch. Every rank
+    draws each dropout site's bytes for the whole batch and all heads and
+    features, and keeps its part: the draws of the one-process step."""
+
+    group: object
+    size: int
+    index: int
+    row_parts: int = 1
+    row_index: int = 0
+
+    def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's contiguous 1/size of `t` along `dim`."""
+        n = t.shape[dim] // self.size
+        return t.narrow(dim, self.index * n, n)
+
+
 class QATDense(nn.Module):
     """Training form of the quantized dense layer (QuantDense with
     packed=False, layers.py:145-167): an f32 kernel [in, out], an alpha (a
@@ -73,31 +99,67 @@ class QATDense(nn.Module):
     quantizes the kernel at its own `bits` (1, 2, 32 or a bool, True =
     binary) with the straight-through quantizer, so one parameter set serves
     every branch. y = cast(x @ W_hat + bias): operands rounded to the
-    compute dtype, summed in f32."""
+    compute dtype, summed in f32.
+
+    `parallel` ("column", "row" or None) is its part in a tensor-parallel
+    call (`tp`, a ModelShard; None: the whole layer). Column-parallel, the
+    kernel is this rank's output columns, and the bias and a per-channel
+    alpha are sliced to them; the f32 input goes through `copy_to_model`.
+    Row-parallel, the kernel is this rank's input rows: the f32 partial
+    products are summed over the model group (`reduce_from_model`), then the
+    bias is added once."""
 
     def __init__(self, in_features: int, features: int, compute_dtype: torch.dtype,
-                 per_channel: bool = False):
+                 per_channel: bool = False, parallel: Optional[str] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.parallel = parallel
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.alpha = nn.Parameter(torch.empty((features,) if per_channel else ()))
         self.bias = nn.Parameter(torch.empty(features))
 
-    def forward(self, x: torch.Tensor, bits: BitSpec) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bits: BitSpec,
+                tp: Optional[ModelShard] = None) -> torch.Tensor:
         cd, f32 = self.compute_dtype, torch.float32
-        w = quantize_weight(self.kernel, self.alpha, bits)
-        y = torch.matmul(x.to(cd).to(f32), w.to(cd).to(f32))
-        return (y + self.bias).to(cd)
+        column = tp is not None and self.parallel == "column"
+        alpha, bias = self.alpha, self.bias
+        if column:
+            bias = tp.part(bias, 0)
+            alpha = tp.part(alpha, 0) if alpha.dim() else alpha
+        w = quantize_weight(self.kernel, alpha, bits)
+        xf = x.to(cd).to(f32)
+        if column:
+            xf = copy_to_model(xf, tp.group)
+        y = torch.matmul(xf, w.to(cd).to(f32))
+        if tp is not None and self.parallel == "row":
+            y = reduce_from_model(y, tp.group)
+        return (y + bias).to(cd)
 
 
 class DropoutRng:
     """Where the FastDropout layers of one model take their uint8 draws:
     `draws(shape, device)` returns uniform bytes, or is None (dropout off,
     as in evaluation). A training forward sets it for one call
-    (`generator_draws`); a test can set any function, JAX's own draws say."""
+    (`generator_draws`); a test can set any function, JAX's own draws say.
+    A tensor-parallel call also sets `shard` (a ModelShard), and `draw`
+    then draws the whole operand and keeps this rank's part."""
 
     def __init__(self):
         self.draws: Optional[Callable[[Tuple[int, ...], torch.device], torch.Tensor]] = None
+        self.shard: Optional[ModelShard] = None
+
+    def draw(self, shape, device, model_dim: Optional[int] = None) -> torch.Tensor:
+        """The bytes of a site whose operand here has `shape` (batch first;
+        `model_dim`, if any, split over the model axis)."""
+        tp = self.shard
+        if tp is None:
+            return self.draws(tuple(shape), device)
+        full = list(shape)
+        full[0] *= tp.row_parts
+        if model_dim is not None:
+            full[model_dim] *= tp.size
+        out = self.draws(tuple(full), device).narrow(0, tp.row_index * shape[0], shape[0])
+        return (out if model_dim is None else tp.part(out, model_dim)).contiguous()
 
 
 def generator_draws(generator: torch.Generator):
@@ -123,17 +185,19 @@ def fast_dropout(x: torch.Tensor, rate: float, drop8: torch.Tensor) -> torch.Ten
 
 class FastDropout(nn.Module):
     """Dropout from uint8 draws (layers.py:197-278), active while its
-    DropoutRng has draws."""
+    DropoutRng has draws. `model_dim`: the dim of its operand that a
+    tensor-parallel call splits over the model axis, if any."""
 
-    def __init__(self, rate: float, rng: DropoutRng):
+    def __init__(self, rate: float, rng: DropoutRng, model_dim: Optional[int] = None):
         super().__init__()
         self.rate = rate
         self.rng = rng
+        self.model_dim = model_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rng.draws is None or drop_threshold(self.rate) <= 0:
             return x
-        return fast_dropout(x, self.rate, self.rng.draws(x.shape, x.device))
+        return fast_dropout(x, self.rate, self.rng.draw(x.shape, x.device, self.model_dim))
 
 
 class Dense(nn.Module):

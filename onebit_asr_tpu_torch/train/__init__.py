@@ -10,6 +10,7 @@ from onebit_asr_tpu_torch.train.step import (  # noqa: F401
     make_fp32_train_step,
     make_multi_train_step,
     make_sharded_train_step,
+    make_tp_train_step,
     make_train_step,
     sample_sp_mask,
     stack_batches,

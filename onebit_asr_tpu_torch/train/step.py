@@ -36,6 +36,12 @@ step on its rows of the batch, every launch count above per rank at its
 local shapes, with sync-BN and the losses' means over the process group's
 global batch, and the ranks average their gradients
 (`make_sharded_train_step`; ZeRO-2 in parallel/fsdp.py).
+
+Tensor parallelism (JAX's GSPMD step on a ("data", "model") mesh,
+`make_tp_train_step`): each rank holds its shard of the encoder's
+projections (parallel/sharding_rules.py) and runs the step on its rows
+with its H / TP heads and d_ff / TP features, so rows 3-4 launch as often
+as above on [B, H/TP, T, dh] and rows 5-8 as above (replicated work).
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from torch.func import functional_call
 
 from onebit_asr_tpu_torch.losses import att_ce_loss, ctc_loss, kl_logits, make_att_targets
 from onebit_asr_tpu_torch.model.asr import precision_to_binary_mask
-from onebit_asr_tpu_torch.model.layers import generator_draws
+from onebit_asr_tpu_torch.model.layers import ModelShard, generator_draws
 from onebit_asr_tpu_torch.train.optim import AdamW
 from onebit_asr_tpu_torch.train.state import TrainState
 from onebit_asr_tpu_torch.utils.config import LossConfig, SpecialTokens
@@ -84,7 +90,7 @@ def batch_to_device(batch, device) -> Batch:
 
 
 def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_enc_layers: int,
-                    group=None):
+                    group=None, tp=None):
     """batch_loss(params, b, sp_mask, branch_rngs) -> (total, aux): the
     composite loss of the three branches [teacher, student, sp] at `params`
     (a {state-dict name: tensor} mapping of `model`); `branch_rngs` are three
@@ -92,7 +98,9 @@ def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_en
     process `group` (JAX's `axis_name`) `b` is this rank's rows: the batch
     norms take their statistics and every loss its mean over the group's
     global batch, so each rank's loss is the global one and its raw
-    gradient is world x its rows' share of the global gradient."""
+    gradient is world x its rows' share of the global gradient. `tp` (a
+    model.layers.ModelShard): `params` are this rank's tensor-parallel
+    shards, and every branch runs on them (make_tp_train_step)."""
     L = num_enc_layers
 
     def batch_loss(params, b: Batch, sp_mask: torch.Tensor,
@@ -104,7 +112,8 @@ def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_en
             _, enc_mask, logits_ctc, dec_logits = functional_call(
                 model, params, (b["feats"], b["feat_lens"]),
                 dict(binary_mask=bm, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid,
-                     draws=None if rng is None else generator_draws(rng), norm_group=group))
+                     draws=None if rng is None else generator_draws(rng), norm_group=group,
+                     tp=tp))
             enc_lens.append(enc_mask.sum(dim=-1))
             logits.append(logits_ctc)
             dec.append(dec_logits)
@@ -208,19 +217,27 @@ def step_draws(state: TrainState, loss_cfg: LossConfig, num_enc_layers: int,
 
 
 def _make_step(model, batch_loss, optimizer: AdamW, loss_cfg: LossConfig, num_enc_layers: int,
-               grad_accum: int, mesh=None, axes=("data",)):
+               grad_accum: int, mesh=None, axes=("data",), reduce_tp=None):
+    """The step on `batch_loss`; over a `mesh`, data-parallel over `axes`,
+    or with `reduce_tp` (grads -> (grads, global norm)) tensor-parallel, whose
+    dropout draws are the one-process step's (no fold)."""
     dropout = model.cfg.dropout > 0
 
     def train_step(state: TrainState, batch: Batch):
+        fold = mesh is not None and reduce_tp is None
         sp_mask, seeds = step_draws(state, loss_cfg, num_enc_layers,
-                                    None if mesh is None else mesh.index(axes))
+                                    mesh.index(axes) if fold else None)
         (_, aux), grads = accumulated_value_and_grad(batch_loss, state.params, batch, sp_mask,
                                                      seeds, dropout, grad_accum)
-        if mesh is not None:
+        g_norm = None
+        if reduce_tp is not None:
+            grads, g_norm = reduce_tp(grads)
+        elif mesh is not None:
             # each rank's gradient is world x its rows' share (the loss sums
             # over the group): the global gradient is the mean, not the sum
             grads = mesh.mean(grads, axes)
-        aux["grad_norm"] = optimizer.update(state.params, grads, state.mu, state.nu, state.count)
+        aux["grad_norm"] = optimizer.update(state.params, grads, state.mu, state.nu, state.count,
+                                            g_norm=g_norm)
         state.count += 1
         state.step += 1
         return state, aux
@@ -303,6 +320,39 @@ def make_sharded_train_step(model, optimizer: AdamW, loss_cfg: LossConfig,
                                  mesh.group_of(data_axis))
     return _make_step(model, batch_loss, optimizer, loss_cfg, num_enc_layers, grad_accum, mesh,
                       data_axis)
+
+
+def make_tp_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: SpecialTokens,
+                       num_enc_layers: int, mesh, data_axis: str = "data",
+                       model_axis: str = "model", grad_accum: int = 1):
+    """The tensor-parallel QAT step (JAX's make_train_step on a state that
+    `shard_state_tp` laid out over a ("data", "model") mesh, cli/train.py:
+    407-436): train_step(sharded_state, local_batch) -> (sharded_state, aux).
+    The state is this rank's shard (parallel/sharding_rules.py), the batch
+    its rows along `data_axis` (`shard_batch(batch, mesh, data_axis,
+    micro=grad_accum)`; the ranks of one model group hold the same rows).
+    Each branch runs the encoder's projections column- and row-parallel over
+    `model_axis` (model/layers.py::QATDense), attention on this rank's heads;
+    sync-BN and the losses sum over `data_axis` only. The gradients of the
+    replicated leaves used in part are summed over the model group, all are
+    averaged over the data axis, and AdamW clips on the global norm
+    (`tp_reduce_grads`), so every rank of a model group keeps the same
+    replicated leaves.
+
+    Every rank draws the sp mask, the seeds and each dropout site's bytes of
+    the one-process step on the whole batch and keeps its rows and its heads'
+    or features' part, so at any dropout the step equals make_train_step's
+    on the whole batch up to f32 summation order."""
+    from onebit_asr_tpu_torch.parallel.sharding_rules import tp_reduce_grads
+
+    n_data = mesh.axis_size(data_axis)
+    tp = ModelShard(mesh.group_of(model_axis), mesh.axis_size(model_axis),
+                    mesh.index(model_axis), n_data, mesh.index(data_axis))
+    batch_loss = make_batch_loss(model, loss_cfg, specials, num_enc_layers,
+                                 mesh.group_of(data_axis) if n_data > 1 else None, tp)
+    return _make_step(model, batch_loss, optimizer, loss_cfg, num_enc_layers, grad_accum, mesh,
+                      (data_axis,),
+                      lambda grads: tp_reduce_grads(grads, mesh, data_axis, model_axis))
 
 
 def make_multi_train_step(model, optimizer: AdamW, loss_cfg: LossConfig,

@@ -455,10 +455,13 @@ def test_eval_step_matches_jax(precision):
 
 REFUSED_FLAGS = [
     ([], "real data"),
-    # --fsdp is ported: beside it --tensor_parallel is still refused (the id
-    # keeps the case's name)
-    pytest.param(["--fsdp", "--tensor_parallel", "2"], "--tensor_parallel", id="flags1---fsdp"),
-    (["--tensor_parallel", "2"], "--tensor_parallel"),
+    # --fsdp and --tensor_parallel are ported: side by side they exit 1 with
+    # JAX's message, and --tensor_parallel 2 in one process exits 1 with
+    # JAX's (one device is not divisible by 2); the ids keep the cases' names
+    pytest.param(["--fsdp", "--tensor_parallel", "2"],
+                 "FATAL: --tensor_parallel composes with data parallelism", id="flags1---fsdp"),
+    pytest.param(["--tensor_parallel", "2"], "FATAL: 1 devices not divisible by --tensor_parallel 2",
+                 id="flags2---tensor_parallel"),
     (["--pipeline_stages", "2"], "--pipeline_stages"),
     (["--wandb"], "--wandb"),
 ]
@@ -470,10 +473,14 @@ def test_cli_refuses_what_is_not_ported(flags, names, tmp_path, capsys):
     data = (["--data_dir", str(tmp_path / "no_data")] if names == "real data"
             else ["--dummy_data"])
     rc = cli.main(["--device", "cpu", "--save_dir", str(tmp_path), *data, *flags, *TINY_CLI])
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert (f"no tokenizer artifact in {tmp_path / 'no_data'}" if names == "real data"
-            else names) in err
+    out = capsys.readouterr()
+    if names.startswith("FATAL"):  # JAX's own refusals: exit 1, on stdout
+        assert rc == 1
+        assert names in out.out
+    else:
+        assert rc == 2
+        assert (f"no tokenizer artifact in {tmp_path / 'no_data'}" if names == "real data"
+                else names) in out.err
     assert not os.listdir(tmp_path)  # refused before anything is written
 
 

@@ -201,6 +201,36 @@ def fsdp(grad_accum=1, batch_size=8, min_elems=256, reference=False):
     return out
 
 
+def tensor_parallel(shape=(2, 2), axes=("data", "model"), flags=None, grad_accum=1,
+                    batch_size=8, reference=False):
+    """make_tp_train_step over every rank on a mesh of `shape` over `axes`
+    (the model axis "model", the data axis "data"), from shard_state_tp of
+    the one-process state, on this rank's rows of two batches: the shards'
+    shapes, each rank's own (sharded) state and the gathered full state.
+    Rank 0 also returns the one-process step's results with `reference`."""
+    from onebit_asr_tpu_torch.parallel import sharding_rules as S
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from onebit_asr_tpu_torch.train.step import make_tp_train_step
+    from onebit_asr_tpu_torch.utils.config import LossConfig, SpecialTokens
+
+    _pin_sp_mask()
+    mesh = make_mesh(shape, axes)
+    model, full = _model(flags or {})
+    opt = _optimizer()
+    step = make_tp_train_step(model, opt, LossConfig(), SpecialTokens(), L, mesh,
+                              grad_accum=grad_accum)
+    state = S.shard_state_tp(full, mesh)
+    local = [shard_batch(b, mesh, "data", micro=grad_accum) for b in batches(batch_size)]
+    out = _drive(step, state, opt, local)
+    out["local"] = {part: out.pop(part) for part in ("params", "mu", "nu")}
+    whole = S.gather_state_tp(state, mesh)
+    out.update(params=_np(whole.params), mu=_np(whole.mu), nu=_np(whole.nu),
+               rows=int(local[0]["feats"].shape[0]), coords=mesh.coords)
+    if reference and dist.get_rank() == 0:
+        out["reference"] = one_process(flags, grad_accum, batch_size)
+    return out
+
+
 def data_rows(data_dir, batch_size, cached):
     """The first train batch of epoch 0 with SpecAugment on, on this rank's
     rows (`local_rows`); rank 0 also returns the whole batch."""
