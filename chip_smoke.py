@@ -7,8 +7,8 @@ Drives packed-ternary offline transcription of Conformer-M at full width and
 depth (d=256, 12 blocks, 4 heads, d_ff 1024, vocab 5004, bf16) with random
 weights drawn from --seed, on 8 synthetic waveforms of 2-16 s, then the
 3-branch QAT train step of the same model, its data-parallel and ZeRO-2
-forms over nccl, its tensor-parallel form on two ranks of the card over
-gloo, and the train CLI (under torchrun too), then serves and
+forms over nccl, its tensor-parallel and pipelined forms on two ranks of
+the card over gloo, and the train CLI (under torchrun too), then serves and
 evaluates the runs the train CLI wrote, then trains, evaluates and serves on
 a seeded data dir through the real-data path, then under the model options
 (a streaming encoder, a quantized reference decoder, per-channel alpha),
@@ -292,8 +292,9 @@ artifacts and runs them from module.pt2 alone:
 19. serving artifacts (export.py on torch.export; (a)-(d) after step 18,
    (e) at the end of step 13, (f) inside step 17, each on what that step
    built; none before a profiler session): every artifact is exported,
-   saved as module.pt2 + meta.json and loaded back, and its export, save
-   and load seconds and module size are printed. (a) step 3's random
+   saved (module.pt2, or a module_<device>.pt2 a member, + meta.json) and
+   loaded back, and its export, save and load seconds and sizes are
+   printed. (a) step 3's random
    Conformer-M with both fused flags, packed at precision 2, B=8, T=1,598
    (step 3's features): one forward from the loaded artifact launches row
    1 exactly 108 times, row 5 once, row 3 12 times and row 2 never, and its
@@ -312,7 +313,12 @@ artifacts and runs them from module.pt2 alone:
    must equal step 17 (ii)'s server ids for all 8 streams. ms per batch (or
    chunk step) from each artifact beside the live forward (CUDA events; in
    (a)-(d) the median of 6 alternating rounds of 3 calls each, with the
-   rounds' range of artifact/live ratios).
+   rounds' range of artifact/live ratios). (a) is exported for platforms
+   ("cuda", "cpu") into one artifact (module_cuda.pt2 and module_cpu.pt2):
+   the checks above load its default member, cuda; its cpu member, loaded
+   by device and run on the same features on the host, must launch nothing,
+   give the same valid frames and stay within step 3's tolerances of the
+   cuda member's log-probs (mean |d| <= 0.05, argmax agreement >= 0.9).
 
 20. data parallel (run after step 7, before step 8): Conformer-M with both
    fused flags at dropout 0, B=16, 1,024 frames, U <= 48, over an nccl
@@ -354,6 +360,22 @@ artifacts and runs them from module.pt2 alone:
    3-4 on 2 heads only, and gather the same full state (a hash); ms per
    step and peak memory per rank are printed beside the one-process
    step's.
+22. pipeline parallel (right after step 21): rows 3 and 4 at a microbatch's
+   shape (B=8 of 16, H=4, T'=256, dh=64, dropout 0.1), each half of the
+   rows held against their plain versions (step 4's tolerances) and against
+   the same rows of one launch on all 16 (out, dq, dk, dv; dp, du, dvb as
+   the halves' sum; max |d| and whether it is bit-equal printed); then two
+   processes on the one card join a gloo group as a (data 1, stage 2) mesh
+   and run `make_pipeline_train_step` with M=2 microbatches on step 20's
+   model with the per-frame layer norm in the conv module (the pipeline
+   refuses batch norm) and batch: 1 + 3 steps at dropout 0 against the
+   one-process step on that model within PP_TOL, and one step at dropout
+   0.1 from a fresh state against the one-process step at 0.1 (loss, aux,
+   grad_norm and moments). Each rank must launch rows 3-4 3 x M x L/S = 36
+   times a step on 8 rows, rows 5-6 3 times on stage 0 and never on stage
+   1, rows 7-8 once, and gather the same full state (a hash); ms per step
+   and peak memory per rank are printed beside the one-process step's,
+   with the bubble fraction (S-1)/(M+S-1).
 
 `device_ms` opens each profile with 64 short spins of the card: after a
 process's first profiler session, each later session drops its first few
@@ -2117,14 +2139,15 @@ DP_STEPS = 3
 DP_TOL = (5e-3, 3e-2, 0.1, 3e-2)
 
 
-def dp_setup(seed):
-    """Step 20's model config (Conformer-M, both fused flags, dropout 0), its
-    random parameters from `seed`, and bench.py's batch."""
+def dp_setup(seed, **flags):
+    """Step 20's model config (Conformer-M, both fused flags, dropout 0; with
+    `flags` over it), its random parameters from `seed`, and bench.py's
+    batch."""
     from onebit_asr_tpu_torch.convert import init_params
     from onebit_asr_tpu_torch.utils.config import ModelConfig
 
-    cfg = dataclasses.replace(ModelConfig(), dropout=0.0, fused_attention=True,
-                              fused_subsampler=True)
+    cfg = dataclasses.replace(ModelConfig(), **{"dropout": 0.0, "fused_attention": True,
+                                                "fused_subsampler": True, **flags})
     return cfg, init_params(cfg, seed), bench_batch(cfg, seed)
 
 
@@ -2371,6 +2394,24 @@ def _digest(state):
     return h.hexdigest()
 
 
+def attention_shapes(dim):
+    """Record dim `dim` of q (1: heads, 0: rows) at every launch of rows 3
+    and 4: {row: set of sizes}, which the caller clears."""
+    from onebit_asr_tpu_torch.ops import attention as fa
+
+    seen = {"fused_relpos_attention": set(), "fused_relpos_attention_bwd": set()}
+
+    def recorded(name, fn):
+        def call(q, *args, **kwargs):
+            seen[name].add(int(q.shape[dim]))
+            return fn(q, *args, **kwargs)
+        return call
+
+    fa._KERNELS = (recorded("fused_relpos_attention", fa._KERNELS[0]),
+                   recorded("fused_relpos_attention_bwd", fa._KERNELS[1]))
+    return seen
+
+
 def tp_rank_work(seed):
     """One rank of step 21: the TP step at dropout 0 (a warm-up + DP_STEPS
     steps) and at 0.1 (one step from a fresh state), each with the rows 3-4
@@ -2379,23 +2420,13 @@ def tp_rank_work(seed):
     import torch.distributed as dist
 
     from onebit_asr_tpu_torch.convert import qat_model_from_jax
-    from onebit_asr_tpu_torch.ops import attention as fa
     from onebit_asr_tpu_torch.parallel.mesh import make_mesh
     from onebit_asr_tpu_torch.parallel.sharding_rules import gather_state_tp, shard_state_tp
     from onebit_asr_tpu_torch.train import AdamW, create_train_state, make_tp_train_step
     from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
 
     kernels = smoke_kernels()
-    heads = {"fused_relpos_attention": set(), "fused_relpos_attention_bwd": set()}
-
-    def recorded(name, fn):
-        def call(q, *args, **kwargs):
-            heads[name].add(int(q.shape[1]))
-            return fn(q, *args, **kwargs)
-        return call
-
-    fa._KERNELS = (recorded("fused_relpos_attention", fa._KERNELS[0]),
-                   recorded("fused_relpos_attention_bwd", fa._KERNELS[1]))
+    heads = attention_shapes(1)
     mesh = make_mesh((1, TP_SIZE), ("data", "model"))
     cfg, params, batch = dp_setup(seed)
     out = {"coords": mesh.coords}
@@ -2427,9 +2458,10 @@ def tp_rank_work(seed):
     return out
 
 
-def tp_rank(rank, port, seed, outbox):
-    """Step 21's rank `rank` of TP_SIZE on cuda:0, in a gloo group at
-    127.0.0.1:`port`: its results, or its traceback, into `outbox`."""
+def rank_main(work, rank, world, port, seed, outbox):
+    """Rank `rank` of `world` on cuda:0, in a gloo group at
+    127.0.0.1:`port`: `work(seed)`'s results, or its traceback, into
+    `outbox`."""
     import traceback
 
     import torch.distributed as dist
@@ -2439,9 +2471,9 @@ def tp_rank(rank, port, seed, outbox):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                                world_size=TP_SIZE)
+                                world_size=world)
         try:
-            outbox.put((rank, True, tp_rank_work(seed)))
+            outbox.put((rank, True, work(seed)))
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -2449,16 +2481,19 @@ def tp_rank(rank, port, seed, outbox):
         raise
 
 
-def tp_ranks(seed, timeout=900):
-    """Step 21's TP_SIZE ranks, each a spawned process on cuda:0: their
-    results in rank order; raises with a rank's traceback if one failed."""
+def spawn_ranks(work, world, seed, what, timeout=900):
+    """`world` ranks, each a spawned process on cuda:0 running `work(seed)`
+    (steps 21 and 22; gloo sums CUDA tensors through the host, nccl takes
+    one rank a device): their results in rank order; raises with a rank's
+    traceback if one failed, and soon if one died without a word."""
     import multiprocessing as mp
     import queue
 
     ctx = mp.get_context("spawn")
     outbox = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=tp_rank, args=(r, port, seed, outbox)) for r in range(TP_SIZE)]
+    procs = [ctx.Process(target=rank_main, args=(work, r, world, port, seed, outbox))
+             for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
@@ -2478,10 +2513,10 @@ def tp_ranks(seed, timeout=900):
                     got.append(outbox.get(timeout=10))
                     continue
                 except queue.Empty:
-                    raise AssertionError(f"tensor parallel: ranks {dead} (rank: exit code) "
+                    raise AssertionError(f"{what}: ranks {dead} (rank: exit code) "
                                          "ended without a result") from None
             if time.monotonic() > deadline:
-                raise AssertionError(f"tensor parallel: no result in {timeout} s")
+                raise AssertionError(f"{what}: no result in {timeout} s")
         got.sort(key=lambda r: r[0])
     finally:
         for p in procs:
@@ -2491,7 +2526,7 @@ def tp_ranks(seed, timeout=900):
                 p.join()
     for rank, ok, value in got:
         if not ok:
-            raise AssertionError(f"tensor parallel: rank {rank} failed:\n{value}")
+            raise AssertionError(f"{what}: rank {rank} failed:\n{value}")
     return [value for _, _, value in got]
 
 
@@ -2505,12 +2540,15 @@ def _heads_slice(t, h0, h1, dim=1):
     return t.narrow(dim, h0, h1 - h0).contiguous()
 
 
-def tp_attention_check(cfg, seed):
-    """Rows 3 and 4 at a TP rank's local shape [16, H/TP, 256, 64] (the
-    train step's, dropout 0.1): each head half against the plain versions
-    and against the same heads' slice of one launch on all H heads.
-    Returns (max |d| to the plain versions, max |d| to the full launch's
-    slice, whether that slice is bit-equal)."""
+def attention_parts_check(cfg, seed, dim, parts):
+    """Rows 3 and 4 (training form) at the train step's shape [16, H, 256,
+    64], dropout 0.1, split in `parts` along q's dim `dim` (1: a TP rank's
+    heads, step 21; 0: a pipeline microbatch's rows, step 22): each part
+    against the plain versions and against the same part of one launch on
+    the whole. Returns (max |d| to the plain versions, max |d| to the whole
+    launch's part, whether that part is bit-equal). Over rows, dp, du and
+    dvb sum over the batch: the parts' sum is held against the whole's
+    (max |d| only)."""
     from onebit_asr_tpu_torch.ops import attention as fa
 
     dev = torch.device(DEVICE)
@@ -2532,19 +2570,24 @@ def tp_attention_check(cfg, seed):
                                                rate, stats=full_stats)
     err_plain = err_full = 0.0
     bit_equal = True
-    n = H // TP_SIZE
-    for h0 in range(0, H, n):
+    n = (H if dim == 1 else B) // parts
+    summed = [torch.zeros_like(t, dtype=torch.float32) for t in full_grads[3:]]
+    for h0 in range(0, n * parts, n):
         h1 = h0 + n
-        ops = (*(_heads_slice(t, h0, h1) for t in (q, k, v)),
-               *(_heads_slice(t, h0, h1, 0) for t in (p, u, vb)), key_mask,
-               _heads_slice(drop8, h0, h1))
-        gl = _heads_slice(g, h0, h1)
+        if dim == 1:  # heads: p, u and vb split too, the key mask whole
+            ops = (*(_heads_slice(t, h0, h1) for t in (q, k, v)),
+                   *(_heads_slice(t, h0, h1, 0) for t in (p, u, vb)), key_mask,
+                   _heads_slice(drop8, h0, h1))
+        else:  # rows: the key mask and the draws split, p, u and vb whole
+            ops = (*(_heads_slice(t, h0, h1, 0) for t in (q, k, v)), p, u, vb,
+                   _heads_slice(key_mask, h0, h1, 0), _heads_slice(drop8, h0, h1, 0))
+        gl = _heads_slice(g, h0, h1, dim)
         out, stats = fa._fwd(*ops, scale, rate, stats=True)
         grads = fa.fused_relpos_attention_bwd(*ops, gl, scale, rate, stats=stats)
         ref = fa.fused_relpos_attention_reference(*ops, scale, rate).float()
         d = (out.float() - ref).abs()
         if not bool((d <= 1e-2 + 2.0 ** -7 * ref.abs()).all()):
-            raise AssertionError(f"tensor parallel: row 3 on heads {h0}:{h1}: max |d| "
+            raise AssertionError(f"row 3 on part {h0}:{h1} of dim {dim}: max |d| "
                                  f"{d.max().item()} to the plain version over tolerance")
         err_plain = max(err_plain, d.max().item())
         refs = fa.fused_relpos_attention_bwd_reference(*ops, gl, scale, rate)
@@ -2552,15 +2595,43 @@ def tp_attention_check(cfg, seed):
             a, r = a.float(), r.float()
             d = (a - r).abs()
             if not bool((d <= 2.0 ** -7 * (r.abs() + r.abs().max())).all()):
-                raise AssertionError(f"tensor parallel: row 4 {name} on heads {h0}:{h1}: "
+                raise AssertionError(f"row 4 {name} on part {h0}:{h1} of dim {dim}: "
                                      f"max |d| {d.max().item()} to the plain version")
             err_plain = max(err_plain, d.max().item())
-        sliced = [_heads_slice(full_out, h0, h1)]
-        sliced += [_heads_slice(t, h0, h1, 1 if i < 3 else 0) for i, t in enumerate(full_grads)]
-        for name, a, r in zip(("out", *GRADS), (out, *grads), sliced):
+        pairs = [(out, _heads_slice(full_out, h0, h1, dim))]
+        pairs += [(a, _heads_slice(t, h0, h1, dim)) for a, t in zip(grads[:3], full_grads[:3])]
+        if dim == 1:
+            pairs += [(a, _heads_slice(t, h0, h1, 0)) for a, t in zip(grads[3:], full_grads[3:])]
+        else:
+            for acc, a in zip(summed, grads[3:]):
+                acc += a.float()
+        for a, r in pairs:
             err_full = max(err_full, (a.float() - r.float()).abs().max().item())
             bit_equal = bit_equal and torch.equal(a, r)
+    if dim == 0:
+        for acc, r in zip(summed, full_grads[3:]):
+            err_full = max(err_full, (acc - r.float()).abs().max().item())
     return err_plain, err_full, bit_equal
+
+
+def one_step_distance(run, ref):
+    """Distances of one step at LR 0 (the parameters do not move): loss and
+    aux terms, grad_norm and moments as `dp_distance` takes them, and a line
+    of them."""
+    d_aux = max(abs(run["aux"][0][k] - v) / abs(v) for k, v in ref["aux"][0].items()
+                if k != "grad_norm" and v)
+    d_norm = (abs(run["aux"][0]["grad_norm"] - ref["aux"][0]["grad_norm"])
+              / ref["aux"][0]["grad_norm"])
+
+    def norm(tensors):
+        return sum(float(t.double().square().sum()) for t in tensors) ** 0.5
+
+    d_mom = max(norm(run[part][k] - v for k, v in ref[part].items())
+                / norm(ref[part].values()) for part in ("mu", "nu"))
+    text = (f"loss/aux max relative |d|={d_aux:.3g} grad_norm {d_norm:.3g} moments "
+            f"|d|/|ref| {d_mom:.3g} loss={run['aux'][0]['loss']:.6f} vs "
+            f"{ref['aux'][0]['loss']:.6f}")
+    return (d_aux, d_norm, d_mom), text
 
 
 def tensor_parallel_phase(kernels, seed, smi, ref):
@@ -2571,7 +2642,7 @@ def tensor_parallel_phase(kernels, seed, smi, ref):
 
     t_phase = time.perf_counter()
     cfg, params, batch = dp_setup(seed)
-    err_plain, err_full, bit_equal = tp_attention_check(cfg, seed)
+    err_plain, err_full, bit_equal = attention_parts_check(cfg, seed, 1, TP_SIZE)
     H = cfg.enc_heads // TP_SIZE
     log(f"tensor parallel: rows 3-4 at the local shape [16, {H}, 256, 64], dropout 0.1, each "
         f"head half: max |d| {err_plain:.3g} to the plain versions (within their tolerances); "
@@ -2581,7 +2652,7 @@ def tensor_parallel_phase(kernels, seed, smi, ref):
                      make_mesh(), kernels, seed, steps=1, warmup=False)
     del params
     t0 = time.perf_counter()
-    ranks = tp_ranks(seed)
+    ranks = spawn_ranks(tp_rank_work, TP_SIZE, seed, "tensor parallel")
     wall = time.perf_counter() - t0
     per_step = {"ctc_alpha": 1, "ctc_beta": 1, "fused_relpos_attention": 3 * cfg.enc_layers,
                 "fused_relpos_attention_bwd": 3 * cfg.enc_layers, "fused_subsample": 3,
@@ -2608,27 +2679,146 @@ def tensor_parallel_phase(kernels, seed, smi, ref):
             dist_, _, text = dp_distance(got, want)
             bad = any(d > t for d, t in zip(dist_, TP_TOL))
         else:  # the LR is 0 at step 0: the parameters do not move
-            d_aux = max(abs(got["aux"][0][k] - v) / abs(v) for k, v in want["aux"][0].items()
-                        if k != "grad_norm" and v)
-            d_norm = (abs(got["aux"][0]["grad_norm"] - want["aux"][0]["grad_norm"])
-                      / want["aux"][0]["grad_norm"])
-
-            def norm(tensors):
-                return sum(float(t.double().square().sum()) for t in tensors) ** 0.5
-
-            d_mom = max(norm(got[part][k] - v for k, v in want[part].items())
-                        / norm(want[part].values()) for part in ("mu", "nu"))
-            dist_ = (d_aux, d_norm, d_mom)
+            dist_, text = one_step_distance(got, want)
             bad = any(d > t for d, t in zip(dist_, (DP_TOL[0], DP_TOL[1], DP_TOL[3])))
-            text = (f"loss/aux max relative |d|={d_aux:.3g} grad_norm {d_norm:.3g} moments "
-                    f"|d|/|ref| {d_mom:.3g} loss={got['aux'][0]['loss']:.6f} vs "
-                    f"{want['aux'][0]['loss']:.6f}")
         log(f"tensor parallel: dropout {dropout}, ranks bit-equal, vs one process: {text}")
         if bad:
             raise AssertionError(f"tensor parallel: dropout {dropout} strays from the "
                                  f"one-process step: {dist_} beyond "
                                  f"{TP_TOL if dropout == 0 else DP_TOL}")
     log(f"tensor parallel: step 21 in {time.perf_counter() - t_phase:.2f} s (the two ranks "
+        f"{wall:.2f} s)")
+
+
+PP_STAGES, PP_MICRO = 2, 2  # step 22's mesh (data 1, stage 2) and microbatches
+# step 22's limits on the pipelined step's distance to the one-process step,
+# in DP_TOL's order: DP_TOL's, but loss and aux terms 3e-2. Microbatches sum
+# each weight gradient over two products in another f32 order, and bf16
+# rounds the activations of 8-row GEMMs apart from 16-row ones: on the card
+# five runs read 9.07e-3 in loss/aux each (the same bits; a KL term), 1.27e-3
+# with one microbatch, 1.47e-3 at f32 against the one-process step's own
+# 2.56e-5 (scripts/pp_probe.py; PERF.md section 6, pipeline parallelism);
+# the limit is 3x the reading, as TP_TOL's is
+PP_TOL = (3e-2,) + DP_TOL[1:]
+
+
+def pp_setup(seed, **flags):
+    """Step 22's model (step 20's with the per-frame layer norm in the conv
+    module: the pipeline refuses batch norm; `flags` over it), parameters
+    and batch."""
+    return dp_setup(seed, **{"conv_norm": "layer_norm", **flags})
+
+
+def pp_rank_work(seed, micro=PP_MICRO, flags=None, dropouts=(0.0, 0.1)):
+    """One rank of step 22: the pipelined step with `micro` microbatches at
+    dropout 0 (a warm-up + DP_STEPS steps) and at 0.1 (one step from a
+    fresh state), each with the rows of every rows-3-4 launch; rank 0 also
+    returns the gathered states. `flags` over step 22's model, and
+    `dropouts`, for scripts/pp_probe.py."""
+    import torch.distributed as dist
+
+    from onebit_asr_tpu_torch.convert import qat_model_from_jax
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh
+    from onebit_asr_tpu_torch.parallel.pipeline import (
+        gather_state_pipeline,
+        make_pipeline_train_step,
+        shard_state_pipeline,
+    )
+    from onebit_asr_tpu_torch.train import AdamW, create_train_state
+    from onebit_asr_tpu_torch.utils.config import LossConfig, OptimConfig, SpecialTokens
+
+    kernels = smoke_kernels()
+    rows = attention_shapes(0)
+    mesh = make_mesh((1, PP_STAGES), ("data", "stage"))
+    cfg, params, batch = pp_setup(seed, **(flags or {}))
+    out = {"coords": mesh.coords}
+    for dropout in dropouts:
+        c = dataclasses.replace(cfg, dropout=dropout)
+        model = qat_model_from_jax(c, params, device=DEVICE)
+        state = create_train_state(model, seed)
+        optimizer = AdamW(OptimConfig(warmup_steps=1), 100_000)
+        step = make_pipeline_train_step(model, optimizer, LossConfig(), SpecialTokens(),
+                                        c.enc_layers, mesh, micro)
+        state = shard_state_pipeline(state, mesh)
+        for p in model.parameters():  # as the CLI does: the step passes params in
+            p.data = p.data.new_empty(0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        for r in rows.values():
+            r.clear()
+        state, run = timed_steps_run(step, state, batch, kernels, base,
+                                     *((DP_STEPS, True) if dropout == 0 else (1, False)))
+        run["rows"] = {k: sorted(v) for k, v in rows.items()}
+        full = gather_state_pipeline(state, mesh)
+        run["digest"] = _digest(full)
+        if dist.get_rank() == 0:  # numpy: a tensor crosses the queue as a handle
+            run.update({part: {k: v.detach().cpu().numpy() for k, v in
+                               getattr(full, part).items()} for part in ("params", "mu", "nu")})
+        out[dropout] = run
+        del model, state, full, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_parallel_phase(kernels, seed, smi):
+    """Step 22: rows 3-4 at a microbatch's shape, then the pipelined step on
+    two ranks of one card over gloo against the one-process step on the same
+    (layer-norm) model at dropout 0 and 0.1."""
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    cfg, params, batch = pp_setup(seed)
+    B, H = 16, cfg.enc_heads
+    mb = B // PP_MICRO
+    err_plain, err_full, bit_equal = attention_parts_check(cfg, seed, 0, PP_MICRO)
+    log(f"pipeline parallel: rows 3-4 at the microbatch shape [{mb}, {H}, 256, 64], dropout "
+        f"0.1, each half of the rows: max |d| {err_plain:.3g} to the plain versions (within "
+        f"their tolerances); to the same rows of one [{B}, {H}, 256, 64] launch (dp, du, dvb: "
+        f"the halves' sum) max |d| {err_full:.3g} bit_equal={bit_equal}")
+    ref = dp_run("one process", cfg, params, batch, make_mesh(), kernels, seed)
+    dropped = dp_run("one process", dataclasses.replace(cfg, dropout=0.1), params, batch,
+                     make_mesh(), kernels, seed, steps=1, warmup=False)
+    del params
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(pp_rank_work, PP_STAGES, seed, "pipeline parallel")
+    wall = time.perf_counter() - t0
+    L = cfg.enc_layers
+    per_stage = L // PP_STAGES
+    log(f"pipeline parallel: one process (layer norm): ms_per_step={ref['ms']:.2f} "
+        f"peak_mem_gb={ref['peak_gb']:.3f} launches={ref['counts']}; bubble fraction "
+        f"(S-1)/(M+S-1) = {(PP_STAGES - 1) / (PP_MICRO + PP_STAGES - 1):.4f} (S={PP_STAGES}, "
+        f"M={PP_MICRO}) [{smi}]")
+    for dropout, steps, want in ((0.0, DP_STEPS, ref), (0.1, 1, dropped)):
+        for r in ranks:
+            run, first = r[dropout], r["coords"][1] == 0
+            per_step = {"ctc_alpha": 1, "ctc_beta": 1,
+                        "fused_relpos_attention": 3 * PP_MICRO * per_stage,
+                        "fused_relpos_attention_bwd": 3 * PP_MICRO * per_stage,
+                        **({"fused_subsample": 3, "fused_subsample_bwd": 3} if first else {})}
+            log(f"pipeline parallel: rank {r['coords']} (data, stage) dropout {dropout}: "
+                f"ms_per_step={run['ms']:.2f} peak_mem_gb={run['peak_gb']:.3f} launches="
+                f"{run['counts']} rows a launch of rows 3-4 {run['rows']} [{smi}]")
+            if run["counts"] != {k: steps * n for k, n in per_step.items()}:
+                raise AssertionError(f"pipeline parallel: rank {r['coords']} launches "
+                                     f"{run['counts']}, want {per_step} x {steps}")
+            if set(map(tuple, run["rows"].values())) != {(mb,)}:
+                raise AssertionError(f"pipeline parallel: rows 3-4 ran on rows {run['rows']}, "
+                                     f"want {mb}")
+        if len({r[dropout]["digest"] for r in ranks}) != 1:
+            raise AssertionError(f"pipeline parallel: the ranks' gathered states differ "
+                                 f"(dropout {dropout})")
+        got = as_tensors(ranks[0][dropout])
+        if dropout == 0:
+            dist_, _, text = dp_distance(got, want)
+            limits = PP_TOL
+        else:  # the LR is 0 at step 0: the parameters do not move
+            dist_, text = one_step_distance(got, want)
+            limits = (PP_TOL[0], PP_TOL[1], PP_TOL[3])
+        log(f"pipeline parallel: dropout {dropout}, ranks bit-equal, vs one process: {text}")
+        if any(d > t for d, t in zip(dist_, limits)):
+            raise AssertionError(f"pipeline parallel: dropout {dropout} strays from the "
+                                 f"one-process step: {dist_} beyond {limits}")
+    log(f"pipeline parallel: step 22 in {time.perf_counter() - t_phase:.2f} s (the two ranks "
         f"{wall:.2f} s)")
 
 
@@ -4387,9 +4577,11 @@ EXPORT_BEAM_FRAMES = 35  # raw frames of step 19 (e)'s beam artifact: T' = 8 (it
 
 
 def exported_artifact(what, root, export, meta, smi):
-    """Step 19: export (a call returning an ExportedProgram), save it as an
-    artifact directory under `root` and load it back -> (callable, meta),
-    printing the export, save and load seconds and module.pt2's size."""
+    """Step 19: export (a call returning an ExportedProgram, or {device:
+    program}), save it as an artifact directory under `root` and load its
+    default member (cuda) back -> (callable, meta, path), printing the
+    export, save and load seconds and each member's size (the cuda
+    program's graph)."""
     from onebit_asr_tpu_torch import export as ex
 
     path = os.path.join(root, "".join(c for c in what.split()[0] if c.isalnum()))
@@ -4400,12 +4592,14 @@ def exported_artifact(what, root, export, meta, smi):
     t2 = time.perf_counter()
     fn, meta = ex.load_artifact(path)
     t3 = time.perf_counter()
-    mb = os.path.getsize(os.path.join(path, "module.pt2")) / 1e6
+    mb = {d: round(os.path.getsize(os.path.join(path, f)) / 1e6, 2)
+          for d, f in meta["members"].items()}
+    ep = ep["cuda"] if isinstance(ep, dict) else ep
     ops = sum(str(n.target).startswith("onebit.") for n in ep.graph.nodes)
     log(f"export {what}: export_s={t1 - t0:.2f} save_s={t2 - t1:.2f} load_s={t3 - t2:.2f} "
-        f"module_mb={mb:.2f} graph_nodes={len(ep.graph.nodes)} custom_op_nodes={ops} "
-        f"signature {meta['signature']} [{smi}]")
-    return fn, meta
+        f"platforms={meta['platforms']} member_mb={mb} graph_nodes={len(ep.graph.nodes)} "
+        f"custom_op_nodes={ops} signature {meta['signature']} [{smi}]")
+    return fn, meta, path
 
 
 def paired_ms(fa, fb, rounds: int = 6, iters: int = 3):
@@ -4478,23 +4672,26 @@ def export_phase(kernels, seed, smi):
     fused = {"fused_subsample": 1, "fused_relpos_attention": cfg.enc_layers}
     with tempfile.TemporaryDirectory(dir=build_root) as root:
         # (a), (b): packed at precision 2, B=8: (a) the serving form with both
-        # fused flags and bf16 activations, (b) without them, int8 activations
-        for part, c, int8_act, want in (
-                ("(a)", fcfg, False, {"ternary_matmul_bf16": L, **fused}),
-                ("(b)", cfg, True, {"ternary_matmul_w2a8": L})):
-            kw = dict(packed=True, emit="logprobs", device=DEVICE, int8_act=int8_act)
+        # fused flags and bf16 activations, a cuda and a cpu member, (b)
+        # without them, int8 activations, for the card alone
+        for part, c, int8_act, want, platforms in (
+                ("(a)", fcfg, False, {"ternary_matmul_bf16": L, **fused}, ("cuda", "cpu")),
+                ("(b)", cfg, True, {"ternary_matmul_w2a8": L}, (DEVICE,))):
+            kw = dict(packed=True, emit="logprobs", int8_act=int8_act)
             what = (f"{part} packed p2 B={BATCH}{' int8_act' if int8_act else ''}"
-                    f"{' fused' if c.fused_attention else ''}")
-            fn, meta = exported_artifact(what, root, lambda: ex.export_offline(
-                c, params, 2, frames, BATCH, **kw), ex.artifact_meta(
+                    f"{' fused' if c.fused_attention else ''}, platforms {','.join(platforms)}")
+            fn, meta, path = exported_artifact(what, root, lambda: ex.export_offline(
+                c, params, 2, frames, BATCH, platforms=platforms, **kw), ex.artifact_meta(
                 c, 2, "offline", "logprobs", True, {"int8_act": int8_act}), smi)
-            live = ex.build_offline_forward(c, params, 2, **kw)
+            live = ex.build_offline_forward(c, params, 2, device=DEVICE, **kw)
             artifact_vs_live(what, kernels, fn, live, (feats, feat_lens), want, smi)
+            if "cpu" in platforms:
+                cpu_member_check(what, kernels, path, fn, c, feats, feat_lens, smi)
             del fn, live
         # (c), (d): both fused flags, unpacked at precision 2, one symbolic-batch
         # artifact serving B=8 and B=1
         what = "(c,d) unpacked p2 fused, symbolic batch"
-        fn, meta = exported_artifact(what, root, lambda: ex.export_offline(
+        fn, meta, _ = exported_artifact(what, root, lambda: ex.export_offline(
             fcfg, params, 2, frames, None, emit="logprobs", device=DEVICE),
             ex.artifact_meta(fcfg, 2, "offline", "logprobs"), smi)
         live = ex.build_offline_forward(fcfg, params, 2, emit="logprobs", device=DEVICE)
@@ -4503,6 +4700,35 @@ def export_phase(kernels, seed, smi):
                              live, (feats[:B], feat_lens[:B]), fused, smi)
         del fn, live
     log(f"export: step 19 (a)-(d) wall_s={time.perf_counter() - t_phase:.2f} [{smi}]")
+
+
+def cpu_member_check(what, kernels, path, fn_cuda, cfg, feats, feat_lens, smi):
+    """Step 19 (a)'s cpu member: loaded by device from the artifact whose
+    cuda member `fn_cuda` is, run on the same features on the host, it
+    launches nothing, gives the cuda member's valid frames and is held
+    against its log-probs at step 3's serving tolerances (mean |d| <= 0.05,
+    argmax agreement >= 0.9)."""
+    from onebit_asr_tpu_torch import export as ex
+
+    fn_cpu, meta = ex.load_artifact(path, "cpu")
+    if meta["device"] != "cpu" or meta["platforms"] != ["cuda", "cpu"]:
+        raise AssertionError(f"export {what}: cpu member meta {meta['platforms']}")
+    lp_g, enc_g = fn_cuda(feats, feat_lens)
+    _reset(kernels)
+    t0 = time.perf_counter()
+    lp_c, enc_c = fn_cpu(feats.cpu(), feat_lens.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if any(_counts(kernels).values()) or lp_c.device.type != "cpu":
+        raise AssertionError(f"export {what}: the cpu member launched {_counts(kernels)}")
+    if not torch.equal(enc_c, enc_g.cpu()):
+        raise AssertionError(f"export {what}: the members' valid frames differ")
+    mask, d_max, d_mean, agree = _compare(f"export {what}", lp_c, lp_g.cpu(), enc_c,
+                                          cfg.vocab_size, cfg.time_pad_multiple)
+    log(f"export {what}: cpu member vs cuda member on valid frames ({int(mask.sum())}): "
+        f"logprob max|d|={d_max:.4g} mean|d|={d_mean:.4g} argmax_agree={agree:.4f}; cpu member "
+        f"ms_per_batch={cpu_ms:.1f} (host clock, one call) [{smi}]")
+    if d_mean > 0.05 or agree < 0.9:
+        raise AssertionError(f"export {what}: the cpu member strays from the cuda member")
 
 
 def launches_per_batch(label, fn, pad: int = 256, tries: int = 3):
@@ -4601,6 +4827,11 @@ def main(argv=None) -> int:
     log("tensor parallel: two ranks on the card over gloo ran rows 3-4 on half the heads and "
         "rows 5-8 whole, as often as the one-process step, and matched it at dropout 0 and "
         "0.1; rows 3-4 at the local shape agree with their plain versions")
+    pipeline_parallel_phase(kernels, args.seed, smi)  # times steps: before any profiler run
+    log("pipeline parallel: two stages on the card over gloo ran rows 3-4 on their blocks' "
+        "microbatches, rows 5-6 on stage 0 alone and rows 7-8 on both, and matched the "
+        "one-process step at dropout 0 and 0.1; rows 3-4 at a microbatch's shape agree with "
+        "their plain versions")
     with tempfile.TemporaryDirectory(dir=build_root) as runs:
         train_cli_phase(kernels, runs)
         log("train: the QAT step and the train CLI ran on the CTC kernels, under "
@@ -4632,9 +4863,9 @@ def main(argv=None) -> int:
     export_phase(kernels, args.seed, smi)  # times batches: before any profiler run too
     log("export: packed (108 launches of row 1, or of row 2 with --int8_act, a forward; row 5 "
         "once and row 3 12 times with the fused flags), fused unpacked (row 5 once, row 3 12 "
-        "times) and symbolic-batch artifacts ran from module.pt2 alone and "
-        "agree with the live forward; the beam artifact (step 13) and serve --artifact (step "
-        "17) too")
+        "times) and symbolic-batch artifacts ran from their programs alone and "
+        "agree with the live forward, and a cuda,cpu artifact's cpu member with its cuda "
+        "member; the beam artifact (step 13) and serve --artifact (step 17) too")
     prepare_options_phase(kernels, args.seed, smi)  # times steps: before any profiler run too
     log("prepare and options: prepared a corpus on the card (CMVN and features equal to the "
         "CPU's), trained it with --grad_accum 2 --multistep 2 and --fp32_control, held rows 3-8 "

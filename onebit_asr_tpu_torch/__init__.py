@@ -17,7 +17,10 @@ onebit_asr_tpu_torch.eval`), packed or unpacked, greedy or with the prefix
 beam on the device and an n-gram LM, and long recordings in windows. It
 exports serving artifacts with `torch.export` (`export.py`, `python -m
 onebit_asr_tpu_torch.cli.export`), which load and run without the model's
-modules, and streams them behind `python -m onebit_asr_tpu_torch.serve`.
+modules (one program per device: `--platforms cuda,cpu`), and streams them
+behind `python -m onebit_asr_tpu_torch.serve`. It trains data-parallel,
+with ZeRO-2, tensor-parallel or pipelined over `torch.distributed`
+(`parallel/`).
 """
 
 __version__ = "0.1.0"

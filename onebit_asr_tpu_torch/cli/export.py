@@ -15,8 +15,11 @@ Examples:
     python -m onebit_asr_tpu_torch.cli.export run --artifact exp1.export \\
         --features feats.npz
 
-Every subcommand runs on the card unless `--device cpu` (an artifact runs on
-the device it was exported for). `offline --packed` under
+Every subcommand runs on the card unless `--device cpu`. `--platforms
+cuda,cpu` writes one artifact with a program for each device (JAX's `gpu`
+is `cuda`; `tpu` is refused); `run --device` (and `serve --artifact
+--device`) picks the member to load, by default cuda if the artifact has
+one, and refuses a device it has no member for. `offline --packed` under
 ONEBIT_PACKED_INT8_ACT=1 (the JAX package's switch) exports the W2A8
 kernel, as `--int8_act` does.
 """
@@ -48,10 +51,25 @@ def _platforms(args):
     return tuple(args.platforms.split(",")) if args.platforms else None
 
 
+def _refused_platforms(args) -> bool:
+    """Whether the platforms asked for cannot be exported here (a message
+    on stderr): before anything is restored, traced or written."""
+    from onebit_asr_tpu_torch.export import export_devices
+
+    try:
+        export_devices(_platforms(args), args.device)
+    except (ValueError, RuntimeError) as e:
+        print(f"--platforms: {e}", file=sys.stderr)
+        return True
+    return False
+
+
 def _cmd_offline(args) -> int:
     from onebit_asr_tpu_torch.export import artifact_meta, export_offline, save_artifact
     from onebit_asr_tpu_torch.ops.ternary_matmul import int8_act_enabled
 
+    if _refused_platforms(args):
+        return 2
     cfg, params = _restore(args.checkpoint)
     batch = None if args.symbolic_batch else args.batch
     decode_kwargs = {}
@@ -83,8 +101,10 @@ def _cmd_offline(args) -> int:
                   if args.emit == "beam" else {})},
     )
     save_artifact(exported, args.out, meta)
-    print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s "
-          f"({os.path.getsize(os.path.join(args.out, 'module.pt2')) / 1e6:.2f} MB module)")
+    size = sum(os.path.getsize(os.path.join(args.out, f)) for f in os.listdir(args.out)
+               if f.endswith(".pt2"))
+    print(f"wrote {args.out} in {time.perf_counter() - t0:.1f} s ({size / 1e6:.2f} MB of "
+          "programs)")
     return 0
 
 
@@ -96,6 +116,8 @@ def _cmd_streaming(args) -> int:
         streaming_geometry,
     )
 
+    if _refused_platforms(args):
+        return 2
     cfg, params = _restore(args.checkpoint)
     m = cfg.model
     t0 = time.perf_counter()
@@ -115,7 +137,11 @@ def _cmd_run(args) -> int:
 
     from onebit_asr_tpu_torch.export import greedy_ids_to_lists, load_artifact
 
-    fn, meta = load_artifact(args.artifact)
+    try:
+        fn, meta = load_artifact(args.artifact, args.device)
+    except (ValueError, RuntimeError) as e:
+        print(f"--device {args.device}: {e}", file=sys.stderr)
+        return 2
     if meta["kind"] != "offline":
         raise SystemExit("run supports offline artifacts (the streaming "
                          "step needs the session driver's state protocol)")
@@ -181,7 +207,8 @@ def build_argparser():
     po.add_argument("--lm_weight", type=float, default=0.3)
     po.add_argument("--length_bonus", type=float, default=0.0)
     po.add_argument("--platforms", default="",
-                    help="one device to export for (cuda or cpu); default: --device")
+                    help="comma-separated devices to export a program for (cuda, cpu); "
+                         "default: --device")
     po.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     ps = sub.add_parser("streaming", help="export one streaming chunk step")
@@ -191,13 +218,18 @@ def build_argparser():
     ps.add_argument("--n_streams", type=int, default=1,
                     help=">1: export the StreamingServer's multiplexed batched chunk step "
                          "(serve N concurrent streams from the artifact: serve --artifact)")
-    ps.add_argument("--platforms", default="")
+    ps.add_argument("--platforms", default="",
+                    help="comma-separated devices to export a program for (cuda, cpu); "
+                         "default: --device")
     ps.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     pr = sub.add_parser("run", help="decode with a saved artifact")
     pr.add_argument("--artifact", required=True)
     pr.add_argument("--features", default="",
                     help="npz with feats [B,T,F] (+ optional feat_lens [B])")
+    pr.add_argument("--device", default=None,
+                    help="the member to run (cuda or cpu); default: cuda if the artifact "
+                         "has it, else its only member")
     return p
 
 

@@ -22,11 +22,12 @@ trained (`--checkpoint`: config.json + ckpt/), streaming-trained
 `--conv_norm layer_norm`), served unpacked at `--precision`. `--artifact`
 serves a batched streaming artifact instead (`python -m
 onebit_asr_tpu_torch.cli.export streaming --n_streams N`): its step, its N
-slots, its precision and its device come from the artifact (as in JAX,
-`--precision` and `--max_streams` beside it are accepted and the
-artifact's values taken, with a note on stderr when they differ;
-`--device` is refused), and `feed_wav` takes the default frontend (with `--data_dir`, that dir's tokenizer and
-cmvn_stats.npz).
+slots and its precision come from the artifact (as in JAX, `--precision`
+and `--max_streams` beside it are accepted and the artifact's values
+taken, with a note on stderr when they differ), `--device` picks one of
+its members (default: cuda if it has one; a device it has no member for is
+refused), and `feed_wav` takes the default frontend (with `--data_dir`,
+that dir's tokenizer and cmvn_stats.npz).
 
 Run:  python -m onebit_asr_tpu_torch.serve --checkpoint runs/stream --port 7600
       python -m onebit_asr_tpu_torch.serve --artifact stream8.export --port 7600
@@ -62,7 +63,7 @@ def build_argparser():
                    help="tokenizer and cmvn_stats.npz location (default: the checkpoint's "
                         "data_dir)")
     p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu, with --checkpoint; an artifact has its own")
+                   help="cuda (default) or cpu; with --artifact, one of its members")
     return p
 
 
@@ -168,16 +169,21 @@ def build_loop(args):
     if args.artifact:
         from onebit_asr_tpu_torch.export import streaming_server_from_artifact
 
+        from onebit_asr_tpu_torch.export import artifact_members
+
         if not os.path.isfile(os.path.join(args.artifact, "meta.json")):
             return None, f"no streaming artifact at {args.artifact} (module.pt2 + meta.json)"
-        if args.device is not None:
-            return None, "--device: the artifact fixes its device (set it when exporting it)"
-        try:
-            server = streaming_server_from_artifact(args.artifact)
-        except ValueError as e:
-            return None, str(e)
         with open(os.path.join(args.artifact, "meta.json")) as f:
-            fixed = {"precision": json.load(f)["precision"], "max_streams": server.n}
+            meta = json.load(f)
+        members = artifact_members(meta)
+        if args.device is not None and args.device not in members:
+            return None, ("--device: the artifact fixes its devices (set them when exporting "
+                          f"it); it holds {', '.join(members)}")
+        try:
+            server = streaming_server_from_artifact(args.artifact, args.device)
+        except (ValueError, RuntimeError) as e:
+            return None, str(e)
+        fixed = {"precision": meta["precision"], "max_streams": server.n}
         for k, v in fixed.items():
             if getattr(args, k) not in (None, v):
                 print(f"note: --{k} {getattr(args, k)} is the artifact's {v} (fixed when it "

@@ -74,6 +74,20 @@ divide enc_heads and enc_d_ff (the port shards whole heads; JAX's
 partitioner takes any TP). Rank 0 writes the full state, in a one-process
 run's format; `--resume` shards it again.
 
+`--pipeline_stages S --pipeline_microbatches M` (under torchrun): GPipe.
+The ranks form a (world / S, S) ("data", "stage") mesh, consecutive ranks
+one stage group; each rank holds L/S consecutive encoder blocks and their
+AdamW moments (`parallel/pipeline.py`), runs them on M microbatches of its
+rows, passing activations to the next stage, while everything outside the
+blocks runs on every stage (the subsampler on stage 0 alone)
+(`make_pipeline_train_step`). Exit 1, with JAX's messages, beside
+`--grad_accum` > 1, for a world S does not divide, a batch the data axis
+does not divide, with `--multistep`, and (JAX raises these) for a batch-norm
+conv module, enc_layers not divisible by S and a local batch M does not
+divide; also beside `--fp32_control` and `--fsdp` (JAX's pipeline branch
+ignores both). Rank 0 writes the full state, in a one-process run's
+format; `--resume` shards it again.
+
 The model options are JAX's too: `--quant_per_channel` (an alpha per output
 channel), `--quant_decoder` (the decoder's projections quantized at each
 branch's base precision), `--reference_decoder` (position-blind, post-LN
@@ -83,8 +97,8 @@ N --attn_left_chunks M` (chunked attention; with `--causal_conv --conv_norm
 layer_norm` the streaming-trained encoder). The run's `config.json` carries
 them, and the evaluate and transcribe CLIs read them back.
 
-Not ported yet, and refused with exit code 2 and a message naming what is
-missing: `--pipeline_stages`, `--wandb`.
+Refused with exit code 2 and a message naming what is missing: `--wandb`
+(the `wandb` package is not installed).
 Flags of the JAX CLI that have no counterpart here (its memory and compile
 knobs `--no_remat`, `--remat_policy`, `--scan_unroll`) are accepted and
 change nothing.
@@ -188,7 +202,6 @@ def refusal(args) -> str:
     """What of `args` this package does not implement yet, or ""."""
     later = "not ported yet (later slice)"
     checks = [
-        (args.pipeline_stages > 1, f"--pipeline_stages: {later}"),
         (args.wandb, f"--wandb: {later}"),
     ]
     return next((msg for bad, msg in checks if bad), "")
@@ -213,7 +226,16 @@ def main(argv=None) -> int:
         print("FATAL: --tensor_parallel does not compose with --fp32_control "
               "(the control run is a single-branch diagnostic)")
         return 1
-    if args.multistep > 1 and (args.fp32_control or args.fsdp or args.tensor_parallel > 1):
+    if args.pipeline_stages > 1 and args.fp32_control:
+        print("FATAL: --pipeline_stages does not compose with --fp32_control "
+              "(the control run is a single-branch diagnostic)")
+        return 1
+    if args.pipeline_stages > 1 and args.fsdp:
+        print("FATAL: --pipeline_stages does not compose with --fsdp (pick one "
+              "model-axis strategy)")
+        return 1
+    if args.multistep > 1 and (args.fp32_control or args.fsdp or args.tensor_parallel > 1
+                               or args.pipeline_stages > 1):
         print("FATAL: --multistep composes only with the plain QAT path "
               "(not fsdp/tp/pp/fp32_control)")
         return 1
@@ -247,8 +269,29 @@ def _train(args, device: torch.device, distributed: bool) -> int:
         for k, v in PRESETS[args.preset].items():
             setattr(args, k, v)
     _, n_world = world()
-    TP = args.tensor_parallel
-    if TP > 1:
+    TP, S = args.tensor_parallel, args.pipeline_stages
+    if S > 1:
+        from onebit_asr_tpu_torch.parallel.pipeline import pipeline_error
+
+        # JAX's checks (cli/train.py:443-457), then its ValueErrors
+        if args.grad_accum > 1:
+            print("FATAL: --grad_accum is not supported with --pipeline_stages "
+                  "(microbatches already split the batch)")
+            return 1
+        if n_world % S:
+            print(f"FATAL: {n_world} devices not divisible by {S} stages")
+            return 1
+        if args.batch_size % (n_world // S):
+            print(f"FATAL: batch {args.batch_size} not divisible by data axis {n_world // S}")
+            return 1
+        why = pipeline_error(args.conv_norm, args.enc_layers, S,
+                             args.batch_size // (n_world // S), args.pipeline_microbatches)
+        if why:
+            print(f"FATAL: {why}")
+            return 1
+        mesh = make_mesh((n_world // S, S), ("data", "stage"))
+        n = n_world
+    elif TP > 1:
         from onebit_asr_tpu_torch.parallel.sharding_rules import check_tp
 
         # JAX's checks (cli/train.py:418-426), then the port's own
@@ -447,6 +490,22 @@ def _train(args, device: torch.device, distributed: bool) -> int:
             p.data = p.data.new_empty(0)
         say(f"FSDP/ZeRO-2: params + moments sharded over {mesh.size} ranks, gradients "
             "reduce-scattered")
+    elif S > 1:
+        from onebit_asr_tpu_torch.parallel.pipeline import (
+            gather_state_pipeline,
+            make_pipeline_train_step,
+            shard_state_pipeline,
+        )
+
+        # GPipe: the encoder's blocks and their moments shard over "stage",
+        # the batch over "data"
+        step_fn = make_pipeline_train_step(model, optimizer, loss_cfg, specials,
+                                           args.enc_layers, mesh, args.pipeline_microbatches)
+        state = shard_state_pipeline(state, mesh)
+        for p in model.parameters():  # the step and evaluation pass params in
+            p.data = p.data.new_empty(0)
+        say(f"pipeline parallelism: {S} stages x {n_data} data, "
+            f"{args.pipeline_microbatches} microbatches")
     elif TP > 1:
         from onebit_asr_tpu_torch.parallel.sharding_rules import gather_state_tp, shard_state_tp
         from onebit_asr_tpu_torch.train import make_tp_train_step
@@ -558,11 +617,13 @@ def _train(args, device: torch.device, distributed: bool) -> int:
         if not np.isfinite(train_loss):
             print(f"FATAL: non-finite train loss at epoch {epoch}")
             return 1
-        # under --fsdp and --tensor_parallel every rank takes part in putting
-        # the full state together
+        # under --fsdp, --pipeline_stages and --tensor_parallel every rank
+        # takes part in putting the full state together
         full = state
         if args.fsdp:
             full = gather_state_fsdp(state, mesh, dims)
+        elif S > 1:
+            full = gather_state_pipeline(state, mesh)
         elif TP > 1:
             full = gather_state_tp(state, mesh)
         if main_rank:

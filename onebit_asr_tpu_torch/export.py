@@ -25,10 +25,17 @@ Three artifact kinds:
   the same arguments at [N] plus `active [N] bool`; inactive slots' caches
   come back unchanged (`torch.where`, the server's own rule).
 
-Every artifact is a directory: `module.pt2` (`torch.export.save`) and
-`meta.json` (JAX's keys, plus the `device` it was exported for and the
-signature). A program is exported for one device; JAX's `platforms` list
-has no counterpart, and more than one platform is refused.
+Every artifact is a directory: its program (`torch.export.save`) and
+`meta.json` (JAX's keys, plus the signature). A `torch.export` program runs
+on the device it was traced on, so JAX's `platforms` list (one program for
+several platforms) becomes one member program per device: `platforms=
+("cuda", "cpu")` traces the module once on each and writes
+`module_cuda.pt2` and `module_cpu.pt2`; one platform keeps the single
+`module.pt2`. meta.json lists `platforms` in the given order and each
+member's file under `members`. JAX's "gpu" is "cuda"; "tpu" is refused (the
+port has no TPU member). `load_artifact(path, device)` loads the member
+for `device` (cuda if the artifact has one, else its only member), and
+never another: a cuda member on a machine without a card raises.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ FORMAT_VERSION = 1
 _MODULE_FILE = "module.pt2"
 _META_FILE = "meta.json"
 EMITS = ("greedy", "logprobs", "both", "beam")
+DEVICES = ("cuda", "cpu")
 
 
 def _layer_mask(precision: int, num_layers: int):
@@ -59,15 +67,33 @@ def _layer_mask(precision: int, num_layers: int):
     return None if mask is None else mask.tolist()
 
 
-def _device(platforms: Optional[Sequence[str]], device: str) -> str:
-    """The one device to export for: `platforms` (JAX's argument) may name
-    it, but only one."""
-    if not platforms:
-        return device
-    if len(platforms) > 1:
-        raise ValueError(f"platforms {list(platforms)}: a torch.export program runs on the "
-                         "device it was exported for; export once per device")
-    return {"gpu": "cuda"}.get(platforms[0], platforms[0])
+def export_devices(platforms: Optional[Sequence[str]], device: str) -> List[str]:
+    """The devices to export a member for, in order: `platforms` (JAX's
+    argument; "gpu" is "cuda"), or `device`. ValueError for "tpu" or another
+    platform the port has no member for; RuntimeError, before anything is
+    traced, for cuda on a machine without a card."""
+    names = [{"gpu": "cuda"}.get(p, p) for p in (platforms or [device])]
+    if "tpu" in names:
+        raise ValueError("platform 'tpu': the port has no TPU member "
+                         f"(export for {' and/or '.join(DEVICES)})")
+    devices = [torch.device(d).type for d in names]
+    for p, d in zip(names, devices):
+        if d not in DEVICES:
+            raise ValueError(f"platform {p!r}: not one of {', '.join(DEVICES)}")
+    if len(set(devices)) != len(devices):
+        raise ValueError(f"platforms {names}: each at most once")
+    if "cuda" in devices and not torch.cuda.is_available():
+        raise RuntimeError(f"platforms {devices}: cuda needs a CUDA card, and this machine "
+                           "has none (export for cpu alone here, or on the card)")
+    return devices
+
+
+def _exported(devices: List[str], trace):
+    """`trace(device)` for each device: the one program, or {device:
+    program} for several."""
+    if len(devices) == 1:
+        return trace(devices[0])
+    return {d: trace(d) for d in devices}
 
 
 # --------------------------------------------------------------------- build
@@ -217,27 +243,32 @@ def export_offline(
     device: str = "cuda",
     int8_act: bool = False,
     **decode_kwargs,
-) -> "torch.export.ExportedProgram":
+):
     """Trace and export the offline forward. batch_size=None exports a
     symbolic batch dimension (one artifact, any B); the packed form needs a
     static batch, as JAX's does. decode_kwargs (beam_size, beam_top_k, lm,
-    lm_weight, length_bonus) configure emit="beam"."""
+    lm_weight, length_bonus) configure emit="beam" (an `lm` lives on one
+    device: one platform then). With several `platforms`, {device:
+    program}, one traced on each."""
     if batch_size is None and packed:
         raise ValueError("packed export needs a static batch_size "
                          "(the packed artifact is shape-specialized, as JAX's)")
-    device = _device(platforms, device)
-    fn = build_offline_forward(cfg, params, precision, packed=packed, emit=emit,
-                               int8_act=int8_act, device=device, **decode_kwargs)
+    devices = export_devices(platforms, device)
     B = 2 if batch_size is None else int(batch_size)
-    rng = np.random.default_rng(0)
-    feats = torch.from_numpy(
-        rng.standard_normal((B, num_frames, cfg.input_dim)).astype(np.float32)).to(device)
-    lens = torch.full((B,), num_frames, dtype=torch.int64, device=device)
+    feats = np.random.default_rng(0).standard_normal(
+        (B, num_frames, cfg.input_dim)).astype(np.float32)
     dynamic = None
     if batch_size is None:
         b = torch.export.Dim("b", min=1)
         dynamic = ({0: b}, {0: b})
-    return _export(fn, (feats, lens), dynamic)
+
+    def trace(dev):
+        fn = build_offline_forward(cfg, params, precision, packed=packed, emit=emit,
+                                   int8_act=int8_act, device=dev, **decode_kwargs)
+        lens = torch.full((B,), num_frames, dtype=torch.int64, device=dev)
+        return _export(fn, (torch.from_numpy(feats).to(dev), lens), dynamic)
+
+    return _exported(devices, trace)
 
 
 def streaming_geometry(cfg: ModelConfig) -> Dict[str, int]:
@@ -260,28 +291,32 @@ def export_streaming(
     n_streams: int = 1,
     platforms: Optional[Sequence[str]] = None,
     device: str = "cuda",
-) -> "torch.export.ExportedProgram":
+):
     """Trace and export one streaming chunk step: the single-session step
     with n_streams == 1, the server's step over N slots (with `active`)
-    with n_streams > 1."""
+    with n_streams > 1. With several `platforms`, {device: program}."""
     geo = streaming_geometry(cfg)
-    device = _device(platforms, device)
+    devices = export_devices(platforms, device)
     N = int(n_streams)
-    rng = np.random.default_rng(0)
-    args = [
-        torch.from_numpy(rng.standard_normal((N, geo["window_raw"], cfg.input_dim))
-                         .astype(np.float32)).to(device),
-        torch.zeros((cfg.enc_layers, N, geo["cache_frames"], cfg.enc_d_model),
-                    dtype=getattr(torch, cfg.compute_dtype), device=device),
-        torch.zeros((N,), dtype=torch.int64, device=device),
-        torch.full((N,), geo["chunk_size"], dtype=torch.int64, device=device),
-    ]
-    if N == 1:
-        fn = build_streaming_step(cfg, params, precision, device)
-    else:
-        fn = build_streaming_batch_step(cfg, params, precision, N, device)
-        args.append(torch.ones((N,), dtype=torch.bool, device=device))
-    return _export(fn, tuple(args))
+    window = np.random.default_rng(0).standard_normal(
+        (N, geo["window_raw"], cfg.input_dim)).astype(np.float32)
+
+    def trace(dev):
+        args = [
+            torch.from_numpy(window).to(dev),
+            torch.zeros((cfg.enc_layers, N, geo["cache_frames"], cfg.enc_d_model),
+                        dtype=getattr(torch, cfg.compute_dtype), device=dev),
+            torch.zeros((N,), dtype=torch.int64, device=dev),
+            torch.full((N,), geo["chunk_size"], dtype=torch.int64, device=dev),
+        ]
+        if N == 1:
+            fn = build_streaming_step(cfg, params, precision, dev)
+        else:
+            fn = build_streaming_batch_step(cfg, params, precision, N, dev)
+            args.append(torch.ones((N,), dtype=torch.bool, device=dev))
+        return _export(fn, tuple(args))
+
+    return _exported(devices, trace)
 
 
 # ---------------------------------------------------------------- save/load
@@ -323,14 +358,24 @@ def program_specs(exported: "torch.export.ExportedProgram"):
             [_spec(n) for n in outputs])
 
 
-def save_artifact(exported: "torch.export.ExportedProgram", path: str,
-                  meta: Dict[str, Any]) -> None:
-    """Write the artifact directory: module.pt2 + meta.json."""
+def save_artifact(exported, path: str, meta: Dict[str, Any]) -> None:
+    """Write the artifact directory: module.pt2 + meta.json for one program,
+    or module_<device>.pt2 for each of {device: program} (`platforms` in
+    its order)."""
+    programs = exported if isinstance(exported, dict) else {None: exported}
+    specs = {d: program_specs(ep) for d, ep in programs.items()}
+    for d, (device, _, _) in specs.items():
+        if d is not None and d != device:
+            raise ValueError(f"member {d!r} holds a program traced on {device}")
+    members = {device: (_MODULE_FILE if len(programs) == 1 else f"module_{device}.pt2")
+               for device, _, _ in specs.values()}
     os.makedirs(path, exist_ok=True)
-    torch.export.save(exported, os.path.join(path, _MODULE_FILE))
-    device, ins, outs = program_specs(exported)
+    for ep, name in zip(programs.values(), members.values()):
+        torch.export.save(ep, os.path.join(path, name))
+    device, ins, outs = next(iter(specs.values()))
     meta = dict(meta)
-    meta["platforms"] = [device]
+    meta["platforms"] = list(members)
+    meta["members"] = members
     meta["device"] = device
     meta["in_avals"] = ins
     meta["out_avals"] = outs
@@ -339,16 +384,46 @@ def save_artifact(exported: "torch.export.ExportedProgram", path: str,
         json.dump(meta, f, indent=2, default=str)
 
 
-def load_artifact(path: str):
-    """-> (callable, meta). The callable runs the loaded program without
-    gradients on tensors on the artifact's device (meta["device"]). Loading
-    imports `torch` and the package's `ops` modules, whose custom ops the
-    program calls, and nothing of the model."""
+def artifact_members(meta: Dict[str, Any]) -> Dict[str, str]:
+    """{device: program file} of an artifact's meta (one written before
+    members were: its `device` and module.pt2)."""
+    return meta.get("members") or {meta["device"]: _MODULE_FILE}
+
+
+def member_device(meta: Dict[str, Any], device: Optional[str] = None) -> str:
+    """The member `load_artifact` takes for `device`: its type ("gpu" is
+    cuda); None: cuda if the artifact has it, else its only member (the
+    members are cuda and cpu at most). ValueError, naming the members, for
+    a device the artifact lacks; RuntimeError for a cuda member on a
+    machine without a card (no other member is taken in its place)."""
+    members = artifact_members(meta)
+    have = ", ".join(members)
+    if device is None:
+        device = "cuda" if "cuda" in members else next(iter(members))
+    device = torch.device({"gpu": "cuda"}.get(device, device)).type
+    if device not in members:
+        raise ValueError(f"the artifact has no {device} member (it holds {have})")
+    if device == "cuda" and not torch.cuda.is_available():
+        other = [d for d in members if d != "cuda"]
+        raise RuntimeError("the artifact's cuda member needs a CUDA card, and this machine has "
+                           "none" + (f"; load its {other[0]} member with --device {other[0]} "
+                                     f"(device={other[0]!r})" if other else ""))
+    return device
+
+
+def load_artifact(path: str, device: Optional[str] = None):
+    """-> (callable, meta). The callable runs the artifact's member for
+    `device` (`member_device`) without gradients on tensors on that device,
+    which meta["device"] names. Loading imports `torch` and the package's
+    `ops` modules, whose custom ops the program calls, and nothing of the
+    model."""
     from onebit_asr_tpu_torch.ops import attention, subsampler, ternary_matmul  # noqa: F401
 
     with open(os.path.join(path, _META_FILE)) as f:
         meta = json.load(f)
-    module = torch.export.load(os.path.join(path, _MODULE_FILE)).module()
+    device = member_device(meta, device)
+    module = torch.export.load(os.path.join(path, artifact_members(meta)[device])).module()
+    meta["device"] = device
 
     def call(*args):
         with torch.no_grad():
@@ -367,13 +442,15 @@ def greedy_ids_to_lists(ids, lens):
 # ----------------------------------------------- artifact-backed runtimes
 
 
-def streaming_session_from_artifact(path: str, **session_kwargs):
-    """A StreamingSession whose chunk step is a loaded artifact: the serving
-    host needs the artifact directory, not weights or a checkpoint.
-    Requires an `export_streaming(..., n_streams=1)` artifact."""
+def streaming_session_from_artifact(path: str, device: Optional[str] = None,
+                                    **session_kwargs):
+    """A StreamingSession whose chunk step is a loaded artifact (its member
+    for `device`, as `load_artifact`): the serving host needs the artifact
+    directory, not weights or a checkpoint. Requires an
+    `export_streaming(..., n_streams=1)` artifact."""
     from onebit_asr_tpu_torch.decode.streaming import StreamingSession
 
-    fn, meta = load_artifact(path)
+    fn, meta = load_artifact(path, device)
     if meta["kind"] != "streaming" or meta.get("n_streams", 1) != 1:
         raise ValueError(f"{path} is not a single-stream streaming artifact")
     session_kwargs.setdefault("device", meta["device"])
@@ -381,13 +458,13 @@ def streaming_session_from_artifact(path: str, **session_kwargs):
                             **session_kwargs)
 
 
-def streaming_server_from_artifact(path: str, **server_kwargs):
+def streaming_server_from_artifact(path: str, device: Optional[str] = None, **server_kwargs):
     """A StreamingServer multiplexing N streams through a loaded batched
-    artifact (`export_streaming(..., n_streams=N)`); max_streams is fixed
-    to the artifact's N."""
+    artifact (`export_streaming(..., n_streams=N)`; its member for `device`,
+    as `load_artifact`); max_streams is fixed to the artifact's N."""
     from onebit_asr_tpu_torch.decode.streaming import StreamingServer
 
-    fn, meta = load_artifact(path)
+    fn, meta = load_artifact(path, device)
     n = int(meta.get("n_streams", 1))
     if meta["kind"] != "streaming" or n < 2:
         raise ValueError(f"{path} is not a batched streaming artifact")

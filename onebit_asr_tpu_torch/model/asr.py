@@ -106,19 +106,20 @@ class ConformerASR(nn.Module):
         draws=None,
         norm_group=None,
         tp=None,
+        pipe=None,
     ):
         """(enc_out, enc_mask, logits_ctc); with `tgt_inp` (a model with a
         decoder) also the decoder's logits, as `forward_with_decoder`."""
         if tgt_inp is not None:
             return self.forward_with_decoder(feats, feat_lens, tgt_inp, tgt_valid_mask,
-                                             binary_mask, draws, norm_group, tp)
+                                             binary_mask, draws, norm_group, tp, pipe)
         enc_out, enc_mask = self.encoder(feats, feat_lens, binary_mask)
         # logits stay in the compute dtype, as in the JAX model
         return enc_out, enc_mask, self.ctc_head(enc_out)
 
     def forward_with_decoder(self, feats, feat_lens, tgt_inp, tgt_valid_mask,
                              binary_mask: Optional[torch.Tensor] = None, draws=None,
-                             norm_group=None, tp=None):
+                             norm_group=None, tp=None, pipe=None):
         """One training branch (asr.py:213): encoder + CTC head + decoder at
         `decoder_bits` of the branch's mask -> (enc_out, enc_mask,
         logits_ctc, dec_logits). `draws` (see layers.DropoutRng) feeds every
@@ -126,13 +127,16 @@ class ConformerASR(nn.Module):
         (a process group) makes every batch norm take its statistics over
         the group's ranks for this call (JAX's `norm_axis`). `tp` (a
         layers.ModelShard) runs the encoder's blocks tensor-parallel on the
-        parameters' shards (parallel/sharding_rules.py) for this call."""
+        parameters' shards (parallel/sharding_rules.py) for this call, and
+        `pipe` (a layers.PipelineStage) runs them as this rank's stage of a
+        pipeline (parallel/pipeline.py)."""
         if not hasattr(self, "decoder"):
             raise RuntimeError("forward_with_decoder needs a decoder: the QAT form (qat=True) "
                                "or the serving form built with decoder=True")
         self.parts.rng.draws = draws
         self.parts.norm_group = norm_group
         self.parts.tp = self.parts.rng.shard = tp
+        self.parts.pipe = pipe
         try:
             enc_out, enc_mask, logits_ctc = self(feats, feat_lens, binary_mask)
             dec_logits = self.decoder(tgt_inp, enc_out, enc_mask, tgt_valid_mask,
@@ -141,4 +145,5 @@ class ConformerASR(nn.Module):
             self.parts.rng.draws = None
             self.parts.norm_group = None
             self.parts.tp = self.parts.rng.shard = None
+            self.parts.pipe = None
         return enc_out, enc_mask, logits_ctc, dec_logits

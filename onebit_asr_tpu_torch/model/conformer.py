@@ -40,13 +40,16 @@ from onebit_asr_tpu_torch.model.layers import (
     LayerNorm,
     MaskedBatchNorm,
     MaskedGroupNorm,
+    PipelineStage,
     QATDense,
     QuantDense,
+    StageDraws,
     lengths_to_mask,
     rel_positional_encoding,
 )
 from onebit_asr_tpu_torch.ops.attention import drop_threshold, fused_relpos_attention
 from onebit_asr_tpu_torch.ops.subsampler import fused_subsample
+from onebit_asr_tpu_torch.utils.collectives import all_sum, anchored, ring_shift
 
 NEG_INF = -1e9  # finite mask fill: softmax stays NaN-free even for all-pad rows
 
@@ -112,7 +115,7 @@ class Parts:
     per output channel with `per_channel`) and the dropout (rate 0 and no
     draws in the serving form), all FastDropout layers drawing from one
     shared `DropoutRng`. `tp` is the ModelShard of a tensor-parallel call
-    in progress, or None."""
+    in progress, `pipe` the PipelineStage of a pipelined one, or None."""
 
     def __init__(self, compute_dtype: torch.dtype, int8_act: bool = False, qat: bool = False,
                  dropout: float = 0.0, per_channel: bool = False):
@@ -127,6 +130,7 @@ class Parts:
         # is), or None
         self.norm_group = None
         self.tp = None
+        self.pipe: Optional[PipelineStage] = None
 
     def proj(self, in_features: int, features: int, parallel: Optional[str] = None) -> nn.Module:
         """A quantized projection; `parallel` ("column" or "row") is its
@@ -341,6 +345,7 @@ class ConformerBlock(nn.Module):
                  fused_attention: bool = False, conv_norm: str = "batch_norm",
                  causal_conv: bool = False):
         super().__init__()
+        self.d_ff = d_ff
         self.ff1 = FeedForward(d, d_ff, parts)
         self.mhsa = RelPosMHSA(d, num_heads, parts, fused=fused_attention)
         self.conv = ConvModule(d, conv_kernel, parts, conv_norm, causal_conv)
@@ -354,6 +359,15 @@ class ConformerBlock(nn.Module):
         x = x + self.conv(x, key_mask)
         x = x + 0.5 * self.ff2(x, bits)
         return self.ln_out(x)
+
+    def dropout_shapes(self, B: int, T: int, D: int) -> List[Tuple[int, ...]]:
+        """The shapes of the draws that `forward` makes on a [B, T, D] input
+        while its dropout is active, in order (a pipeline stage draws them
+        ahead of its ticks: ConformerEncoder._pipelined_blocks)."""
+        if not self.ff1.drop1.active:
+            return []
+        ff = [(B, T, self.d_ff), (B, T, D)]
+        return [*ff, (B, self.mhsa.num_heads, T, T), (B, T, D), (B, T, D), *ff]
 
 
 class Conv2dSubsampling(nn.Module):
@@ -441,7 +455,9 @@ class ConformerEncoder(nn.Module):
     (x, key_mask). `parts` chooses the serving or the QAT form. With
     `attn_chunk_size` every block attends under `chunk_pair_mask` of the
     padded time axis (chunk ids count from its frame 0, as in JAX,
-    conformer.py:667-671)."""
+    conformer.py:667-671). Under a pipelined call (`parts.pipe`) the
+    blocks run as a GPipe pipeline over the stage group
+    (`_pipelined_blocks`)."""
 
     def __init__(self, input_dim: int = 80, d_model: int = 256, num_layers: int = 12,
                  num_heads: int = 4, d_ff: int = 1024, conv_kernel: int = 31, *,
@@ -451,6 +467,7 @@ class ConformerEncoder(nn.Module):
                  attn_chunk_size: Optional[int] = None, attn_left_chunks: int = -1):
         super().__init__()
         check_encoder_options(conv_norm, attn_chunk_size)
+        self.parts = parts
         self.qat = parts.qat
         self.d_model = d_model
         self.num_layers = num_layers
@@ -488,25 +505,107 @@ class ConformerEncoder(nn.Module):
                 f"binary_mask shape {mask_shape(binary_mask)} != ({self.num_layers},)"
             )
         bits = self.layer_bits(binary_mask)
-        x = self.subsample(feats)
+        pipe = self.parts.pipe
+        B, D, device = feats.shape[0], self.d_model, feats.device
+        if pipe is None or pipe.index == 0:
+            x = self.subsample(feats)
+            T = x.shape[1]
+        else:
+            # only stage 0 feeds the pipe (JAX's where(stage == 0, ...)):
+            # the others skip the subsampler and draw what its dropout would
+            x, T = None, subsampled_frames(feats.shape[1])
+            self.subsample.drop.skip((B, T, D), device)
         enc_lens = subsampled_length(feat_lens)
-        B, T, D = x.shape
         # pad the subsampled time axis (time_pad_multiple); padded frames are
         # masked everywhere downstream
         m = self.time_pad_multiple
         if m > 1 and T > m // 2 and T % m:
             pad = m - T % m
-            x = F.pad(x, (0, 0, 0, pad))
+            if x is not None:
+                x = F.pad(x, (0, 0, 0, pad))
             T += pad
         key_mask = lengths_to_mask(enc_lens, T)
-        pos = self._pos(T, x.device)
-        x = self.drop(x)
+        pos = self._pos(T, device)
+        if x is not None:
+            x = self.drop(x)
+        else:
+            self.drop.skip((B, T, D), device)
         pair_mask = None
         if self.attn_chunk_size is not None:
-            pair_mask = chunk_pair_mask(T, self.attn_chunk_size, self.attn_left_chunks, x.device)
-        for block, b in zip(self.blocks, bits):
-            x = block(x, pos, key_mask, b, pair_mask)
+            pair_mask = chunk_pair_mask(T, self.attn_chunk_size, self.attn_left_chunks, device)
+        if pipe is None:
+            for block, b in zip(self.blocks, bits):
+                x = block(x, pos, key_mask, b, pair_mask)
+        else:
+            x = self._pipelined_blocks(x, (B, T, D), pos, key_mask, bits, pair_mask, pipe)
         return self.ln_out(x), key_mask
+
+    def _pipelined_blocks(self, x, shape, pos, key_mask, bits, pair_mask,
+                          pipe: PipelineStage) -> torch.Tensor:
+        """GPipe over the stage group (JAX conformer.py:795-875): this rank
+        holds blocks `pipe.blocks(L)` and runs them on M = pipe.microbatches
+        microbatches of its rows over M + S - 1 ticks. Stage 0 takes
+        microbatch t at tick t (`x`, which the other stages do not have),
+        stage p works on microbatch t - p, and each tick's output moves to
+        the next stage (`ring_shift`); the host knows the schedule, so a
+        bubble tick runs no block and sends zeros. The last stage's finished
+        microbatches are summed over the group (`all_sum`), which gives every
+        stage the whole [B, T, D] output; autograd's backward of the shifts
+        and the sum is the reverse pipeline. Every shift's output is in the
+        loss's graph (`anchored`) and every shift leads to this stage's
+        parameters (`token`), so every rank makes the same exchanges in the
+        same order both ways. Bubble fraction (S - 1) / (M + S - 1).
+
+        Dropout: the blocks' draws are made ahead of the ticks for the whole
+        local batch, every block's in the one-process order, and each stage
+        keeps its own blocks' (`StageDraws`), so the draws equal the
+        one-process step's on the same rows."""
+        B, T, D = shape
+        S, M, s = pipe.size, pipe.microbatches, pipe.index
+        if B % M:
+            raise ValueError(f"local batch {B} not divisible by microbatches {M}")
+        mine = pipe.blocks(self.num_layers)
+        rng = self.parts.rng
+        device, cd = pos.device, self.parts.compute_dtype
+        replay = None
+        if rng.draws is not None:
+            sites = []
+            for g, block in enumerate(self.blocks):
+                drawn = [rng.draws(sh, device) for sh in block.dropout_shapes(B, T, D)]
+                if g in mine:
+                    sites.append(drawn)
+            replay = StageDraws(sites, M) if any(sites) else None
+        xs = x.chunk(M) if s == 0 else None
+        keys = key_mask.chunk(M)
+        # zero, in the graph of this stage's parameters: every shift's backward runs
+        token = next(self.blocks[mine[0]].parameters()).reshape(-1)[:1].sum() * 0
+        done, unread, cur = [], [], None
+        rng.replay = replay
+        try:
+            for t in range(M + S - 1):
+                m = t - s
+                live = 0 <= m < M
+                if cur is not None and not (live and s > 0):
+                    unread.append(cur)
+                if live:
+                    h = xs[m] if s == 0 else cur
+                    for j, g in enumerate(mine):
+                        if replay is not None:
+                            replay.at(j, m)
+                        h = self.blocks[g](h, pos, keys[m], bits[g], pair_mask)
+                        if replay is not None:
+                            replay.done()
+                    if s == S - 1:
+                        done.append(h)
+                else:
+                    h = torch.zeros((B // M, T, D), dtype=cd, device=device)
+                cur = ring_shift(h, pipe.group, pipe.nxt, pipe.prev, token) if S > 1 else None
+        finally:
+            rng.replay = None
+        if cur is not None:
+            unread.append(cur)
+        out = torch.cat(done) if s == S - 1 else torch.zeros((B, T, D), dtype=cd, device=device)
+        return all_sum(anchored(out, unread), pipe.group)
 
     def layer_bits(self, binary_mask: Optional[torch.Tensor]) -> List:
         """Per-layer `bits` of the QAT projections: 32 for every layer

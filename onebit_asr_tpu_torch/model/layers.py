@@ -92,6 +92,57 @@ class ModelShard:
         return t.narrow(dim, self.index * n, n)
 
 
+@dataclass(frozen=True)
+class PipelineStage:
+    """This rank's part of a pipelined call (parallel/pipeline.py): stage
+    `index` of `size` along the mesh's stage axis, holding the consecutive
+    blocks `blocks(L)`; its ranks pass activations over `group` on the ring
+    `prev` -> this rank -> `nxt` (global ranks), `microbatches` microbatches
+    of its rows a call. `group` None: one process, one stage."""
+
+    group: object
+    size: int
+    index: int
+    microbatches: int
+    nxt: int
+    prev: int
+
+    def blocks(self, num_layers: int) -> range:
+        n = num_layers // self.size
+        return range(self.index * n, (self.index + 1) * n)
+
+
+class StageDraws:
+    """The dropout bytes of a pipeline stage's blocks: `sites[j]` are local
+    block j's draws for the whole local batch, in the order its forward
+    makes them. `at(j, m)` points the next draws at block j's microbatch m;
+    each draw then takes the next site's rows of that microbatch, and
+    `done()` checks that the block took every site."""
+
+    def __init__(self, sites, microbatches: int):
+        self.sites = sites
+        self.microbatches = microbatches
+        self.block = self.micro = self.next = 0
+
+    def at(self, block: int, micro: int) -> None:
+        self.block, self.micro, self.next = block, micro, 0
+
+    def take(self, shape) -> torch.Tensor:
+        site = self.sites[self.block][self.next]
+        rows = site.shape[0] // self.microbatches
+        out = site.narrow(0, self.micro * rows, rows)
+        if tuple(out.shape) != tuple(shape):
+            raise RuntimeError(f"block {self.block} draw {self.next}: {tuple(shape)} asked, "
+                               f"{tuple(out.shape)} drawn (ConformerBlock.dropout_shapes)")
+        self.next += 1
+        return out
+
+    def done(self) -> None:
+        if self.next != len(self.sites[self.block]):
+            raise RuntimeError(f"block {self.block} took {self.next} of "
+                               f"{len(self.sites[self.block])} draws")
+
+
 class QATDense(nn.Module):
     """Training form of the quantized dense layer (QuantDense with
     packed=False, layers.py:145-167): an f32 kernel [in, out], an alpha (a
@@ -142,15 +193,19 @@ class DropoutRng:
     as in evaluation). A training forward sets it for one call
     (`generator_draws`); a test can set any function, JAX's own draws say.
     A tensor-parallel call also sets `shard` (a ModelShard), and `draw`
-    then draws the whole operand and keeps this rank's part."""
+    then draws the whole operand and keeps this rank's part. A pipeline
+    stage's blocks take theirs from `replay` (StageDraws) while it is set."""
 
     def __init__(self):
         self.draws: Optional[Callable[[Tuple[int, ...], torch.device], torch.Tensor]] = None
         self.shard: Optional[ModelShard] = None
+        self.replay: Optional[StageDraws] = None
 
     def draw(self, shape, device, model_dim: Optional[int] = None) -> torch.Tensor:
         """The bytes of a site whose operand here has `shape` (batch first;
         `model_dim`, if any, split over the model axis)."""
+        if self.replay is not None:
+            return self.replay.take(shape)
         tp = self.shard
         if tp is None:
             return self.draws(tuple(shape), device)
@@ -194,10 +249,20 @@ class FastDropout(nn.Module):
         self.rng = rng
         self.model_dim = model_dim
 
+    @property
+    def active(self) -> bool:
+        return self.rng.draws is not None and drop_threshold(self.rate) > 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rng.draws is None or drop_threshold(self.rate) <= 0:
+        if not self.active:
             return x
         return fast_dropout(x, self.rate, self.rng.draw(x.shape, x.device, self.model_dim))
+
+    def skip(self, shape, device) -> None:
+        """Draw (and drop) the bytes a call on an operand of `shape` would
+        take, so that later sites draw what they would have drawn."""
+        if self.active:
+            self.rng.draw(tuple(shape), device, self.model_dim)
 
 
 class Dense(nn.Module):

@@ -1,6 +1,7 @@
 """Parallelism on torch.distributed: process meshes and data parallelism
-(`mesh.py`), ZeRO-2 state sharding (`fsdp.py`), and the tensor-parallel
-layout (`sharding_rules.py`)."""
+(`mesh.py`), ZeRO-2 state sharding (`fsdp.py`), the tensor-parallel
+layout (`sharding_rules.py`) and GPipe pipeline parallelism
+(`pipeline.py`)."""
 
 from onebit_asr_tpu_torch.parallel.fsdp import (  # noqa: F401
     fsdp_state_specs,
@@ -14,6 +15,12 @@ from onebit_asr_tpu_torch.parallel.mesh import (  # noqa: F401
     make_multislice_mesh,
     replicate,
     shard_batch,
+)
+from onebit_asr_tpu_torch.parallel.pipeline import (  # noqa: F401
+    gather_state_pipeline,
+    make_pipeline_train_step,
+    pipeline_state_specs,
+    shard_state_pipeline,
 )
 from onebit_asr_tpu_torch.parallel.sharding_rules import (  # noqa: F401
     gather_state_tp,

@@ -42,6 +42,12 @@ Tensor parallelism (JAX's GSPMD step on a ("data", "model") mesh,
 projections (parallel/sharding_rules.py) and runs the step on its rows
 with its H / TP heads and d_ff / TP features, so rows 3-4 launch as often
 as above on [B, H/TP, T, dh] and rows 5-8 as above (replicated work).
+
+Pipeline parallelism (JAX's parallel/pipeline.py, a ("data", "stage")
+mesh; parallel/pipeline.py::make_pipeline_train_step on `_make_step`):
+each rank runs its L/S blocks on M microbatches of its rows, so rows 3-4
+launch 3 x M x L/S times on [B/M, H, T, dh]; rows 5-6 3 times on stage 0
+alone, rows 7-8 once on every stage.
 """
 
 from __future__ import annotations
@@ -90,7 +96,7 @@ def batch_to_device(batch, device) -> Batch:
 
 
 def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_enc_layers: int,
-                    group=None, tp=None):
+                    group=None, tp=None, pipe=None):
     """batch_loss(params, b, sp_mask, branch_rngs) -> (total, aux): the
     composite loss of the three branches [teacher, student, sp] at `params`
     (a {state-dict name: tensor} mapping of `model`); `branch_rngs` are three
@@ -100,7 +106,10 @@ def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_en
     global batch, so each rank's loss is the global one and its raw
     gradient is world x its rows' share of the global gradient. `tp` (a
     model.layers.ModelShard): `params` are this rank's tensor-parallel
-    shards, and every branch runs on them (make_tp_train_step)."""
+    shards, and every branch runs on them (make_tp_train_step). `pipe` (a
+    model.layers.PipelineStage): `params` hold this rank's stage of the
+    encoder's blocks, and every branch runs them pipelined
+    (parallel/pipeline.py::make_pipeline_train_step)."""
     L = num_enc_layers
 
     def batch_loss(params, b: Batch, sp_mask: torch.Tensor,
@@ -113,7 +122,7 @@ def make_batch_loss(model, loss_cfg: LossConfig, specials: SpecialTokens, num_en
                 model, params, (b["feats"], b["feat_lens"]),
                 dict(binary_mask=bm, tgt_inp=tgt_inp, tgt_valid_mask=tgt_valid,
                      draws=None if rng is None else generator_draws(rng), norm_group=group,
-                     tp=tp))
+                     tp=tp, pipe=pipe))
             enc_lens.append(enc_mask.sum(dim=-1))
             logits.append(logits_ctc)
             dec.append(dec_logits)
@@ -217,21 +226,23 @@ def step_draws(state: TrainState, loss_cfg: LossConfig, num_enc_layers: int,
 
 
 def _make_step(model, batch_loss, optimizer: AdamW, loss_cfg: LossConfig, num_enc_layers: int,
-               grad_accum: int, mesh=None, axes=("data",), reduce_tp=None):
-    """The step on `batch_loss`; over a `mesh`, data-parallel over `axes`,
-    or with `reduce_tp` (grads -> (grads, global norm)) tensor-parallel, whose
-    dropout draws are the one-process step's (no fold)."""
+               grad_accum: int, mesh=None, axes=("data",), reduce=None, fold=True):
+    """The step on `batch_loss`; over a `mesh`, data-parallel over `axes`
+    (the gradients averaged), or with `reduce` (grads -> (grads, global
+    norm)) model-parallel. Over a mesh the dropout seeds fold in the rank's
+    index over `axes` unless `fold` is False (the one-process step's
+    draws)."""
     dropout = model.cfg.dropout > 0
+    fold = mesh is not None and fold
 
     def train_step(state: TrainState, batch: Batch):
-        fold = mesh is not None and reduce_tp is None
         sp_mask, seeds = step_draws(state, loss_cfg, num_enc_layers,
                                     mesh.index(axes) if fold else None)
         (_, aux), grads = accumulated_value_and_grad(batch_loss, state.params, batch, sp_mask,
                                                      seeds, dropout, grad_accum)
         g_norm = None
-        if reduce_tp is not None:
-            grads, g_norm = reduce_tp(grads)
+        if reduce is not None:
+            grads, g_norm = reduce(grads)
         elif mesh is not None:
             # each rank's gradient is world x its rows' share (the loss sums
             # over the group): the global gradient is the mean, not the sum
@@ -352,7 +363,8 @@ def make_tp_train_step(model, optimizer: AdamW, loss_cfg: LossConfig, specials: 
                                  mesh.group_of(data_axis) if n_data > 1 else None, tp)
     return _make_step(model, batch_loss, optimizer, loss_cfg, num_enc_layers, grad_accum, mesh,
                       (data_axis,),
-                      lambda grads: tp_reduce_grads(grads, mesh, data_axis, model_axis))
+                      lambda grads: tp_reduce_grads(grads, mesh, data_axis, model_axis),
+                      fold=False)
 
 
 def make_multi_train_step(model, optimizer: AdamW, loss_cfg: LossConfig,

@@ -201,7 +201,8 @@ def main() -> int:
         aux_steps(again, ref, "one process again", tail)
         for i in range(2):
             # 1 + 3 TP steps of step 21's ranks: rank 0's run at dropout 0
-            run = chip_smoke.as_tensors(chip_smoke.tp_ranks(args.seed)[0][0.0])
+            run = chip_smoke.as_tensors(chip_smoke.spawn_ranks(
+                chip_smoke.tp_rank_work, chip_smoke.TP_SIZE, args.seed, "tensor parallel")[0][0.0])
             aux_steps(run, ref, f"tensor parallel {i}", tail)
     return 0
 

@@ -37,7 +37,12 @@ load. Cases and tolerances:
   `serve --checkpoint`'s; `run` in a fresh process imports no module of
   `onebit_asr_tpu_torch.model` and no JAX; `serve --artifact` takes the
   artifact's precision and slots over `--precision` and `--max_streams`, as
-  JAX does, and refuses `--device`;
+  JAX does, and takes `--device` only for a member the artifact holds;
+- members: a one-member cpu artifact loads, and refuses cuda naming cpu; a
+  cuda-first two-member artifact never runs its cpu member unless asked
+  (on this card-less machine its default load raises, pointing to
+  `--device cpu`); exporting for ("cpu", "cuda") here raises naming cuda
+  and writes nothing;
 - under ONEBIT_PACKED_INT8_ACT=1, `transcribe --packed` and `export offline
   --packed` of that run call row 2's CPU kernel and never row 1's, within
   the W2A8 f32 bounds (max 2e-2, mean 4e-3) of JAX's packed model under the
@@ -195,11 +200,23 @@ def test_symbolic_batch_artifact_serves_any_batch(params, tmp_path):
         assert _ids(*got) == _ids(*jfn(*_jax(feats, lens)))
 
 
-def test_symbolic_batch_rejects_packed(params):
+def test_symbolic_batch_rejects_packed(params, cli_run, tmp_path, capsys):
+    """Packed + symbolic raises JAX's ValueError. On a machine without a
+    card, an artifact for ("cpu", "cuda") raises naming cuda before anything
+    is traced, and the CLI writes no directory; "tpu" is refused (the port
+    has no TPU member)."""
     with pytest.raises(ValueError, match="static batch"):
         pexport.export_offline(_configs()[1], params, 2, T, None, packed=True, device="cpu")
-    with pytest.raises(ValueError, match="once per device"):
-        pexport.export_offline(_configs()[1], params, 2, T, 2, platforms=("cuda", "cpu"))
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="cuda needs a CUDA card"):
+        pexport.export_offline(_configs()[1], params, 2, T, 2, platforms=("cpu", "cuda"))
+    with pytest.raises(ValueError, match="no TPU member"):
+        pexport.export_offline(_configs()[1], params, 2, T, 2, platforms=("tpu", "cpu"))
+    out = tmp_path / "two"
+    assert export_cli.main(["offline", "--checkpoint", cli_run, "--out", str(out), "--frames",
+                            "64", "--batch", "2", "--platforms", "cpu,cuda"]) == 2
+    assert "cuda needs a CUDA card" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def _jax_packed_outputs(tmp_path, params, flags, int8_act):
@@ -429,8 +446,52 @@ def test_export_cli_and_serve_artifact(cli_run, tmp_path, monkeypatch, capsys):
                    "--device", "cpu"], lines, monkeypatch)
     finals = [e for e in got if e["event"] == "final"]
     assert len(finals) == 2 and got == want
-    assert serve_cli.main(["--artifact", stream, "--device", "cpu", "--port", "0"]) == 2
-    assert "--device: the artifact fixes" in capsys.readouterr().err
+    # --device picks a member the artifact holds, and is refused for another
+    assert _serve(["--artifact", stream, "--device", "cpu"], lines, monkeypatch) == want
+    capsys.readouterr()
+    assert serve_cli.main(["--artifact", stream, "--device", "cuda", "--port", "0"]) == 2
+    assert "--device: the artifact fixes its devices (set them when exporting it); it holds " \
+        "cpu" in capsys.readouterr().err
+
+
+def test_artifact_members_load_by_device(params, tmp_path, capsys):
+    """A one-member cpu artifact loads by default and with device="cpu", and
+    refuses cuda naming its cpu member (`export run --device cuda` exits 2).
+    A two-member artifact whose meta lists cuda first (its cuda file a copy
+    here: no card) loads its cpu member only when asked: by default it
+    raises on this machine, pointing to --device cpu. meta.json lists the
+    platforms in order and each member's file."""
+    cfg = _configs()[1]
+    path = str(tmp_path / "one")
+    pexport.save_artifact(pexport.export_offline(cfg, params, 2, T, 2, emit="logprobs",
+                                                 device="cpu"), path,
+                          pexport.artifact_meta(cfg, 2, "offline", "logprobs"))
+    meta = json.load(open(os.path.join(path, "meta.json")))
+    assert meta["platforms"] == ["cpu"] and meta["members"] == {"cpu": "module.pt2"}
+    args = _port(*_batch(2))
+    want = pexport.load_artifact(path)[0](*args)
+    for device in (None, "cpu"):
+        fn, got_meta = pexport.load_artifact(path, device=device)
+        assert got_meta["device"] == "cpu"
+        _equal(fn(*args), want)
+    with pytest.raises(ValueError, match="no cuda member \\(it holds cpu\\)"):
+        pexport.load_artifact(path, device="cuda")
+    assert export_cli.main(["run", "--artifact", path, "--device", "cuda"]) == 2
+    assert "it holds cpu" in capsys.readouterr().err
+
+    two = tmp_path / "two"
+    two.mkdir()
+    for name in ("module_cuda.pt2", "module_cpu.pt2"):
+        with open(os.path.join(path, "module.pt2"), "rb") as src, open(two / name, "wb") as dst:
+            dst.write(src.read())
+    json.dump({**meta, "platforms": ["cuda", "cpu"], "device": "cuda",
+               "members": {"cuda": "module_cuda.pt2", "cpu": "module_cpu.pt2"}},
+              open(two / "meta.json", "w"))
+    with pytest.raises(RuntimeError, match="load its cpu member with --device cpu"):
+        pexport.load_artifact(str(two))
+    fn, got_meta = pexport.load_artifact(str(two), device="cpu")
+    assert got_meta["device"] == "cpu"
+    _equal(fn(*args), want)
 
 
 @pytest.fixture

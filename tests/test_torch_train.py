@@ -455,14 +455,16 @@ def test_eval_step_matches_jax(precision):
 
 REFUSED_FLAGS = [
     ([], "real data"),
-    # --fsdp and --tensor_parallel are ported: side by side they exit 1 with
-    # JAX's message, and --tensor_parallel 2 in one process exits 1 with
+    # --fsdp, --tensor_parallel and --pipeline_stages are ported: --fsdp and
+    # --tensor_parallel side by side exit 1 with JAX's message, and
+    # --tensor_parallel 2 or --pipeline_stages 2 in one process exits 1 with
     # JAX's (one device is not divisible by 2); the ids keep the cases' names
     pytest.param(["--fsdp", "--tensor_parallel", "2"],
                  "FATAL: --tensor_parallel composes with data parallelism", id="flags1---fsdp"),
     pytest.param(["--tensor_parallel", "2"], "FATAL: 1 devices not divisible by --tensor_parallel 2",
                  id="flags2---tensor_parallel"),
-    (["--pipeline_stages", "2"], "--pipeline_stages"),
+    pytest.param(["--pipeline_stages", "2"], "FATAL: 1 devices not divisible by 2 stages",
+                 id="flags3---pipeline_stages"),
     (["--wandb"], "--wandb"),
 ]
 

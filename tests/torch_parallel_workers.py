@@ -1,5 +1,5 @@
-"""The ranks of tests/test_torch_parallel.py: a pool of gloo processes and
-the cases they run. It imports torch, numpy and the port only: a spawned
+"""The ranks of tests/test_torch_parallel.py, test_torch_tensor_parallel.py
+and test_torch_pipeline.py: a pool of gloo processes and the cases they run. It imports torch, numpy and the port only: a spawned
 child imports this module, never the test module (which imports JAX).
 
 `Pool(world)` starts `world` processes that join one gloo process group
@@ -31,6 +31,14 @@ SMALL = dict(vocab_size=16, enc_d_model=32, enc_layers=2, enc_heads=2, enc_d_ff=
 L = 2
 SP_MASK = np.array([True, False])
 WARMUP, TOTAL = 1, 8
+# JAX tests/test_pipeline.py::_model's depth and conv norm, over SMALL
+PIPE = dict(enc_layers=4, conv_norm="layer_norm")
+
+
+def sp_mask(num_layers):
+    """The pinned sp mask of `num_layers` layers: every other layer binary
+    (SP_MASK at 2)."""
+    return np.arange(num_layers) % 2 == 0
 
 
 def config(**flags):
@@ -77,10 +85,11 @@ def _model(flags):
 
 
 def _pin_sp_mask():
-    """Every step's sp mask is SP_MASK, as the JAX side pins it."""
+    """Every step's sp mask is `sp_mask(L)` (SP_MASK at L = 2), as the JAX
+    side pins it."""
     from onebit_asr_tpu_torch.train import step as tstep
 
-    tstep.sample_sp_mask = lambda *a, **k: torch.from_numpy(SP_MASK)
+    tstep.sample_sp_mask = lambda _, num_layers, *a, **k: torch.from_numpy(sp_mask(num_layers))
 
 
 def _np(d):
@@ -108,7 +117,7 @@ def one_process(flags=None, grad_accum=1, batch_size=8, fp32=False):
     model, state = _model(flags or {})
     opt = _optimizer()
     make = make_fp32_train_step if fp32 else make_train_step
-    step = make(model, opt, LossConfig(), SpecialTokens(), L, grad_accum)
+    step = make(model, opt, LossConfig(), SpecialTokens(), model.cfg.enc_layers, grad_accum)
     return _drive(step, state, opt, batches(batch_size))
 
 
@@ -228,6 +237,81 @@ def tensor_parallel(shape=(2, 2), axes=("data", "model"), flags=None, grad_accum
                rows=int(local[0]["feats"].shape[0]), coords=mesh.coords)
     if reference and dist.get_rank() == 0:
         out["reference"] = one_process(flags, grad_accum, batch_size)
+    return out
+
+
+def _counted_rows():
+    """Count the calls of rows 3-8 (their plain versions on the CPU) through
+    the hooks the model reaches them by: {row: calls}, live until the
+    process ends."""
+    from onebit_asr_tpu_torch.losses import ctc
+    from onebit_asr_tpu_torch.ops import attention as fa
+    from onebit_asr_tpu_torch.ops import subsampler as ss
+
+    calls = dict.fromkeys(("fused_relpos_attention", "fused_relpos_attention_bwd",
+                           "fused_subsample", "fused_subsample_bwd", "ctc_alpha", "ctc_beta"), 0)
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    fa._KERNELS = (counted("fused_relpos_attention", fa._KERNELS[0]),
+                   counted("fused_relpos_attention_bwd", fa._KERNELS[1]))
+    ss._KERNELS = (counted("fused_subsample", ss._KERNELS[0]),
+                   counted("fused_subsample_bwd", ss._KERNELS[1]))
+    ctc.ctc_alpha = counted("ctc_alpha", ctc.ctc_alpha)
+    ctc.ctc_beta = counted("ctc_beta", ctc.ctc_beta)
+    return calls
+
+
+def pipeline(shape=(2, 2), microbatches=2, flags=None, steps=2, reference=False, count=False):
+    """make_pipeline_train_step over every rank on a ("data", "stage") mesh of
+    `shape`, from shard_state_pipeline of the one-process state (PIPE's
+    model: 4 blocks, layer norm), on this rank's rows of `steps` batches:
+    each rank's own state before and after, the gathered full state, and
+    with `count` the calls of rows 3-8 it made (the batches repeat after
+    two). Rank 0 also returns, with `reference`, the
+    one-process step's results at a data axis of 1, else the data-parallel
+    step's over the mesh's "data" axis (every rank takes part)."""
+    from onebit_asr_tpu_torch.parallel import pipeline as P
+    from onebit_asr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from onebit_asr_tpu_torch.train.step import make_sharded_train_step
+    from onebit_asr_tpu_torch.utils.config import LossConfig, SpecialTokens
+
+    _pin_sp_mask()
+    flags = {**PIPE, **(flags or {})}
+    mesh = make_mesh(shape, ("data", "stage"))
+    model, full = _model(flags)
+    opt = _optimizer()
+    step = P.make_pipeline_train_step(model, opt, LossConfig(), SpecialTokens(),
+                                      model.cfg.enc_layers, mesh, microbatches)
+    state = P.shard_state_pipeline(full, mesh)
+    start = _np(state.params)
+    for prm in model.parameters():  # as the CLI does: the step passes params in
+        prm.data = prm.data.new_empty(0)
+    whole_batches = batches()
+    local = [shard_batch(whole_batches[i % len(whole_batches)], mesh, "data")
+             for i in range(steps)]
+    calls = _counted_rows() if count else None
+    out = _drive(step, state, opt, local)
+    out["local"] = {part: out.pop(part) for part in ("params", "mu", "nu")}
+    whole = P.gather_state_pipeline(state, mesh)
+    out.update(params=_np(whole.params), mu=_np(whole.mu), nu=_np(whole.nu),
+               rows=int(local[0]["feats"].shape[0]), coords=mesh.coords,
+               calls=dict(calls) if count else None, step=state.step, start=start)
+    if reference and mesh.axis_size("data") == 1:
+        if dist.get_rank() == 0:
+            out["reference"] = one_process(flags)
+    elif reference:
+        model, state = _model(flags)
+        ref_opt = _optimizer()
+        ref = make_sharded_train_step(model, ref_opt, LossConfig(), SpecialTokens(),
+                                      model.cfg.enc_layers, mesh, "data")
+        got = _drive(ref, state, ref_opt, local)
+        if dist.get_rank() == 0:
+            out["reference"] = got
     return out
 
 
